@@ -1,0 +1,78 @@
+"""Tree-masked attention over the staged draft tokens (``csrc/tree_attention.cu``).
+
+Counterpart of the reference's ``kernels/tree_attention.py::tree_attention_partial``:
+the T staged tokens attend over each other under the (B, T, T)
+ancestor-or-self mask (positional validity folded in), tiled over the rep
+GQA rows (row r*T + t is tree node t). Returns un-normalised partials that
+``flash_decode.flash_decode_merge`` merges with the cache partials.
+
+Layouts: q (B, KV, R, hd) contiguous; k_new/v_new (B, KV, T, hd) with hd
+contiguous and any other strides; mask (B, T, T) bool, contiguous.
+
+On a CPU tensor this computes the plain version (``kernels/ref.py``); on a
+CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.flash_decode import CUDA_HEAD_DIM
+
+launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    "tree_attn": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _F, _P],
+}
+
+
+def tree_attention_partial(
+    q, k_new, v_new, mask, *, scale: Optional[float] = None,
+) -> ref.Partials:
+    """(acc (B,KV,R,hd), m (B,KV,R), l (B,KV,R)) float32 partials."""
+    _check(q, k_new, v_new, mask)
+    if q.device.type == "cpu":
+        return ref.tree_attention_partial(q, k_new, v_new, mask, scale=scale)
+    global launches
+    B, KV, R, hd = q.shape
+    T = k_new.shape[2]
+    scale = hd ** -0.5 if scale is None else scale
+    f32 = dict(device=q.device, dtype=torch.float32)
+    acc = torch.empty((B, KV, R, hd), **f32)
+    m = torch.empty((B, KV, R), **f32)
+    l = torch.empty((B, KV, R), **f32)
+    lib = _build.load("tree_attention", _SIGNATURES)
+    P = _build.ptr
+    sb, sg, st, _ = k_new.stride()
+    _build.check(lib.tree_attn(
+        _DTYPES[q.dtype], P(q), P(k_new), P(v_new), P(mask), P(acc), P(m), P(l),
+        B, KV, R, T, hd, sb, sg, st, scale, _build.stream_ptr(q.device)), "tree_attention")
+    launches += 1
+    return acc, m, l
+
+
+def _check(q, k, v, mask) -> None:
+    """The kernel's input contract, checked on every device."""
+    if q.device.type not in ("cpu", "cuda") or any(t.device != q.device for t in (k, v, mask)):
+        raise ValueError("tree_attention: all tensors must be on one CPU or CUDA device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"tree_attention: q/k/v must share float32 or bfloat16, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if mask.dtype != torch.bool:
+        raise TypeError("tree_attention: mask must be bool")
+    B, KV, R, hd = q.shape
+    T = k.shape[2]
+    if k.shape != (B, KV, T, hd) or v.shape != k.shape or mask.shape != (B, T, T) or R % T:
+        raise ValueError(f"tree_attention: k {tuple(k.shape)} / mask {tuple(mask.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if q.device.type == "cuda" and hd != CUDA_HEAD_DIM:
+        raise ValueError(f"tree_attention: the CUDA kernel takes head_dim {CUDA_HEAD_DIM}, got {hd}")
+    if not (q.is_contiguous() and mask.is_contiguous()):
+        raise ValueError("tree_attention: q and mask must be contiguous")
+    if k.stride(-1) != 1 or v.stride() != k.stride():
+        raise ValueError("tree_attention: k/v need a contiguous head dim and equal strides")

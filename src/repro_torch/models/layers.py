@@ -1,0 +1,75 @@
+"""Primitive layers: norms, RoPE, MLPs, embeddings — plain functions on tensors."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm scaled by ``(1 + weight)``: the reference stores the norm
+    weight as an offset from one (zero-initialised)."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    return (y * (1.0 + weight.float())).to(x.dtype)
+
+
+# ---------------------------------------------------------------------- RoPE
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies, shape (head_dim // 2,), float32."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotate (..., S, H, head_dim) by per-token integer ``positions`` (..., S):
+    the split-half rotation, angles in float32."""
+    hd = x.shape[-1]
+    inv = rope_frequencies(hd, theta, x.device)
+    ang = positions.float()[..., None] * inv                 # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]                       # (..., S, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# ----------------------------------------------------------------------- MLP
+def _mm(x: torch.Tensor, w: torch.Tensor, quantize) -> torch.Tensor:
+    """(..., d) @ (d, f), optionally through the W8A8 kernel
+    (``quantize="int8"``: dynamic per-row activation / per-column weight
+    int8, the ActivationQuant DSIA's execution)."""
+    if quantize is None:
+        return x @ w
+    if quantize != "int8":
+        raise ValueError(f"unsupported quantize mode {quantize!r}")
+    from repro_torch.kernels.ops import quantized_matmul
+
+    lead = x.shape[:-1]
+    out = quantized_matmul(x.reshape(-1, x.shape[-1]), w)
+    return out.reshape(*lead, w.shape[-1]).to(x.dtype)
+
+
+def mlp_apply(params: dict, x: torch.Tensor, act: str, gated: bool, quantize=None) -> torch.Tensor:
+    """SwiGLU/GeGLU (gated) or plain 2-matrix MLP. ``quantize`` routes the
+    projections through the W8A8 kernel."""
+    fn = F.silu if act == "silu" else _gelu_tanh
+    if gated:
+        g = fn(_mm(x, params["w_gate"], quantize))
+        u = _mm(x, params["w_up"], quantize)
+        return _mm(g * u, params["w_down"], quantize)
+    h = fn(_mm(x, params["w_up"], quantize))
+    return _mm(h, params["w_down"], quantize)
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+# ----------------------------------------------------------------- embeddings
+def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return embedding[tokens]
+
+
+def unembed(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """(..., d) @ (d, V) -> logits in float32."""
+    return x.float() @ head.float()
