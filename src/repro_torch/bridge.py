@@ -36,8 +36,8 @@ def params_from_jax(params, *, device="cuda", dtype: Optional[torch.dtype] = Non
 
 
 def cache_from_jax(cache, *, device="cuda") -> dict:
-    """Reference dense cache (nested numpy) -> port cache on ``device``."""
-    if "page_table" in cache:
-        raise NotImplementedError("paged KV caches are not ported yet")
+    """Reference cache (nested numpy), dense or paged (``k_pages``,
+    ``v_pages``, ``page_table``: the same layout in both packages) -> port
+    cache on ``device``."""
     dev = resolve_device(device)
     return tree_map(lambda a: _leaf(a, dev, None), cache)

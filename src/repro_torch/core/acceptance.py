@@ -37,5 +37,16 @@ class AcceptanceTracker:
         """Current estimate; ``default`` overrides the global cold-start prior."""
         return self._alpha.get(config, self.prior if default is None else default)
 
+    def reset(self, config: str, alpha0: Optional[float] = None) -> None:
+        """Drop a configuration's history (a server slot reused by a new
+        request); optionally re-seed its cold-start prior."""
+        self._alpha.pop(config, None)
+        self._hist.pop(config, None)
+        if alpha0 is not None:
+            self.set_prior(config, alpha0)
+
+    def counts(self, config: str) -> int:
+        return len(self._hist.get(config, ()))
+
     def snapshot(self) -> Dict[str, float]:
         return dict(self._alpha)

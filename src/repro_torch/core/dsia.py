@@ -37,6 +37,16 @@ class DraftSpec:
             raise ValueError(f"{self.name}: {len(self.gates)} gates for {num_layers} layers")
         return np.asarray(self.gates, np.float32)
 
+    def unsupported_by_gates_only(self) -> Tuple[str, ...]:
+        """Spec fields that a gates-only drafting path cannot honor (the
+        batched server's chain_fused and tree_fused modes)."""
+        bad = []
+        if self.quantize is not None:
+            bad.append(f"quantize={self.quantize!r}")
+        if self.attn_override is not None:
+            bad.append(f"attn_override={self.attn_override!r}")
+        return tuple(bad)
+
 
 def layer_sparsity(cfg: ModelConfig, sparsity: float, name: Optional[str] = None) -> DraftSpec:
     """Skip ``sparsity`` fraction of layers, evenly interleaved, keeping the

@@ -1,4 +1,7 @@
-"""CAS-Spec single-sequence engine: DSIA draft execution + tree verification.
+"""CAS-Spec engines: the single-sequence ``SpecEngine`` (DSIA draft
+execution + tree verification) and the batched server's round functions
+(``chain_draft_scan``, ``tree_draft_scan``, ``verify_accept_commit``,
+``tree_verify_accept_commit``).
 
 Execution modes for layer-gated drafts:
   - "slice": run only the kept layers (fewer FLOPs — the honest speed of a
@@ -9,6 +12,15 @@ Execution modes for layer-gated drafts:
 Cache discipline: drafts are STAGE-ONLY (never committed); only the full
 target model's verification staged KV is committed, so the cache is always
 exact — the losslessness invariant (see models.model).
+
+The batched functions are the reference's ``core/engine.py`` functions of
+the same names with ``draft_kv="recompute"``: every draft step re-decodes
+the whole padded (B, N) block against the read-only cache. The reference's
+``lax.scan`` over steps is a Python loop here (PyTorch runs eagerly), and
+its drop-mode scatters are one-hot ``torch.where`` updates (an index of N
+matches no column). A layer-sparse draft runs either through the gate
+vector (``gates``, mask exec) or, on a homogeneous stack, through
+``layer_ids`` (slice exec): the kept layers only, the same numbers.
 """
 from __future__ import annotations
 
@@ -202,3 +214,178 @@ class SpecEngine:
             self.ar_step()
             out.append(self.tokens[-1])
         return out[:n_tokens]
+
+
+# ============================================================ batched rounds
+DRAFT_KV_MODES = ("recompute", "carry")
+
+
+def _check_draft_kv(draft_kv: str, who: str) -> None:
+    if draft_kv not in DRAFT_KV_MODES:
+        raise ValueError(f"unknown draft_kv {draft_kv!r}; pick one of {DRAFT_KV_MODES}")
+    if draft_kv == "carry":
+        raise NotImplementedError(
+            f"{who}: draft_kv='carry' (carried staged draft KV) is not ported yet "
+            "(ROADMAP A.3/A.4); use draft_kv='recompute'")
+
+
+def chain_draft_scan(
+    cfg: ModelConfig,
+    steps: int,                       # draft steps to run (<= k)
+    params: dict,
+    cache: dict,                      # batched committed cache (read-only here)
+    pending: torch.Tensor,            # (B,) int32 last verified token per slot
+    chains: torch.Tensor,             # (B, k) int32, PLD-prefilled prefix
+    have: torch.Tensor,               # (B,) int32 tokens already proposed (PLD)
+    limit: torch.Tensor,              # (B,) int32 per-slot adaptive draft cap
+    gates=None,                       # (num_layers,) DSIA layer gates (mask exec)
+    *,
+    layer_ids: Optional[List[int]] = None,   # kept layers (slice exec)
+    draft_kv: str = "recompute",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k-step neural chain drafting. Step ``j`` re-decodes the (B, k+1) block
+    ``[pending, chain]`` under a causal mask and writes the draft's argmax at
+    position ``j`` into chain position ``j`` only where ``have <= j <
+    limit``: PLD tokens are never overwritten and slots past their budget
+    stop. Returns (chains, have) with ``have = max(have, min(limit, steps))``."""
+    _check_draft_kv(draft_kv, "chain_draft_scan")
+    B, K = chains.shape
+    toks = torch.cat([pending[:, None], chains], dim=1).to(torch.int32)
+    mask = torch.tril(torch.ones((K + 1, K + 1), dtype=torch.bool, device=toks.device))
+    for j in range(steps):
+        logits, _ = M.decode_step(cfg, params, cache, toks, gates=gates, tree_mask=mask,
+                                  layer_ids=layer_ids)
+        nxt = logits[:, j].argmax(dim=-1).to(torch.int32)
+        fill = (have <= j) & (j < limit)
+        toks[:, j + 1] = torch.where(fill, nxt, toks[:, j + 1])
+    have = torch.maximum(have, torch.clamp(limit, max=steps)).to(torch.int32)
+    return toks[:, 1:], have
+
+
+def tree_draft_scan(
+    cfg: ModelConfig,
+    expansions: int,                  # expansion steps (max per-slot budget)
+    top_k: int,                       # sibling candidates per expansion
+    params: dict,
+    cache: dict,                      # batched committed cache (read-only here)
+    tokens: torch.Tensor,             # (B, N) int32 seeded node tokens (node 0 = pending)
+    parents: torch.Tensor,            # (B, N) int32, -1 at root/unused
+    depth: torch.Tensor,              # (B, N) int32
+    p_acc: torch.Tensor,              # (B, N) float32 accumulated acceptance
+    mask: torch.Tensor,               # (B, N, N) bool ancestor closure
+    count: torch.Tensor,              # (B,) int32 nodes used (root + PLD seed)
+    limit: torch.Tensor,              # (B,) int32 per-slot expansion budget (Eq. 5)
+    alpha: torch.Tensor,              # (B,) float32 per-slot neural acceptance
+    c: torch.Tensor,                  # () float32 draft cost coefficient
+    t_min: torch.Tensor,              # () float32 min-speedup threshold
+    gates=None,                       # (num_layers,) DSIA layer gates (mask exec)
+    *,
+    top_p: float = 0.3,
+    layer_ids: Optional[List[int]] = None,   # kept layers (slice exec)
+    draft_kv: str = "recompute",
+):
+    """DyTC tree growth over every slot at once (§4.2, Alg. 1 batched).
+
+    Each step decodes the padded node block, then per slot picks the active
+    node with the highest P_acc (the root is exempt from the stop rule
+    P_acc * alpha / c < t_min), consumes it, and appends the draft's
+    TOP-P-filtered ``top_k`` next tokens as children with P_acc
+    ``leaf_p * min(1, alpha * sqrt(p_i / p_top))``. A candidate equal to an
+    existing child of the leaf is not re-added; the existing node's P_acc is
+    raised to the neural score, and when it is the top-1 it becomes
+    ``first_neural``, the Eq. 4 observation point. Returns (tokens, parents,
+    depth, p_acc, mask, count, first_neural (B,) int32, -1 if none).
+    """
+    _check_draft_kv(draft_kv, "tree_draft_scan")
+    B, N = tokens.shape
+    dev = tokens.device
+    b_idx = torch.arange(B, device=dev)
+    slot_j = torch.arange(N, device=dev)[None]
+    tokens, parents, depth, mask, count = (t.clone() for t in (tokens, parents, depth, mask, count))
+    p_acc = p_acc.float().clone()
+    active = slot_j < count[:, None]
+    first_neural = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    alpha = alpha.float()
+    rate = alpha / torch.clamp_min(c.float(), 1e-6)
+    base = cache["pos"][:, None]            # drafting never moves pos
+    for e in range(expansions):
+        logits, _ = M.decode_step(cfg, params, cache, tokens, gates=gates, tree_mask=mask,
+                                  q_pos=base + depth, layer_ids=layer_ids)
+        # select (Alg. 1 line 5) + stop rule; the node is consumed either way
+        leaf = torch.where(active, p_acc, float("-inf")).argmax(dim=1)
+        valid = active.any(dim=1) & (e < limit)
+        leaf_p = p_acc[b_idx, leaf]
+        grow = valid & ((leaf == 0) | (leaf_p * rate >= t_min))
+        active = active & ~(valid[:, None] & (slot_j == leaf[:, None]))
+        probs = torch.softmax(logits[b_idx, leaf].float(), dim=-1)
+        top_vals, top_idx = torch.topk(probs, top_k, dim=-1)
+        # append the kept candidates contiguously at count
+        parent_row = mask[b_idx, leaf]                       # (B, N)
+        parent_depth = depth[b_idx, leaf]
+        for r in range(top_k):
+            tok_r = top_idx[:, r].to(torch.int32)
+            dup_cand = (parents == leaf[:, None]) & (tokens == tok_r[:, None]) & (slot_j < count[:, None])
+            dup = dup_cand.any(dim=1)
+            dup_idx = dup_cand.to(torch.uint8).argmax(dim=1)
+            keep = grow & ~dup & (count < N)
+            if r > 0:   # TOP-P sibling filter (Alg. 1 line 19)
+                keep &= top_vals[:, r] >= top_p * top_vals[:, 0]
+            idx = torch.where(keep, count.long(), N)
+            score = leaf_p * torch.clamp(
+                alpha * torch.sqrt(top_vals[:, r] / torch.clamp_min(top_vals[:, 0], 1e-9)),
+                max=1.0)
+            refresh = slot_j == torch.where(grow & dup, dup_idx, N)[:, None]
+            p_acc = torch.where(refresh, torch.maximum(p_acc, score[:, None]), p_acc)
+            new = slot_j == idx[:, None]                        # (B, N), none if dropped
+            tokens = torch.where(new, tok_r[:, None], tokens)
+            parents = torch.where(new, leaf[:, None].to(torch.int32), parents)
+            depth = torch.where(new, (parent_depth + 1)[:, None], depth)
+            p_acc = torch.where(new, score[:, None], p_acc)
+            mask = torch.where(new[:, :, None], (parent_row | new)[:, None, :], mask)
+            active = active | new
+            if r == 0:
+                outcome = torch.where(grow & dup, dup_idx, idx)
+                first_neural = torch.where((first_neural < 0) & (outcome < N),
+                                           outcome.to(torch.int32), first_neural)
+            count = count + keep.to(torch.int32)
+    return tokens, parents, depth, p_acc, mask, count, first_neural
+
+
+def verify_accept_commit(cfg: ModelConfig, params: dict, cache: dict, pending: torch.Tensor,
+                         chains: torch.Tensor, have: torch.Tensor, live: torch.Tensor):
+    """One target round for chain proposals: verify [pending, chain] jointly,
+    accept the longest matching prefix per slot and commit it (dead slots
+    accept nothing). Returns (cache, nxt (B, k+1), n_chain (B,),
+    new_pending (B,)), int32 tensors."""
+    toks = torch.cat([pending[:, None], chains], dim=1).to(torch.int32)
+    logits, staged = M.decode_step(cfg, params, cache, toks)
+    nxt = logits.argmax(dim=-1).to(torch.int32)                   # (B, k+1)
+    B, K = chains.shape
+    steps = torch.arange(K + 1, device=toks.device)
+    ok = (chains == nxt[:, :K]) & (steps[None, :K] < have[:, None])
+    n_chain = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+    n_chain = torch.where(live, n_chain, 0)
+    n_acc = torch.where(live, n_chain + 1, 0).to(torch.int32)     # + pending
+    new_pending = nxt.gather(1, n_chain[:, None].long())[:, 0]
+    cache = M.commit_cache(cfg, cache, staged, steps[None].expand(B, K + 1), n_acc)
+    return cache, nxt, n_chain, new_pending
+
+
+def tree_verify_accept_commit(cfg: ModelConfig, params: dict, cache: dict,
+                              tokens: torch.Tensor, parents: torch.Tensor, depth: torch.Tensor,
+                              mask: torch.Tensor, count: torch.Tensor, live: torch.Tensor):
+    """One target round for tree proposals: decode the padded node block
+    under the per-slot ancestor masks, walk the longest target-greedy path
+    per slot (on the host: one read of the argmax) and commit it. Returns
+    (cache, path_idx (B, N), n_acc (B,), bonus (B,)); the last three are
+    int32 numpy arrays."""
+    logits, staged = M.decode_step(cfg, params, cache, tokens, tree_mask=mask,
+                                   q_pos=cache["pos"][:, None] + depth)
+    nxt = logits.argmax(dim=-1).cpu().numpy()
+    path, n_acc, bonus = verify_lib.greedy_accept_tree_batched(
+        tokens.cpu().numpy(), parents.cpu().numpy(), count.cpu().numpy(), nxt)
+    n_acc = np.where(live.cpu().numpy(), n_acc, 0).astype(np.int32)
+    dev = tokens.device
+    cache = M.commit_cache(cfg, cache, staged, torch.as_tensor(path, device=dev),
+                           torch.as_tensor(n_acc, device=dev))
+    return cache, path, n_acc, bonus

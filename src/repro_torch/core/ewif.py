@@ -1,9 +1,17 @@
-"""The DyTC objective (Eq. 5) and its argmax, host math; a copy of the
-reference's ``core/ewif.py`` functions the scheduler needs."""
+"""EWIF of vanilla SD and the DyTC objective (Eq. 5) with its argmax, host
+math; a copy of the reference's ``core/ewif.py`` functions the scheduler
+and the batched server need."""
 from __future__ import annotations
 
 import math
 from typing import Tuple
+
+
+def t_sd(alpha: float, c: float, k: int) -> float:
+    """EWIF of vanilla SD: (1 - a^{k+1}) / ((1-a)(ck + 1))."""
+    if alpha >= 1.0:
+        return (k + 1) / (c * k + 1)
+    return (1.0 - alpha ** (k + 1)) / ((1.0 - alpha) * (c * k + 1.0))
 
 
 def dytc_step_objective(alpha: float, c: float, k: int, alpha_dn: float, c_dn: float) -> float:

@@ -1,4 +1,5 @@
-"""Draft token tree for DyTC (host-side structure), a copy of the reference's.
+"""Draft token tree for DyTC (host-side structure) and the batched server's
+array seed, copies of the reference's.
 
 Node 0 is the root: the *pending bonus token* from the previous verification
 (Alg. 1 line 1). Its KV is not yet committed; every verification pass
@@ -93,3 +94,43 @@ class DraftTree:
                 j = self.parents[j]
         rel[n:] = np.arange(T - n) + max(self.depth) + 1 if n else 0
         return tokens, rel, mask, real
+
+
+def tree_seed_arrays(
+    pending: np.ndarray,          # (B,) int
+    chains: np.ndarray,           # (B, K) int — PLD-prefilled chain per slot
+    have: np.ndarray,             # (B,) int — chain tokens actually proposed
+    bucket: int,
+    pld_alpha: float = 0.3,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Batched tree seed: per-slot chain trees padded to ``bucket``.
+
+    Node 0 is the pending bonus token; nodes 1..have[b] are the slot's PLD
+    chain (parent = previous node). Same node layout and mask convention as
+    ``DraftTree.flatten``: unused slots see only themselves and no real node
+    sees them. Returns (tokens (B,N) i32, parents (B,N) i32 with -1 at
+    roots/unused, depth (B,N) i32, p_acc (B,N) f32, mask (B,N,N) bool,
+    count (B,) i32).
+    """
+    pending = np.asarray(pending)
+    chains = np.asarray(chains)
+    have = np.asarray(have)
+    B, K = chains.shape
+    N = bucket
+    if N < K + 1:
+        raise ValueError(f"bucket {N} cannot hold a {K}-token chain + root")
+    j = np.arange(N)
+    seeded = (j[None, :] >= 1) & (j[None, :] <= have[:, None])   # (B, N)
+    tokens = np.zeros((B, N), np.int32)
+    tokens[:, 0] = pending
+    tokens[:, 1: K + 1] = np.where(seeded[:, 1: K + 1], chains, 0)
+    parents = np.where(seeded, j[None, :] - 1, -1).astype(np.int32)
+    depth = np.where(seeded, j[None, :], 0).astype(np.int32)
+    p_acc = np.where(seeded, pld_alpha ** depth.astype(np.float64), 0.0)
+    p_acc[:, 0] = 1.0
+    p_acc = p_acc.astype(np.float32)
+    # chain ancestor closure: node i sees j <= i; unused slots are self-only
+    mask = np.broadcast_to(np.eye(N, dtype=bool), (B, N, N)).copy()
+    mask |= (j[None, None, :] < j[None, :, None]) & seeded[:, :, None]
+    count = (have + 1).astype(np.int32)
+    return tokens, parents, depth, p_acc, mask, count

@@ -2,11 +2,16 @@
 // kernels (plain C interface, built by nvcc for sm_90a, loaded with ctypes).
 //
 // One CTA owns ROWS query rows of one (batch, kv-head) and walks a range of
-// key slots in chunks of CH = 32 (one slot per lane). Each chunk of K and V
-// is staged in shared memory as float32; K rows are padded to HD + 1 floats
-// so that lane j reading slot j's row is free of bank conflicts. Each warp
-// keeps the running (m, l, acc) of RPW rows in registers, so K/V are read
-// from device memory once per CTA, not once per row.
+// key slots in chunks of CH = 32 (one slot per lane). Where slot s lives is
+// the caller's: a functor maps it to an element offset from the K/V base
+// pointer (a stride for a dense cache, a page-table lookup for a paged one);
+// the chunk's CH offsets are computed once, into shared memory. Each chunk
+// of K and V is staged in shared memory as float32; K rows are padded to
+// HD + 1 floats so that lane j reading slot j's row is free of bank
+// conflicts. Each warp keeps the running (m, l, acc) of RPW rows in
+// registers, so K/V are read from device memory once per CTA, not once per
+// row. The arithmetic does not depend on where a slot lives: a paged cache
+// gives bitwise the partials of the dense cache it gathers to.
 //
 // Masking contract of the reference (kernels/flash_decode.py::_kernel):
 // a masked score is NEG_INF = -1e30, never -inf, so a row with no visible
@@ -42,6 +47,12 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Slot s of a dense cache: element offset s * stride.
+struct DenseSlots {
+  long long stride;
+  __device__ __forceinline__ long long operator()(int s) const { return s * stride; }
+};
+
 template <int HD>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t(ROWS) * HD + size_t(CH) * (HD + 1) + size_t(CH) * HD);
@@ -49,12 +60,12 @@ constexpr size_t smem_bytes() {
 
 // Partials (acc, m, l) of rows [row0, row0 + ROWS) ∩ [0, R) over key slots
 // [s_begin, s_end). q: (R, HD) contiguous rows of this (batch, kv-head);
-// k/v: slot s at k[s * s_stride + d]; vis(row, s) is the visibility test.
+// k/v: slot s at k[slot(s) + d]; vis(row, s) is the visibility test.
 // Outputs are indexed by row: acc[row * HD + d], m[row], l[row].
-template <typename T, int HD, class Vis>
+template <typename T, int HD, class Slots, class Vis>
 __device__ __forceinline__ void rows_partials(
     const T* __restrict__ q, int R, int row0, float scale,
-    const T* __restrict__ k, const T* __restrict__ v, long long s_stride,
+    const T* __restrict__ k, const T* __restrict__ v, const Slots& slot,
     int s_begin, int s_end, const Vis& vis,
     float* __restrict__ acc, float* __restrict__ m_out, float* __restrict__ l_out) {
   static_assert(HD % 32 == 0, "head_dim must be a multiple of 32");
@@ -63,6 +74,7 @@ __device__ __forceinline__ void rows_partials(
   float* qs = smem;                      // ROWS x HD, pre-scaled
   float* ks = qs + ROWS * HD;            // CH x (HD + 1)
   float* vs = ks + CH * (HD + 1);        // CH x HD
+  __shared__ long long offs[CH];         // element offset of each chunk slot
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   for (int i = tid; i < ROWS * HD; i += THREADS) {
@@ -81,12 +93,14 @@ __device__ __forceinline__ void rows_partials(
 
   for (int c0 = s_begin; c0 < s_end; c0 += CH) {
     __syncthreads();
+    if (tid < CH) offs[tid] = c0 + tid < s_end ? slot(c0 + tid) : 0;
+    __syncthreads();
     for (int i = tid; i < CH * HD; i += THREADS) {
       const int j = i / HD, d = i - j * HD, s = c0 + j;
       float kk = 0.f, vv = 0.f;
       if (s < s_end) {
-        kk = to_f(k[(long long)s * s_stride + d]);
-        vv = to_f(v[(long long)s * s_stride + d]);
+        kk = to_f(k[offs[j] + d]);
+        vv = to_f(v[offs[j] + d]);
       }
       ks[j * (HD + 1) + d] = kk;
       vs[j * HD + d] = vv;
@@ -138,7 +152,9 @@ __device__ __forceinline__ void rows_partials(
 }
 
 // Opts a kernel into the dynamic shared memory it needs (above 48 KB only
-// after this attribute is set).
+// after this attribute is set). Callers keep the result in a function-local
+// static, so the attribute is set at the first launch only and a later
+// launch can be captured into a CUDA graph.
 template <class K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);

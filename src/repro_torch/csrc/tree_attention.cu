@@ -40,8 +40,8 @@ __global__ void __launch_bounds__(THREADS) tree_kernel(
   const long long bg = (long long)b * KV + g;
   const TreeVis vis{mask + (long long)b * Tn * Tn, Tn};
   rows_partials<T, HD>(q + bg * R * HD, R, rt * ROWS, scale, k + b * k_sb + g * k_sg,
-                       v + b * k_sb + g * k_sg, k_st, 0, Tn, vis, acc + bg * R * HD,
-                       m + bg * R, l + bg * R);
+                       v + b * k_sb + g * k_sg, DenseSlots{k_st}, 0, Tn, vis,
+                       acc + bg * R * HD, m + bg * R, l + bg * R);
 }
 
 template <typename T, int HD>
@@ -50,8 +50,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const unsigned c
                    long long k_sb, long long k_sg, long long k_st, float scale,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
-  cudaError_t err = allow_smem(tree_kernel<T, HD>, smem);
-  if (err != cudaSuccess) return err;
+  static const cudaError_t smem_err = allow_smem(tree_kernel<T, HD>, smem);
+  if (smem_err != cudaSuccess) return smem_err;
   dim3 grid((R + ROWS - 1) / ROWS, KV, B);
   tree_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask, acc,

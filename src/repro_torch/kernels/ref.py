@@ -8,7 +8,8 @@ against them. Nothing on the main path calls them for a CUDA tensor.
 Layouts (GQA rep = H // KV, R = rep * T query rows ordered r * T + t):
   q (B, KV, R, hd); k/v cache (B, KV, S, hd); staged k/v (B, KV, T, hd);
   kv_pos (B, S) int32 (-1 = invalid slot); q_pos (B, R) int32;
-  tree_mask (B, T, T) bool.
+  tree_mask (B, T, T) bool; paged pools (NP, P, KV, hd), the model's
+  layout, with page_table (B, n_pp) int32 (-1 = unallocated) and S = n_pp * P.
 Masked scores are NEG_INF = -1e30, never -inf: a row with no visible slot
 keeps finite partials (m = -1e30, p = 1 per slot) and never turns NaN.
 """
@@ -58,6 +59,29 @@ def flash_decode_partial(
     return _partials(s, v.float())
 
 
+def paged_gather(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """The dense per-slot view of a block-paged pool, after the reference's
+    ``ref_paged_gather``: pool (NP, P, KV, hd) -> (B, n_pp * P, KV, hd), the
+    dense cache layout. Unallocated entries (-1) read page 0; the caller's
+    ``kv_pos = -1`` masks what they pull in."""
+    NP, P = pool.shape[:2]
+    B, n_pp = page_table.shape
+    safe = page_table.clamp(0, NP - 1).long()
+    return pool[safe].reshape(B, n_pp * P, *pool.shape[2:])
+
+
+def flash_decode_paged_partial(
+    q, k_pages, v_pages, page_table, kv_pos, q_pos, *, kind: str = "causal", window: int = 0,
+    sink: int = 0, scale: float | None = None,
+) -> Partials:
+    """Plain version of kernels/flash_decode.py::flash_decode_paged_partial:
+    the dense partials over the gathered view."""
+    k = paged_gather(k_pages, page_table).transpose(1, 2)
+    v = paged_gather(v_pages, page_table).transpose(1, 2)
+    return flash_decode_partial(q, k, v, kv_pos, q_pos, kind=kind, window=window, sink=sink,
+                                scale=scale)
+
+
 def tree_attention_partial(q, k_new, v_new, mask, *, scale: float | None = None) -> Partials:
     """Plain version of kernels/tree_attention.py::tree_attention_partial:
     row r*T + t sees the staged tokens node t's mask row allows."""
@@ -98,6 +122,18 @@ def ref_verify_attention(
     s_d = torch.where(vis[:, None], s_d, torch.full_like(s_d, NEG_INF))
     p = torch.softmax(torch.cat([s_c, s_d], dim=-1), dim=-1)
     return p @ torch.cat([v_cache, v_new], dim=2).float()
+
+
+def ref_paged_verify_attention(
+    q, k_pages, v_pages, page_table, kv_pos, q_pos, k_new, v_new, tree_mask, *,
+    kind: str = "causal", window: int = 0, sink: int = 0,
+) -> torch.Tensor:
+    """Paged oracle, after the reference's ``ref_paged_verify_attention``:
+    gather the pool to the dense view, then the dense oracle."""
+    k = paged_gather(k_pages, page_table).transpose(1, 2)
+    v = paged_gather(v_pages, page_table).transpose(1, 2)
+    return ref_verify_attention(q, k, v, kv_pos, q_pos, k_new, v_new, tree_mask, kind=kind,
+                                window=window, sink=sink)
 
 
 def ref_int8_matmul(x_q, w_q, x_scale, w_scale) -> torch.Tensor:

@@ -3,6 +3,7 @@
 Layouts (the reference's):
   q/k/v activations: (B, S, H, hd) / (B, S, KV, hd)
   KV cache:          (B, S_cache, KV, hd)
+  paged KV cache:    pool (NP, P, KV, hd) + page table (B, n_pp)
 
 Mask kinds:
   causal     — kv_pos <= q_pos
@@ -18,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.ops import verify_attention
+from repro_torch.kernels.ops import paged_verify_attention, verify_attention
 from repro_torch.kernels.ref import NEG_INF, visible
 
 
@@ -93,8 +94,48 @@ def decode_attention(
     if any(a is not None for a in (k_staged, v_staged, staged_pos, staged_mask)):
         raise NotImplementedError("decode_attention: carried staged KV (k_staged/"
                                   "v_staged/staged_pos/staged_mask) is not ported yet")
+    kv_pos, q_pos, vis = _positions(q, k_cache.shape[1], cache_pos, q_pos, tree_mask, ring,
+                                    kind, window, sink)
+    out = verify_attention(q, k_cache, v_cache, kv_pos, q_pos, k_new, v_new, vis, kind=kind,
+                           window=window, sink=sink)
+    return out.to(q.dtype)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,           # (B, T, H, hd)
+    k_pages: torch.Tensor,     # (NP, P, KV, hd) shared pool
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # (B, n_pp) int32, -1 = unallocated
+    cache_pos,                 # (B,) int32: committed tokens per sequence
+    k_new: torch.Tensor,       # (B, T, KV, hd)
+    v_new: torch.Tensor,
+    q_pos: torch.Tensor,       # (B, T) or (T,)
+    *,
+    tree_mask: Optional[torch.Tensor] = None,
+    kind: str = "causal",
+    window: int = 0,
+    sink: int = 0,
+    live: Optional[int] = None,
+) -> torch.Tensor:
+    """``decode_attention`` over a block-paged cache: slot s of row b is row
+    s % P of pool page page_table[b, s // P], valid iff s < cache_pos[b].
+    The pool is read through the table by the paged kernel, never gathered
+    (the reference gathers a dense view with ``jnp.take``; the output is the
+    same). ``live`` is the live length the kernel splits by (see
+    ``kernels/flash_decode.py``). Returns (B, T, H, hd) in q's dtype."""
+    S = page_table.shape[1] * k_pages.shape[1]
+    kv_pos, q_pos, vis = _positions(q, S, cache_pos, q_pos, tree_mask, False, kind, window,
+                                    sink)
+    out = paged_verify_attention(q, k_pages, v_pages, page_table, kv_pos, q_pos, k_new, v_new,
+                                 vis, kind=kind, window=window, sink=sink, live=live)
+    return out.to(q.dtype)
+
+
+def _positions(q, S_c: int, cache_pos, q_pos, tree_mask, ring: bool, kind, window, sink):
+    """(kv_pos (B, S_c), q_pos (B, T), vis (B, T, T)): int32/bool, contiguous.
+    kv_pos is each cache slot's position (-1 invalid); vis is the staged
+    tokens' positional validity and'ed with the tree mask."""
     B, T = q.shape[:2]
-    S_c = k_cache.shape[1]
     dev = q.device
     cache_pos = torch.as_tensor(cache_pos, dtype=torch.int32, device=dev).broadcast_to((B,))
     q_pos = q_pos.to(torch.int32)
@@ -112,8 +153,4 @@ def decode_attention(
     vis = visible(q_pos, q_pos, kind, window, sink)      # (B, T, T) positional validity
     if tree_mask is not None:
         vis = vis & (tree_mask if tree_mask.ndim == 3 else tree_mask[None])
-    out = verify_attention(
-        q, k_cache, v_cache, kv_pos.to(torch.int32).contiguous(), q_pos.contiguous(),
-        k_new, v_new, vis.contiguous(), kind=kind, window=window, sink=sink,
-    )
-    return out.to(q.dtype)
+    return kv_pos.to(torch.int32).contiguous(), q_pos.contiguous(), vis.contiguous()

@@ -6,24 +6,30 @@ and caches convert one-to-one (``repro_torch.bridge``):
     is a list over segments of a list over the unit's layers of dicts whose
     leaves carry a leading ``repeats`` axis;
   - the KV cache is ``{"pos": (B,) int32, "segments": [[{"k", "v"}]]}`` with
-    ``k``/``v`` of shape ``(R, B, S, KV, hd)``.
+    ``k``/``v`` of shape ``(R, B, S, KV, hd)``; a block-paged cache holds
+    one shared pool per layer, ``k_pages``/``v_pages`` of shape
+    ``(R, NP, P, KV, hd)``, and a top-level ``page_table`` (B, max_len // P)
+    int32 (-1 = unallocated): position t of slot b lives at row t % P of
+    page ``page_table[b, t // P]``.
 Layers run one at a time over views of those stacks (PyTorch runs eagerly:
 there is no scan to lower).
 
 Cache semantics: stage-then-commit. ``decode_step`` never writes the cache;
 it returns logits plus per-layer staged K/V, and ``commit_cache`` writes
 the accepted path afterwards. Unlike the reference, whose arrays are
-immutable, ``prefill`` and ``commit_cache`` update the cache tensors in
-place (a 32-layer vicuna-7b cache is gigabytes) and return the cache dict
-with its new ``pos``.
+immutable, ``prefill``, ``write_slot`` and ``commit_cache`` update the
+cache tensors in place (a 32-layer vicuna-7b cache is gigabytes) and return
+the cache dict with its new ``pos``. Paged caches are written by
+``write_slot`` (admission: a dense B=1 prefill cache scattered through the
+slot's table row) and ``commit_cache``, never by ``prefill``.
 
 DSIA layer gating: every entry point takes ``gates``, a (num_layers,) 0/1
 vector; a gated-off layer adds nothing to the residual stream. The engine's
 ``slice`` execution passes ``layer_ids`` instead: only those layers of a
 homogeneous stack run, over views of the target's params and cache.
 
-Off this slice (they raise): paged caches, MoE and SSM blocks, codebook
-and image inputs, context-parallel ``seq_axes`` and carried staged KV.
+Off the port so far (they raise): MoE and SSM blocks, codebook and image
+inputs, context-parallel ``seq_axes`` and carried staged KV.
 """
 from __future__ import annotations
 
@@ -99,11 +105,6 @@ def _check_stack(cfg: ModelConfig) -> None:
         raise NotImplementedError("codebook and image inputs are not ported yet")
 
 
-def _check_dense(cache: Cache) -> None:
-    if "page_table" in cache:
-        raise NotImplementedError("paged KV caches are not ported yet")
-
-
 # ======================================================================= init
 def _normal(gen, shape, scale, dtype, device) -> torch.Tensor:
     return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
@@ -155,6 +156,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
 
 
 # ====================================================================== cache
+def pages_for(max_len: int, page_size: int) -> int:
+    """Pages spanning ``max_len`` tokens (the page-table width per slot)."""
+    return -(-max_len // page_size)
+
+
 def init_cache(
     cfg: ModelConfig,
     batch: int,
@@ -163,13 +169,25 @@ def init_cache(
     ring_window: bool = False,
     dtype=None,
     paged: bool = False,
+    page_size: int = 64,
+    num_pages: Optional[int] = None,
     device="cuda",
 ) -> Cache:
-    """Allocate a dense committed cache. ``ring_window`` stores only
-    ``sliding_window`` slots (a ring buffer) for sliding layers."""
-    if paged:
-        raise NotImplementedError("paged KV caches are not ported yet")
+    """Allocate a committed cache. ``ring_window`` stores only
+    ``sliding_window`` slots (a ring buffer) for sliding layers.
+
+    ``paged=True`` allocates one shared pool of ``num_pages`` pages of
+    ``page_size`` tokens per layer (default: ``batch * max_len / page_size``,
+    the dense capacity) and a page table of -1; ``max_len`` must be a
+    multiple of ``page_size``, and ring caches page nothing."""
     _check_stack(cfg)
+    if paged:
+        if ring_window:
+            raise ValueError("paged caches do not support ring_window")
+        if max_len % page_size:
+            raise ValueError(f"max_len={max_len} must be a multiple of page_size={page_size}")
+        if num_pages is None:
+            num_pages = batch * pages_for(max_len, page_size)
     dev = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
     hd = cfg.resolved_head_dim()
@@ -177,13 +195,21 @@ def init_cache(
     for seg in layout(cfg):
         unit_caches = []
         for spec in seg.unit:
-            S_c = (min(cfg.sliding_window, max_len)
-                   if (ring_window and spec.attn is AttentionKind.SLIDING) else max_len)
-            shape = (seg.repeats, batch, S_c, cfg.num_kv_heads, hd)
-            unit_caches.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
-                                "v": torch.zeros(shape, dtype=dtype, device=dev)})
+            if paged:
+                shape = (seg.repeats, num_pages, page_size, cfg.num_kv_heads, hd)
+                names = ("k_pages", "v_pages")
+            else:
+                S_c = (min(cfg.sliding_window, max_len)
+                       if (ring_window and spec.attn is AttentionKind.SLIDING) else max_len)
+                shape = (seg.repeats, batch, S_c, cfg.num_kv_heads, hd)
+                names = ("k", "v")
+            unit_caches.append({n: torch.zeros(shape, dtype=dtype, device=dev) for n in names})
         segs.append(unit_caches)
-    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev), "segments": segs}
+    out = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev), "segments": segs}
+    if paged:
+        out["page_table"] = torch.full((batch, pages_for(max_len, page_size)), -1,
+                                       dtype=torch.int32, device=dev)
+    return out
 
 
 # ================================================================ layer bodies
@@ -221,6 +247,14 @@ def _attn_layer(
     if mode == "prefill":
         o = attn_lib.blockwise_attention(q, k, v, q_pos, q_pos, kind=kind, window=window,
                                          sink=sink)
+    elif "k_pages" in layer_cache:
+        # the table holds the live pages only (see _run_stack); the paged
+        # kernel reads the pool through it in place
+        o = attn_lib.paged_decode_attention(
+            q, layer_cache["k_pages"], layer_cache["v_pages"], layer_cache["_table"],
+            layer_cache["_pos"], k, v, q_pos, tree_mask=tree_mask, kind=kind, window=window,
+            sink=sink, live=layer_cache["_live"],
+        )
     else:
         k_c, v_c = layer_cache["k"], layer_cache["v"]
         ring = spec.attn is AttentionKind.SLIDING and k_c.shape[1] <= window
@@ -273,6 +307,11 @@ def _run_stack(
         raise ValueError("layer_ids requires a homogeneous layer stack")
     # longest committed prefix over the batch (one host read per call)
     live = max(int(cache["pos"].max()), 1) if mode == "decode" else 0
+    table = cache.get("page_table")
+    if table is not None and mode == "decode":
+        # a paged cache reads the pages that hold the live prefix
+        page_size = cache["segments"][0][0]["k_pages"].shape[2]
+        table = table[:, : -(-live // page_size)].contiguous()
     staged_segments = []
     for si, seg in enumerate(segs):
         p_seg, c_seg = params["segments"][si], cache["segments"][si]
@@ -282,8 +321,8 @@ def _run_stack(
         for r in repeats:
             for u, spec in enumerate(seg.unit):
                 p_l = tree_map(lambda a, r=r: a[r], p_seg[u])          # views
-                lc = {"k": c_seg[u]["k"][r], "v": c_seg[u]["v"][r], "_pos": cache["pos"],
-                      "_live": live}
+                lc = {n: a[r] for n, a in c_seg[u].items()}
+                lc.update(_pos=cache["pos"], _live=live, _table=table)
                 gate = g_host[seg.start + r * U + u]
                 delta, st = _attn_layer(cfg, p_l, spec, h, q_pos, mode, lc, tree_mask,
                                         attn_override)
@@ -323,7 +362,11 @@ def prefill(
 ) -> Tuple[torch.Tensor, Cache]:
     """Process the prompt and write it into ``cache`` (in place). Returns
     (last-token logits (B, V) float32, cache)."""
-    _check_dense(cache)
+    if "page_table" in cache:
+        raise NotImplementedError(
+            "prefill writes a dense cache; paged serving prefills a dense B=1 cache "
+            "and scatters it with write_slot"
+        )
     tokens = batch["tokens"]
     h = _embed(params, tokens)
     B, S, _ = h.shape
@@ -380,7 +423,6 @@ def decode_step(
         raise NotImplementedError("decode_step: seq_axes is not ported yet")
     if any(a is not None for a in (staged_kv, staged_pos, staged_mask)):
         raise NotImplementedError("decode_step: carried staged KV is not ported yet")
-    _check_dense(cache)
     tokens = torch.as_tensor(tokens, device=cache["pos"].device)
     h = _embed(params, tokens)
     B, T = tokens.shape[:2]
@@ -407,9 +449,11 @@ def commit_cache(
     destination per rejected row. Torch's ``index_put_`` has no drop mode
     (out-of-bounds indices raise on the CPU and are undefined on CUDA), so
     only the live rows — accepted and in bounds — are gathered and written:
-    rejected rows and the rest of the cache are left untouched.
+    rejected rows and the rest of the cache are left untouched. On a paged
+    cache a row is live only if its page is allocated: a -1 page is never
+    written through (clamped, it would land on page 0, which another slot
+    may own).
     """
-    _check_dense(cache)
     _check_stack(cfg)
     base = cache["pos"]
     B, dev = base.shape[0], base.device
@@ -424,6 +468,14 @@ def commit_cache(
     for si, seg in enumerate(layout(cfg)):
         for u, spec in enumerate(seg.unit):
             c, st = cache["segments"][si][u], staged[si][u]
+            if "k_pages" in c:
+                b_i, t_i, pages, rows = _page_rows(cache["page_table"], c["k_pages"].shape[2],
+                                                   dest, live)
+                src = path_idx[b_i, t_i]
+                for name in ("k", "v"):
+                    pool = c[name + "_pages"]
+                    pool[:, pages, rows] = st[name][:, b_i, src].to(pool.dtype)
+                continue
             S_c = c["k"].shape[2]
             ring = S_c <= cfg.sliding_window and spec.attn is AttentionKind.SLIDING
             d = torch.remainder(dest, S_c) if ring else dest
@@ -433,4 +485,52 @@ def commit_cache(
                 c[name][:, b_i, rows] = st[name][:, b_i, src].to(c[name].dtype)
     out = dict(cache)
     out["pos"] = base + n_acc
+    return out
+
+
+def _page_rows(table: torch.Tensor, page_size: int, dest: torch.Tensor, live: torch.Tensor):
+    """Where positions ``dest`` (B, T) of each slot live in a paged pool:
+    (b_i, t_i, page, row) over the entries that are ``live`` and whose
+    page is allocated — the only ones a write may touch."""
+    n_pp = table.shape[1]
+    logical = torch.div(dest, page_size, rounding_mode="floor")
+    page = torch.gather(table, 1, logical.clamp(0, n_pp - 1))
+    b_i, t_i = (live & (logical < n_pp) & (page >= 0)).nonzero(as_tuple=True)
+    return b_i, t_i, page[b_i, t_i].long(), torch.remainder(dest, page_size)[b_i, t_i]
+
+
+def write_slot(cfg: ModelConfig, cache: Cache, c1: Cache, slot: int) -> Cache:
+    """Write a freshly prefilled dense B=1 cache ``c1`` into batch slot
+    ``slot`` of ``cache`` (in place) and set the slot's ``pos``.
+
+    ``c1`` may be shorter than the batched cache (admission sizes it to the
+    prompt's bucket): its rows land at the front of the slot, and rows past
+    ``c1["pos"]`` are never read (kv_pos masking). On a paged cache the rows
+    go through ``page_table[slot]``, which the caller sets first; rows whose
+    page is unallocated are not written.
+    """
+    _check_stack(cfg)
+    dev = cache["pos"].device
+    for si, seg in enumerate(layout(cfg)):
+        for u in range(len(seg.unit)):
+            dst, src = cache["segments"][si][u], c1["segments"][si][u]
+            S_src = src["k"].shape[2]
+            if "k_pages" in dst:
+                rows = torch.arange(S_src, device=dev)[None]
+                _, t_i, pages, offs = _page_rows(cache["page_table"][slot][None],
+                                                 dst["k_pages"].shape[2], rows,
+                                                 torch.ones_like(rows, dtype=torch.bool))
+                for name in ("k", "v"):
+                    pool = dst[name + "_pages"]
+                    pool[:, pages, offs] = src[name][:, 0, t_i].to(pool.dtype)
+                continue
+            if S_src > dst["k"].shape[2]:
+                raise NotImplementedError(
+                    f"prefill cache seq {S_src} exceeds batched cache seq "
+                    f"{dst['k'].shape[2]} (ring slots cannot take longer buckets)")
+            for name in ("k", "v"):
+                dst[name][:, slot, :S_src] = src[name][:, 0].to(dst[name].dtype)
+    out = dict(cache)
+    out["pos"] = cache["pos"].clone()
+    out["pos"][slot] = c1["pos"][0]
     return out
