@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""Time the port's attention kernels from one source tree, for comparing
+two versions on the same card.
+
+    python3 attn_ab.py SRC_ROOT TAG
+
+SRC_ROOT holds a ``repro_torch`` package (``src`` of a checkout, or of an
+older commit unpacked with ``git archive`` into a git-ignored directory).
+Each run builds that tree's kernels and prints one line per case: the
+verify merge of the dense flash decode (B=1, 32 heads, T=32, S=160 and
+2048), tree attention (T=32) and the paged merge (B=4, T=16 over 4 pages
+of 64 and T=32 over 32 pages), in float32 and bfloat16, by CUDA-graph
+replay with the L2 flushed before every replay (``chip_smoke._graph_ms``),
+with the max abs error against the plain version and, for the paged
+kernel, whether it is bitwise equal to the dense kernel on the gathered
+view. Run versions in turns in one call (A, B, B, A): two calls may land
+on two cards.
+"""
+from __future__ import annotations
+
+import os
+import sys
+
+
+def main(root: str, tag: str) -> int:
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import tree_attention as ta
+
+    if not torch.cuda.is_available():
+        print("attn_ab: no CUDA device", file=sys.stderr)
+        return 2
+    if not _build.__file__.startswith(root):
+        raise RuntimeError(f"imported {_build.__file__}, not the tree under {root}")
+    sys.path.insert(1, os.path.dirname(os.path.abspath(__file__)))
+    import chip_smoke as cs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype)[6:]
+        for S in (cs.MAIN_PATH_S, 2048):
+            q, kc, vc, kv_pos, q_pos, kn, vn, tm = cs._attn_inputs(
+                torch, gen, 1, 32, 32, 32, S, 128, dtype, S - 32)
+            q_pos[:, 0] = S - 32
+            k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+            kt, vt = kn.transpose(1, 2), vn.transpose(1, 2)
+            tree = ta.tree_attention_partial(q, kt, vt, tm)
+            got = fd.flash_decode_merge(q, k, v, kv_pos, q_pos, tree)
+            err = cs._err(got, ref.ref_verify_attention(q, k, v, kv_pos, q_pos, kt, vt, tm))
+            ms = cs._graph_ms(lambda: fd.flash_decode_merge(q, k, v, kv_pos, q_pos, tree), flush)
+            rows.append((f"flash_decode merge {dn} T=32 S={S}", ms, err, ""))
+        err = max(cs._err(a, b) for a, b in zip(ta.tree_attention_partial(q, kt, vt, tm),
+                                                 ref.tree_attention_partial(q, kt, vt, tm)))
+        ms = cs._graph_ms(lambda: ta.tree_attention_partial(q, kt, vt, tm), flush)
+        rows.append((f"tree_attention {dn} T=32", ms, err, ""))
+        for T, n_pp, pos in ((16, 4, (232, 168, 104, 40)), (32, 32, (2016,) * 4)):
+            q, kp, vp, table, kv_pos, q_pos, kn, vn, tmask = cs._paged_inputs(
+                torch, gen, 4, 32, T, 64, n_pp, dtype, pos)
+            tree = ta.tree_attention_partial(q, kn.transpose(1, 2), vn.transpose(1, 2), tmask)
+            got = fd.flash_decode_paged_merge(q, kp, vp, table, kv_pos, q_pos, tree)
+            kd, vd = (ref.paged_gather(p, table).transpose(1, 2) for p in (kp, vp))
+            bitwise = torch.equal(got, fd.flash_decode_merge(q, kd, vd, kv_pos, q_pos, tree))
+            want = ref.merge_partials(
+                ref.flash_decode_paged_partial(q, kp, vp, table, kv_pos, q_pos), tree)
+            ms = cs._graph_ms(
+                lambda: fd.flash_decode_paged_merge(q, kp, vp, table, kv_pos, q_pos, tree), flush)
+            rows.append((f"paged merge {dn} B=4 T={T} {n_pp} pages", ms, cs._err(got, want),
+                         f" bitwise dense={bitwise}"))
+            del kd, vd
+    for name, ms, err, extra in rows:
+        print(f"[{tag}] {name:40s} graph replay {ms:.4f} ms  err {err:.2e}{extra}")
+    return 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) != 3:
+        print(__doc__, file=sys.stderr)
+        sys.exit(2)
+    sys.exit(main(sys.argv[1], sys.argv[2]))

@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py                # every phase, one card
 
-Phase 1 prints the card and builds the hand-written kernels (one nvcc per
-source, in parallel). Phase 2 holds each kernel against its plain PyTorch
-version at the main path's shapes (the paged flash decode also bitwise
-against the dense kernel on the gathered view) and times kernel, plain
-version, a library call and the bound, the kernels also by replaying a
-captured CUDA graph. Phases 3-5 drive the single-stream CAS-Spec path at
+Phase 1 prints the card, builds the hand-written kernels (one nvcc per
+source, in parallel) and prints what was compiled: each kernel's
+registers, shared memory and spill bytes (ptxas) and its count of
+tensor-core and async-copy instructions (cuobjdump, where the toolkit has
+it). Phase 2 holds each kernel against its plain PyTorch version at the
+main path's shapes (the paged flash decode also bitwise against the dense
+kernel on the gathered view) and times kernel, plain version, a library
+call and the bound, in float32 and bfloat16; the attention kernels and
+their library calls both by CUDA events and by replaying a captured CUDA
+graph. Phases 3-5 drive the single-stream CAS-Spec path at
 vicuna-7b width with random weights: float32 AR vs DyTC token identity, the
 same in bfloat16, and decode_step through the W8A8 kernel. Phase 6 drives
 the batched server (tree_fused and chain_fused, dense and paged caches,
@@ -23,6 +27,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -96,6 +101,23 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _timings(kernel, plain, library, flush, bound: float, by: str) -> dict:
+    """A kernel's times beside its plain version's and its library
+    yardstick's: the kernel and the yardstick both by CUDA events and by
+    CUDA-graph replay (like with like), the plain version by events."""
+    return dict(ms=_time_ms(kernel, flush), graph_ms=_graph_ms(kernel, flush),
+                plain_ms=_time_ms(plain, flush), library_ms=_time_ms(library, flush),
+                library_graph_ms=_graph_ms(library, flush), bound_ms=bound, bound_by=by)
+
+
+def _timing_text(tm: dict, library: str) -> str:
+    return (f"kernel {tm['ms']:.4f} ms (graph replay {tm['graph_ms']:.4f} ms)  plain "
+            f"{tm['plain_ms']:.4f} ms  {library} {tm['library_ms']:.4f} ms (graph replay "
+            f"{tm['library_graph_ms']:.4f} ms)  bound {tm['bound_ms']:.4f} ms ({tm['bound_by']}), "
+            f"graph/bound {tm['graph_ms'] / tm['bound_ms']:.1f}x, library graph/kernel graph "
+            f"{tm['library_graph_ms'] / tm['graph_ms']:.2f}")
+
+
 # ------------------------------------------------------------------ phase 1
 def phase_env(torch) -> dict:
     smi = subprocess.run(
@@ -112,12 +134,61 @@ def phase_env(torch) -> dict:
     print(f"[phase 1] kernels built in {time.perf_counter() - t0:.1f} s "
           f"({torch.cuda.get_device_name(0)}, torch {torch.__version__}, cuda {torch.version.cuda})")
     for name in _build.SOURCES:
-        log = (_build.BUILD / f"{name}.log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {name}: {line.strip()}")
+        for func, info in _compile_report(_build, name).items():
+            print(f"  {name}: {func}: " + ", ".join(f"{k} {v}" for k, v in info.items()))
     return {"smi": smi}
+
+
+SASS_KINDS = {"tensor-core": ("HMMA", "HGMMA", "IMMA"), "async-copy": ("LDGSTS", "UTMALDG")}
+
+
+def _demangle(names):
+    tool = shutil.which("c++filt") or shutil.which("cu++filt")
+    if not tool or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True).stdout
+    return dict(zip(names, out.splitlines()))
+
+
+def _compile_report(_build, name: str) -> dict:
+    """Per kernel of ``csrc/<name>.cu``: what ``ptxas -v`` reported
+    (registers, shared memory, spill bytes) and, where the toolkit has
+    ``cuobjdump``, how many tensor-core and async-copy instructions its
+    SASS holds: evidence of what the compiled code runs on."""
+    import re
+
+    info: dict = {}
+    log = _build.BUILD / f"{name}.log"
+    func = None
+    for line in (log.read_text().splitlines() if log.exists() else ()):
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            func = m.group(1)
+            info.setdefault(func, {})
+        elif func and (m := re.search(r"Used (\d+) registers", line)):
+            info[func]["registers"] = int(m.group(1))
+            if m := re.search(r"(\d+) bytes smem", line):
+                info[func]["static_smem_bytes"] = int(m.group(1))
+        elif func and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            info[func].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(tool):
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True).stdout
+        func = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\w+)", line)
+            if m:
+                func = m.group(1)
+                info.setdefault(func, {})
+                info[func].update({k: 0 for k in SASS_KINDS})
+            elif func:
+                for kind, ops in SASS_KINDS.items():
+                    if any(re.search(rf"\b{op}\b", line) for op in ops):
+                        info[func][kind] += 1
+    names = _demangle(list(info))
+    short = lambda n: n.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]  # noqa: E731
+    return {short(names[f]): v for f, v in info.items()}
 
 
 # ------------------------------------------------------------------ phase 2
@@ -240,15 +311,12 @@ def _paged_kernel(torch, gen, flush, results: dict) -> None:
             if not (e <= tol and e_m <= tol and e_l <= tol and e_dense <= tol and bitwise):
                 raise AssertionError(f"paged flash decode disagrees ({name})")
             worst = max(worst, e)
-            if dtype is not torch.float32:
-                continue
             run = lambda: fd.flash_decode_paged_merge(q, kp, vp, table, kv_pos, q_pos, tree)  # noqa: E731
-            ms, graph = _time_ms(run, flush), _graph_ms(run, flush)
             # the dense kernel over the gathered view: what reading through the table costs
             dense = lambda: fd.flash_decode_merge(q, kd, vd, kv_pos, q_pos, tree)  # noqa: E731
             dense_ms, dense_graph = _time_ms(dense, flush), _graph_ms(dense, flush)
-            plain = _time_ms(lambda: ref.merge_partials(
-                ref.flash_decode_paged_partial(q, kp, vp, table, kv_pos, q_pos), tree), flush)
+            plain = lambda: ref.merge_partials(  # noqa: E731
+                ref.flash_decode_paged_partial(q, kp, vp, table, kv_pos, q_pos), tree)
             # library yardstick: index_select gather + SDPA with an explicit mask
             am = torch.cat([ref.visible(q_pos, kv_pos, "causal", 0, 0), tmask], dim=-1)[:, None]
             idx = table.clamp_min(0).flatten()
@@ -260,22 +328,20 @@ def _paged_kernel(torch, gen, flush, results: dict) -> None:
                 vs = torch.cat([vg, vn], dim=1).transpose(1, 2)
                 return F.scaled_dot_product_attention(q, ks, vs, attn_mask=am)
 
-            lib = _time_ms(library, flush)
-            del kd, vd
             # the least work this data needs: each slot's live rows, read once
             live = sum(pos)
             elt = q.element_size()
             nbytes = (_nbytes(q, kv_pos, q_pos, table, *tree) + 2 * live * KV * hd * elt
                       + 4 * q.numel())
-            bound, by = _bound_ms(nbytes, 4 * KV * T * live * hd, "float32")
-            timing[(T, n_pp)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-                                     bound_by=by)
+            bound, by = _bound_ms(nbytes, 4 * KV * T * live * hd, str(dtype)[6:])
+            tm = _timings(run, plain, library, flush, bound, by)
+            timing[(str(dtype)[6:], T, n_pp)] = tm
+            del kd, vd
             print(f"[phase 2] flash_decode paged merge {name} (S={S}, {live} live rows): "
-                  f"kernel {ms:.4f} ms (graph replay {graph:.4f} ms)  dense kernel on the "
-                  f"gathered view {dense_ms:.4f} ms (graph replay {dense_graph:.4f} ms)  plain "
-                  f"{plain:.4f} ms  gather+sdpa {lib:.4f} ms  bound {bound:.4f} ms ({by}, "
-                  f"{nbytes / 1e6:.2f} MB)")
-    results["flash_decode_paged"] = dict(max_abs_err=worst, **timing[(16, 4)])
+                  + _timing_text(tm, "gather+sdpa")
+                  + f"  dense kernel on the gathered view {dense_ms:.4f} ms (graph replay "
+                  f"{dense_graph:.4f} ms)  ({nbytes / 1e6:.2f} MB)")
+    results["flash_decode_paged"] = dict(max_abs_err=worst, **timing[("float32", 16, 4)])
 
 
 def phase_kernels(torch, results: dict) -> None:
@@ -353,20 +419,18 @@ def phase_kernels(torch, results: dict) -> None:
             if e > tol:
                 raise AssertionError(f"flash_decode merge disagrees ({name})")
             worst = max(worst, e)
-            ms = _time_ms(lambda: fd.flash_decode_merge(q, k, v, kv_pos, q_pos, tree), flush)
-            graph = _graph_ms(lambda: fd.flash_decode_merge(q, k, v, kv_pos, q_pos, tree), flush)
-            plain = _time_ms(lambda: ref.merge_partials(ref.flash_decode_partial(q, k, v, kv_pos, q_pos), tree), flush)
             # library yardstick: SDPA over [cache ++ staged] with an explicit mask
             qs = q.reshape(B, KV, T, hd)
             ks = torch.cat([kc, kn], dim=1).transpose(1, 2).contiguous()
             vs = torch.cat([vc, vn], dim=1).transpose(1, 2).contiguous()
             am = torch.cat([ref.visible(q_pos, kv_pos, "causal", 0, 0), tmask], dim=-1)[:, None]
-            lib = _time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am), flush)
             nbytes = _nbytes(q, k, v, kv_pos, q_pos, *tree) + 4 * q.numel()
             bound, by = _bound_ms(nbytes, 4 * B * KV * T * S_live * hd, str(dtype)[6:])
-            timing[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
-            print(f"[phase 2] flash_decode merge   {name:14s} kernel {ms:.4f} ms (graph replay "
-                  f"{graph:.4f} ms)  plain {plain:.4f} ms  sdpa {lib:.4f} ms  bound {bound:.4f} ms ({by})")
+            timing[name] = _timings(
+                lambda: fd.flash_decode_merge(q, k, v, kv_pos, q_pos, tree),
+                lambda: ref.merge_partials(ref.flash_decode_partial(q, k, v, kv_pos, q_pos), tree),
+                lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am), flush, bound, by)
+            print(f"[phase 2] flash_decode merge   {name:14s} " + _timing_text(timing[name], "sdpa"))
     results["flash_decode"] = dict(max_abs_err=worst, **timing[f"float32_S{MAIN_PATH_S}"])
 
     # --- tree attention (#2)
@@ -390,17 +454,16 @@ def phase_kernels(torch, results: dict) -> None:
             worst = max(worst, e)
             if T == 32:
                 name = str(dtype)[6:]
-                ms = _time_ms(lambda: ta.tree_attention_partial(q, kt, vt, tmask), flush)
-                graph = _graph_ms(lambda: ta.tree_attention_partial(q, kt, vt, tmask), flush)
-                plain = _time_ms(lambda: ref.tree_attention_partial(q, kt, vt, tmask), flush)
                 qs = q.reshape(B, KV, T, hd)
                 ks, vs = kt.contiguous(), vt.contiguous()
-                lib = _time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=tmask[:, None]), flush)
                 nbytes = _nbytes(q, kt, vt, tmask) + 4 * q.numel() + 8 * q.numel() // hd
                 bound, by = _bound_ms(nbytes, 4 * B * KV * T * T * hd, name)
-                timing[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
-                print(f"[phase 2] tree_attention   {name:8s} kernel {ms:.4f} ms (graph replay "
-                      f"{graph:.4f} ms)  plain {plain:.4f} ms  sdpa {lib:.4f} ms  bound {bound:.4f} ms ({by})")
+                timing[name] = _timings(
+                    lambda: ta.tree_attention_partial(q, kt, vt, tmask),
+                    lambda: ref.tree_attention_partial(q, kt, vt, tmask),
+                    lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=tmask[:, None]),
+                    flush, bound, by)
+                print(f"[phase 2] tree_attention   {name:8s} " + _timing_text(timing[name], "sdpa"))
     results["tree_attention"] = dict(max_abs_err=worst, **timing["float32"])
 
     # --- W8A8 (#3)

@@ -7,27 +7,34 @@
 // VMEM from one KV block to the next; the paged one scalar-prefetches the
 // page table so that block j of slot b is pool page table[b, j].
 //
-// Bound on the H100: the bytes of K and V it reads. At T <= 32 query rows
-// per head, each K/V element is used by at most 32 rows, far below the ~20
-// flops per byte at which float32 CUDA-core math would take over from the
-// 3.35 TB/s of HBM.
+// Bound on the H100: the bytes of K and V it reads (3.35 TB/s). At R <= 32
+// query rows per kv-head a K/V element takes part in at most 64 flops, x3
+// TF32 passes in float32: far below the tensor cores' ~150 TF32 flops per
+// byte of HBM.
 //
-// Design: flash-decoding. Blocks run in no order on Hopper, so S is split
-// across CTAs, one CTA per (split, kv-head, batch x row-tile); each writes
-// un-normalised partials (acc, m, l). A second small kernel combines the
-// splits by logsumexp. When the caller hands it the staged-tree partials,
-// the combine also performs the verify merge of kernels/ops.py (lines 83-91
-// of the reference) and normalises, so the cache partials never make a
-// second round trip. K/V are read through strides, so the dense cache's
-// (B, S, KV, hd) layout is used in place and never transposed.
+// Design: flash-decoding on tensor cores (attn_common.cuh). Blocks run in no
+// order on Hopper, so S is split across CTAs, one CTA per (split, kv-head,
+// batch x row-tile of 16 or 32 rows); the host picks the split count so that
+// about two CTAs per SM are in flight, and split lengths are multiples of the
+// 32-slot key tile. Each CTA streams its K/V range through a cp.async ring
+// (2 float32 or 4 bfloat16 tiles deep, 100 KB or 85 KB of shared memory
+// with the split Q, two CTAs per SM), computes both products with mma.sync TF32 (3xTF32 where the
+// operands are float32) and writes un-normalised partials (acc, m, l). A
+// second small kernel combines the splits by logsumexp. When the caller
+// hands it the staged-tree partials, the combine also performs the verify
+// merge of kernels/ops.py (lines 83-91 of the reference) and normalises, so
+// the cache partials never make a second round trip. K/V are read through
+// strides, so the dense cache's (B, S, KV, hd) layout is used in place.
 //
 // The paged kernel is the dense one with another slot -> address map: slot
 // s of batch row b is row s % P of pool page table[b, s / P] (a -1 entry,
 // an unallocated page, reads page 0; the caller's kv_pos = -1 masks it),
-// read in the model's (NP, P, KV, hd) pool layout through strides — no
-// gather, no transpose. The split boundaries are the caller's (a function
-// of the live length), so a paged call and a dense call over the gathered
-// view run the same chunks in the same order: bitwise the same partials.
+// read in the model's (NP, P, KV, hd) pool layout through strides; each
+// slot's head-dim row is contiguous, so the 16-byte copies follow one row
+// address per slot (any page size). The split boundaries are the caller's
+// (a function of the live length), so a paged call and a dense call over
+// the gathered view run the same tiles in the same order: bitwise the same
+// partials.
 #include "attn_common.cuh"
 
 namespace {
@@ -65,7 +72,7 @@ struct Launch {        // what every split CTA needs besides K/V addressing
   float scale;
 };
 
-template <typename T, int HD, class Slots>
+template <typename T, int HD, int MT, class Slots>
 __device__ __forceinline__ void split_body(
     const Launch& a, const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const Slots& slots, const int* __restrict__ kv_pos,
@@ -78,36 +85,36 @@ __device__ __forceinline__ void split_body(
   const long long out_row0 = ((long long)split * a.B * a.KV + bg) * a.R;
   const PosVis vis{kv_pos + (long long)b * a.S, q_pos + (long long)b * a.R, a.kind, a.window,
                    a.sink};
-  rows_partials<T, HD>(q + bg * a.R * HD, a.R, rt * ROWS, a.scale, k, v, slots, s_begin, s_end,
-                       vis, acc_p + out_row0 * HD, m_p + out_row0, l_p + out_row0);
+  rows_partials<T, HD, MT>(q + bg * a.R * HD, a.R, rt * 16 * MT, a.scale, k, v, slots, s_begin,
+                           s_end, vis, acc_p + out_row0 * HD, m_p + out_row0, l_p + out_row0);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS) split_kernel(
+template <typename T, int HD, int MT>
+__global__ void __launch_bounds__(THREADS, 2) split_kernel(
     Launch a, const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ kv_pos, const int* __restrict__ q_pos,
     float* __restrict__ acc_p, float* __restrict__ m_p, float* __restrict__ l_p,
     long long k_sb, long long k_sg, long long k_ss) {
-  const int n_rt = (a.R + ROWS - 1) / ROWS;
+  const int n_rt = (a.R + 16 * MT - 1) / (16 * MT);
   const int b = blockIdx.z / n_rt, rt = blockIdx.z - b * n_rt;
   const long long base = b * k_sb + blockIdx.y * k_sg;
-  split_body<T, HD>(a, q, k + base, v + base, DenseSlots{k_ss}, kv_pos, q_pos, acc_p, m_p,
-                    l_p, b, rt);
+  split_body<T, HD, MT>(a, q, k + base, v + base, DenseSlots{k_ss}, kv_pos, q_pos, acc_p, m_p,
+                        l_p, b, rt);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS) paged_split_kernel(
+template <typename T, int HD, int MT>
+__global__ void __launch_bounds__(THREADS, 2) paged_split_kernel(
     Launch a, const T* __restrict__ q, const T* __restrict__ k_pages,
     const T* __restrict__ v_pages, const int* __restrict__ table, int n_pp, int page_size,
     int num_pages, long long p_sp, long long p_sr, long long p_sg,
     const int* __restrict__ kv_pos, const int* __restrict__ q_pos,
     float* __restrict__ acc_p, float* __restrict__ m_p, float* __restrict__ l_p) {
-  const int n_rt = (a.R + ROWS - 1) / ROWS;
+  const int n_rt = (a.R + 16 * MT - 1) / (16 * MT);
   const int b = blockIdx.z / n_rt, rt = blockIdx.z - b * n_rt;
   const long long base = blockIdx.y * p_sg;
   const PagedSlots slots{table + (long long)b * n_pp, page_size, num_pages - 1, p_sp, p_sr};
-  split_body<T, HD>(a, q, k_pages + base, v_pages + base, slots, kv_pos, q_pos, acc_p, m_p,
-                    l_p, b, rt);
+  split_body<T, HD, MT>(a, q, k_pages + base, v_pages + base, slots, kv_pos, q_pos, acc_p, m_p,
+                        l_p, b, rt);
 }
 
 // One CTA per query row, one thread per head-dim element. Without tree
@@ -141,39 +148,63 @@ __global__ void combine_kernel(
   }
 }
 
-dim3 split_grid(const Launch& a, int n_split) {
-  return dim3(n_split, a.KV, a.B * ((a.R + ROWS - 1) / ROWS));
+dim3 split_grid(const Launch& a, int n_split, int mt) {
+  return dim3(n_split, a.KV, a.B * ((a.R + 16 * mt - 1) / (16 * mt)));
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int MT>
 cudaError_t launch_split(const Launch& a, int n_split, const void* q, const void* k,
                          const void* v, const int* kv_pos, const int* q_pos, float* acc_p,
                          float* m_p, float* l_p, long long k_sb, long long k_sg,
                          long long k_ss, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  static const cudaError_t smem_err = allow_smem(split_kernel<T, HD>, smem);
+  constexpr size_t smem = Tile<T, HD, MT>::SMEM;
+  static const cudaError_t smem_err = allow_smem(split_kernel<T, HD, MT>, smem);
   if (smem_err != cudaSuccess) return smem_err;
-  split_kernel<T, HD><<<split_grid(a, n_split), THREADS, smem, stream>>>(
+  split_kernel<T, HD, MT><<<split_grid(a, n_split, MT), THREADS, smem, stream>>>(
       a, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kv_pos,
       q_pos, acc_p, m_p, l_p, k_sb, k_sg, k_ss);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int MT>
 cudaError_t launch_paged(const Launch& a, int n_split, const void* q, const void* k_pages,
                          const void* v_pages, const int* table, int n_pp, int page_size,
                          int num_pages, long long p_sp, long long p_sr, long long p_sg,
                          const int* kv_pos, const int* q_pos, float* acc_p, float* m_p,
                          float* l_p, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  static const cudaError_t smem_err = allow_smem(paged_split_kernel<T, HD>, smem);
+  constexpr size_t smem = Tile<T, HD, MT>::SMEM;
+  static const cudaError_t smem_err = allow_smem(paged_split_kernel<T, HD, MT>, smem);
   if (smem_err != cudaSuccess) return smem_err;
-  paged_split_kernel<T, HD><<<split_grid(a, n_split), THREADS, smem, stream>>>(
+  paged_split_kernel<T, HD, MT><<<split_grid(a, n_split, MT), THREADS, smem, stream>>>(
       a, static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), table, n_pp, page_size, num_pages, p_sp, p_sr, p_sg,
       kv_pos, q_pos, acc_p, m_p, l_p);
   return cudaGetLastError();
 }
+
+// The instantiation for (dtype, row tiles): 0 = float32, 1 = bfloat16.
+template <template <typename, int, int> class F, typename... Args>
+cudaError_t dispatch(int dtype, int R, Args... args) {
+  const int mt = row_tiles(R);
+  if (dtype == 0)
+    return mt == 1 ? F<float, 128, 1>::run(args...) : F<float, 128, 2>::run(args...);
+  if (dtype == 1)
+    return mt == 1 ? F<__nv_bfloat16, 128, 1>::run(args...)
+                   : F<__nv_bfloat16, 128, 2>::run(args...);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int HD, int MT>
+struct DenseLaunch {
+  template <typename... Args>
+  static cudaError_t run(Args... args) { return launch_split<T, HD, MT>(args...); }
+};
+
+template <typename T, int HD, int MT>
+struct PagedLaunch {
+  template <typename... Args>
+  static cudaError_t run(Args... args) { return launch_paged<T, HD, MT>(args...); }
+};
 
 }  // namespace
 
@@ -190,13 +221,8 @@ int fd_split(int dtype, const void* q, const void* k, const void* v, const int* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd != 128) return cudaErrorInvalidValue;
   const Launch a{B, KV, R, S, kind, window, sink, split_len, scale};
-  if (dtype == 0)
-    return launch_split<float, 128>(a, n_split, q, k, v, kv_pos, q_pos, acc_p, m_p, l_p, k_sb,
-                                    k_sg, k_ss, st);
-  if (dtype == 1)
-    return launch_split<__nv_bfloat16, 128>(a, n_split, q, k, v, kv_pos, q_pos, acc_p, m_p,
-                                            l_p, k_sb, k_sg, k_ss, st);
-  return cudaErrorInvalidValue;
+  return dispatch<DenseLaunch>(dtype, R, a, n_split, q, k, v, kv_pos, q_pos, acc_p, m_p, l_p,
+                               k_sb, k_sg, k_ss, st);
 }
 
 // The paged twin of fd_split: pools (NP, P, KV, hd) with element strides
@@ -211,15 +237,9 @@ int fd_paged_split(int dtype, const void* q, const void* k_pages, const void* v_
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd != 128 || num_pages < 1) return cudaErrorInvalidValue;
   const Launch a{B, KV, R, n_pp * page_size, kind, window, sink, split_len, scale};
-  if (dtype == 0)
-    return launch_paged<float, 128>(a, n_split, q, k_pages, v_pages, table, n_pp, page_size,
-                                    num_pages, p_sp, p_sr, p_sg, kv_pos, q_pos, acc_p, m_p,
-                                    l_p, st);
-  if (dtype == 1)
-    return launch_paged<__nv_bfloat16, 128>(a, n_split, q, k_pages, v_pages, table, n_pp,
-                                            page_size, num_pages, p_sp, p_sr, p_sg, kv_pos,
-                                            q_pos, acc_p, m_p, l_p, st);
-  return cudaErrorInvalidValue;
+  return dispatch<PagedLaunch>(dtype, R, a, n_split, q, k_pages, v_pages, table, n_pp,
+                               page_size, num_pages, p_sp, p_sr, p_sg, kv_pos, q_pos, acc_p,
+                               m_p, l_p, st);
 }
 
 int fd_combine(const float* acc_p, const float* m_p, const float* l_p, int n_split,

@@ -5,17 +5,20 @@
 // (Pallas body `_kernel`), one TPU grid step per (batch, kv-head) with the
 // whole padded tree bucket in VMEM.
 //
-// Bound on the H100: neither bytes nor flops at these sizes — a T = 32
-// bucket is 32 KB of K/V per head — but launch and latency: the work is
-// tiny and must not cost a pass over device memory of its own.
+// Bound on the H100: neither bytes nor flops at these sizes (a T = 32
+// bucket is 32 KB of float32 K/V per head; B = 1 with 32 heads moves 2 MB
+// in all, 0.6 us of HBM) but latency: one load of Q and K/V, one tile of products, one
+// write, and enough CTAs in flight that no SM waits on a long tail.
 //
-// Design: one CTA per (row-tile, kv-head, batch); the bucket's K and V go
-// through shared memory in chunks of 32 slots (a T = 32 bucket is a single
-// chunk), the (B, T, T) ancestor-or-self mask is read per (row, slot) with
-// row r*T + t standing for tree node t, and the CTA writes un-normalised
-// partials (acc, m, l) that the flash-decode combine merges with the cache
-// partials. K/V are read through strides, so the staged (B, T, KV, hd)
-// tensors are used in place.
+// Design: the tensor-core row loop of attn_common.cuh (cp.async staging,
+// mma.sync TF32, 3xTF32 for float32 operands) with rows tiled by 16: one
+// CTA per (16-row tile, kv-head, batch), so B = 1, KV = 32, T = 32 runs 64
+// CTAs (B = 4: 256) where 32-row tiles gave 32. The bucket's T <= 32 keys
+// are one key tile; the (B, T, T) ancestor-or-self mask is read per (row,
+// slot) with row r*T + t standing for tree node t, and the CTA writes
+// un-normalised partials (acc, m, l) that the flash-decode combine merges
+// with the cache partials. K/V are read through strides, so the staged
+// (B, T, KV, hd) tensors are used in place.
 #include "attn_common.cuh"
 
 namespace {
@@ -31,7 +34,7 @@ struct TreeVis {
 };
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS) tree_kernel(
+__global__ void __launch_bounds__(THREADS, 2) tree_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const unsigned char* __restrict__ mask, float* __restrict__ acc, float* __restrict__ m,
     float* __restrict__ l, int KV, int R, int Tn, long long k_sb, long long k_sg,
@@ -39,9 +42,9 @@ __global__ void __launch_bounds__(THREADS) tree_kernel(
   const int rt = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const long long bg = (long long)b * KV + g;
   const TreeVis vis{mask + (long long)b * Tn * Tn, Tn};
-  rows_partials<T, HD>(q + bg * R * HD, R, rt * ROWS, scale, k + b * k_sb + g * k_sg,
-                       v + b * k_sb + g * k_sg, DenseSlots{k_st}, 0, Tn, vis,
-                       acc + bg * R * HD, m + bg * R, l + bg * R);
+  rows_partials<T, HD, 1>(q + bg * R * HD, R, rt * 16, scale, k + b * k_sb + g * k_sg,
+                          v + b * k_sb + g * k_sg, DenseSlots{k_st}, 0, Tn, vis,
+                          acc + bg * R * HD, m + bg * R, l + bg * R);
 }
 
 template <typename T, int HD>
@@ -49,10 +52,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const unsigned c
                    float* acc, float* m, float* l, int B, int KV, int R, int Tn,
                    long long k_sb, long long k_sg, long long k_st, float scale,
                    cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
+  constexpr size_t smem = Tile<T, HD, 1>::SMEM;
   static const cudaError_t smem_err = allow_smem(tree_kernel<T, HD>, smem);
   if (smem_err != cudaSuccess) return smem_err;
-  dim3 grid((R + ROWS - 1) / ROWS, KV, B);
+  dim3 grid((R + 15) / 16, KV, B);
   tree_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask, acc,
       m, l, KV, R, Tn, k_sb, k_sg, k_st, scale);

@@ -16,9 +16,10 @@ s % P of page page_table[b, s // P] (-1, unallocated, reads page 0 and must
 be masked by kv_pos), so S = n_pp * P.
 
 The split of S across CTAs is a function of the live length only (``live``,
-by default S), the same for both kernels: a paged call whose table spans
-more slots than ``live`` runs the same chunks as a dense call over the
-first ``live`` slots, so the two give bitwise-equal merged outputs.
+by default S), in whole 32-slot key tiles, the same for both kernels: a
+paged call whose table spans more slots than ``live`` runs the same tiles
+as a dense call over the first ``live`` slots, so the two give
+bitwise-equal merged outputs.
 
 On a CPU tensor every function computes the plain version
 (``kernels/ref.py``); on a CUDA tensor it launches the kernel or raises.
@@ -37,8 +38,7 @@ paged_launches = 0    # paged kernel launches (split + combine count as one)
 
 KINDS = {"causal": 0, "window": 1, "streaming": 2}
 CUDA_HEAD_DIM = 128   # the one head dim the CUDA kernels instantiate (vicuna-7b)
-_ROWS = 32            # query rows per CTA (attn_common.cuh: ROWS)
-_CH = 32              # key slots per chunk (attn_common.cuh: CH)
+KEY_TILE = 32         # key slots per staged tile (attn_common.cuh: KT)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -126,12 +126,24 @@ def _check_common(q, k, v, kv_pos, q_pos, tree, kind, others=()) -> None:
         raise ValueError("flash_decode: q, kv_pos and q_pos must be contiguous")
     if k.stride(-1) != 1 or v.stride() != k.stride():
         raise ValueError("flash_decode: k/v need a contiguous head dim and equal strides")
+    check_aligned("flash_decode", q, k, v)
     if tree is not None:
         acc_d, m_d, l_d = tree
         if (acc_d.shape != q.shape or m_d.shape != q.shape[:3] or l_d.shape != q.shape[:3]
                 or any(t.dtype != torch.float32 or not t.is_contiguous() for t in tree)):
             raise ValueError("flash_decode: tree partials must be contiguous float32 "
                              "(B, KV, R, hd) and (B, KV, R)")
+
+
+def check_aligned(what: str, *tensors) -> None:
+    """The kernels stage rows by 16-byte copies: every stride but the last
+    must be a multiple of 16 bytes, and on the card the data 16-byte
+    aligned."""
+    for t in tensors:
+        if any(s * t.element_size() % 16 for s in t.stride()[:-1]) or (
+                t.device.type == "cuda" and t.data_ptr() % 16):
+            raise ValueError(f"{what}: q/k/v rows must start on 16-byte boundaries "
+                             f"(strides {t.stride()}, {t.dtype})")
 
 
 def _check(q, k, v, kv_pos, q_pos, tree, kind) -> None:
@@ -166,15 +178,23 @@ def _check_paged(q, k_pages, v_pages, table, kv_pos, q_pos, tree, kind, live) ->
     return live
 
 
+def rows_per_cta(R: int) -> int:
+    """Query rows of one CTA's tile: one 16-row tensor-core tile for
+    R <= 16, two above (attn_common.cuh: row_tiles)."""
+    return 16 if R <= 16 else 32
+
+
 def _split_plan(device, B: int, KV: int, R: int, live: int, S: int):
-    """(n_split, split_len): split ``live`` slots so that the grid holds
-    about two CTAs per SM, then cover all S slots with splits of that
-    length (the extra slots of a paged table are masked for every row)."""
+    """(n_split, split_len): split ``live`` slots into whole key tiles so
+    that the grid fills the card's two resident CTAs per SM in one wave
+    (a second, partial wave would leave SMs idle at the tail), then cover
+    all S slots with splits of that length (the extra slots of a paged
+    table are masked for every row)."""
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    base = B * KV * -(-R // _ROWS)
-    n_chunks = -(-live // _CH)
-    n_split = max(1, min(n_chunks, -(-2 * n_sm // base)))
-    split_len = -(-n_chunks // n_split) * _CH
+    base = B * KV * -(-R // rows_per_cta(R))
+    n_tiles = -(-live // KEY_TILE)
+    n_split = max(1, min(n_tiles, 2 * n_sm // base))
+    split_len = -(-n_tiles // n_split) * KEY_TILE
     return -(-S // split_len), split_len
 
 

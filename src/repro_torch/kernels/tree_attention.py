@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.flash_decode import CUDA_HEAD_DIM
+from repro_torch.kernels.flash_decode import CUDA_HEAD_DIM, check_aligned
 
 launches = 0
 
@@ -76,3 +76,4 @@ def _check(q, k, v, mask) -> None:
         raise ValueError("tree_attention: q and mask must be contiguous")
     if k.stride(-1) != 1 or v.stride() != k.stride():
         raise ValueError("tree_attention: k/v need a contiguous head dim and equal strides")
+    check_aligned("tree_attention", q, k, v)

@@ -184,6 +184,37 @@ def test_attention_kernels_match_plain_on_card(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rep,T,S", [
+    (1, 5, 300),       # R = 5: one padded 16-row tile; S not a multiple of the 32-slot key tile
+    (1, 16, 300),      # R = 16: one full row tile
+    (1, 32, 2048),     # R = 32: two m16 tiles in one CTA, the main path's verify
+    (8, 8, 300),       # R = 64 (GQA rep 8): two 32-row CTAs per head
+])
+def test_attention_kernels_at_tile_edges_on_card(dtype, rep, T, S):
+    """The tensor-core kernels at the row and key tiles' edges, with a fully
+    masked cache row and a fully masked tree row, against the plain twins."""
+    dev = _card()
+    q, k, v, kv_pos, q_pos, kn, vn, tmask = _inputs(2, 2, rep, T, S, 128, pos=S - 21, seed=6)
+    tmask[1, 1] = False                                  # a fully masked tree row
+    dt = getattr(torch, dtype)
+    q, k, v, kn, vn = (a.to(dev, dt) for a in _t(q, k, v, kn, vn))
+    kv_pos, q_pos, tmask = (a.to(dev) for a in _t(kv_pos, q_pos, tmask))
+    tree = ta.tree_attention_partial(q, kn, vn, tmask)
+    want_t = ref.tree_attention_partial(q, kn, vn, tmask)
+    for g, w in zip(tree, want_t):
+        _close(g.cpu(), w.cpu(), atol=1e-4)
+    got = fd.flash_decode_partial(q, k, v, kv_pos, q_pos)
+    want = ref.flash_decode_partial(q, k, v, kv_pos, q_pos)
+    _close((got[0] / got[2][..., None]).cpu(), (want[0] / want[2][..., None]).cpu(), atol=1e-4)
+    _close(got[1].cpu(), want[1].cpu(), atol=1e-4)
+    assert float(got[2][0, 0, 0]) == S                   # the masked row averages every slot
+    merged = fd.flash_decode_merge(q, k, v, kv_pos, q_pos, tree)
+    _close(merged.cpu(), ref.ref_verify_attention(q, k, v, kv_pos, q_pos, kn, vn, tmask).cpu(),
+           atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_int8_kernel_matches_plain_on_card():
     dev = _card()
     rng = np.random.default_rng(5)

@@ -276,3 +276,31 @@ def test_paged_kernel_matches_plain_on_card(dtype):
     dense = fd.flash_decode_partial(q, k, v, kv_pos, q_pos)
     for g, w in zip(got, dense):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P,rep,T", [(16, 1, 5), (64, 1, 16), (16, 1, 32), (64, 8, 8)])
+def test_paged_kernel_tile_edges_on_card(dtype, P, rep, T):
+    """Pages of 16 (two per key tile) and 64 (two key tiles per page) at
+    R = 5, 16, 32 and 64 rows, ragged live lengths and a -1 tail, a fully
+    masked row: within 1e-4 of the plain version and bitwise equal to the
+    dense kernel on the gathered view, partials and merged output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc: the CUDA kernels have no CPU mode")
+    x = _paged_inputs(B=2, KV=2, rep=rep, T=T, hd=128, P=P, n_pp=300 // P + 1, seed=5)
+    dt = getattr(torch, dtype)
+    q, kp, vp, kn, vn = (_t(x[n]).to("cuda", dt) for n in ("q", "k_pages", "v_pages", "k_new",
+                                                            "v_new"))
+    table, kv_pos, q_pos, tmask = (_t(x[n]).cuda() for n in ("table", "kv_pos", "q_pos", "tmask"))
+    got = fd.flash_decode_paged_partial(q, kp, vp, table, kv_pos, q_pos)
+    want = ref.flash_decode_paged_partial(q, kp, vp, table, kv_pos, q_pos)
+    _close((got[0] / got[2][..., None]).cpu(), (want[0] / want[2][..., None]).cpu(), atol=1e-4)
+    _close(got[1].cpu(), want[1].cpu(), atol=1e-4)
+    k, v = (ref.paged_gather(p, table).transpose(1, 2) for p in (kp, vp))
+    for g, w in zip(got, fd.flash_decode_partial(q, k, v, kv_pos, q_pos)):
+        assert torch.equal(g, w)
+    tree = ref.tree_attention_partial(q, kn, vn, tmask)
+    paged = fd.flash_decode_paged_merge(q, kp, vp, table, kv_pos, q_pos, tree)
+    assert torch.equal(paged, fd.flash_decode_merge(q, k, v, kv_pos, q_pos, tree))
+    _close(paged.cpu(), ref.merge_partials(want, tree).cpu(), atol=1e-4)
