@@ -5,16 +5,18 @@
 
 Phase 1 prints the card, builds the hand-written kernels (one nvcc per
 source, in parallel) and prints what was compiled: each kernel's
-registers, shared memory and spill bytes (ptxas) and its count of
-tensor-core and async-copy instructions (cuobjdump, where the toolkit has
+registers, shared memory and spill bytes (ptxas) and its count of each
+tensor-core and async-copy instruction (cuobjdump, where the toolkit has
 it). Phase 2 holds each kernel against its plain PyTorch version at the
 main path's shapes (the paged flash decode also bitwise against the dense
 kernel on the gathered view) and times kernel, plain version, a library
 call and the bound, in float32 and bfloat16; the attention kernels and
 their library calls both by CUDA events and by replaying a captured CUDA
-graph. Phases 3-5 drive the single-stream CAS-Spec path at
-vicuna-7b width with random weights: float32 AR vs DyTC token identity, the
-same in bfloat16, and decode_step through the W8A8 kernel. Phase 6 drives
+graph; the W8A8 kernel bitwise at every row count of the decode path
+and timed at M = 4, 16, 32, 64 in both MLP shapes. Phases 3-5 drive the
+single-stream CAS-Spec path at vicuna-7b width with random weights: float32
+AR vs DyTC token identity, the same in bfloat16, and decode_step through
+the W8A8 kernel, with one quantized_matmul timed in its parts. Phase 6 drives
 the batched server (tree_fused and chain_fused, dense and paged caches,
 four slots) at the same width in float32 and holds every stream to AR.
 The last line is the JSON device record; the line before it lists the
@@ -91,6 +93,32 @@ def _graph_ms(fn, flush, iters: int = 20) -> float:
     return total / iters
 
 
+def _device_ms(fn, flush, kernel: str, iters: int = 20) -> float:
+    """Mean device time of the launches of ``kernel`` (a substring of the
+    kernel's name) in ``fn``, from the profiler's CUDA activity records, L2
+    flushed before every call: the kernel alone, without launch gaps. The
+    profiler may drop a few records; the mean is over those it kept."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA:
+            total += e.self_device_time_total
+            count += e.count
+    if count == 0:
+        raise AssertionError(f"the profiler recorded no launch of {kernel}")
+    return total / count / 1e3
+
+
 def _bound_ms(nbytes: float, ops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
@@ -136,10 +164,14 @@ def phase_env(torch) -> dict:
     for name in _build.SOURCES:
         for func, info in _compile_report(_build, name).items():
             print(f"  {name}: {func}: " + ", ".join(f"{k} {v}" for k, v in info.items()))
+            if name == "int8_matmul" and "int8_mm_kernel" in func and (
+                    info.get("spill_stores", 0) or info.get("spill_loads", 0)
+                    or info.get("IMMA", 1) == 0 or info.get("LDGSTS", 1) == 0):
+                raise AssertionError(f"{func}: spills, or no IMMA / LDGSTS in its SASS: {info}")
     return {"smi": smi}
 
 
-SASS_KINDS = {"tensor-core": ("HMMA", "HGMMA", "IMMA"), "async-copy": ("LDGSTS", "UTMALDG")}
+SASS_OPS = ("HMMA", "HGMMA", "IMMA", "LDGSTS", "UTMALDG")   # tensor-core products, async copies
 
 
 def _demangle(names):
@@ -153,8 +185,8 @@ def _demangle(names):
 def _compile_report(_build, name: str) -> dict:
     """Per kernel of ``csrc/<name>.cu``: what ``ptxas -v`` reported
     (registers, shared memory, spill bytes) and, where the toolkit has
-    ``cuobjdump``, how many tensor-core and async-copy instructions its
-    SASS holds: evidence of what the compiled code runs on."""
+    ``cuobjdump``, how many of each tensor-core and async-copy instruction
+    (``SASS_OPS``) its SASS holds: evidence of what the compiled code runs on."""
     import re
 
     info: dict = {}
@@ -181,11 +213,11 @@ def _compile_report(_build, name: str) -> dict:
             if m:
                 func = m.group(1)
                 info.setdefault(func, {})
-                info[func].update({k: 0 for k in SASS_KINDS})
+                info[func].update({op: 0 for op in SASS_OPS})
             elif func:
-                for kind, ops in SASS_KINDS.items():
-                    if any(re.search(rf"\b{op}\b", line) for op in ops):
-                        info[func][kind] += 1
+                for op in SASS_OPS:
+                    if re.search(rf"\b{op}\b", line):
+                        info[func][op] += 1
     names = _demangle(list(info))
     short = lambda n: n.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]  # noqa: E731
     return {short(names[f]): v for f, v in info.items()}
@@ -344,6 +376,87 @@ def _paged_kernel(torch, gen, flush, results: dict) -> None:
     results["flash_decode_paged"] = dict(max_abs_err=worst, **timing[("float32", 16, 4)])
 
 
+W8A8_ROWS = (1, 4, 16, 17, 20, 32, 40, 64, 96)   # chain and tree steps, verifies, ragged row tiles
+W8A8_TIMED_ROWS = (4, 16, 32, 64)
+W8A8_SHAPES = ((4096, 11008), (11008, 4096))      # the MLP's gate/up and down products
+
+
+def _int8_operands(torch, gen, M, K, N):
+    x_q = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+    xs = torch.rand(M, 1, generator=gen, device="cuda") / 127
+    ws = torch.rand(1, N, generator=gen, device="cuda") / 127
+    return x_q, w_q, xs, ws
+
+
+def _int_mm_rows(torch, x_q, w_q):
+    """x_q as ``torch._int_mm`` takes it: zero rows appended up to 17 where
+    its CUDA path refuses M <= 16 (the padded rows are computed and cut)."""
+    try:
+        torch._int_mm(x_q, w_q)
+        return x_q
+    except RuntimeError:
+        pad = torch.zeros(17 - x_q.shape[0], x_q.shape[1], dtype=x_q.dtype, device=x_q.device)
+        return torch.cat([x_q, pad])
+
+
+def _w8a8_kernel(torch, gen, flush_buf) -> dict:
+    """The W8A8 kernel (#3) bitwise against its plain version at every row
+    count of the decode path, in both MLP shapes and a small one whose last
+    column strip ends half way, and under a forced plan that splits K into
+    uneven ranges; then timed at M = 4, 16, 32, 64 in both MLP shapes beside
+    its byte bound and ``torch._int_mm`` with the same scale epilogue, and
+    by the profiler's kernel time after the usual flush (a 256 MB write, whose
+    dirty lines the kernel's reads evict) and after a read of the buffer
+    (clean L2)."""
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels import ref
+
+    worst = 0.0
+    for K, N in W8A8_SHAPES + ((256, 192),):
+        w_q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+        ws = torch.rand(1, N, generator=gen, device="cuda") / 127
+        for M in W8A8_ROWS:
+            x_q, _, xs, _ = _int8_operands(torch, gen, M, K, 64)
+            got = i8.int8_matmul(x_q, w_q, xs, ws)
+            want = ref.ref_int8_matmul(x_q, w_q, xs, ws)
+            forced = i8._launch(x_q, w_q, xs, ws, 16, min(7, K // 64))
+            torch.cuda.synchronize()
+            e = max(_err(got, want), _err(forced, want))
+            bm, splits = i8.card_plan(M, K, N, 0)
+            print(f"[phase 2] int8_matmul ({M},{K})x({K},{N}) row tile {bm}, {splits} K splits, "
+                  f"{-(-M // bm) * -(-N // i8.STRIP) * splits} CTAs: err abs={e:.3e} "
+                  f"bitwise={torch.equal(got, want)}; forced 16-row tiles and "
+                  f"{min(7, K // 64)} splits bitwise={torch.equal(forced, want)}")
+            if e > TOL["int8"] or not (torch.equal(got, want) and torch.equal(forced, want)):
+                raise AssertionError(f"int8_matmul disagrees at ({M},{K},{N})")
+            worst = max(worst, e)
+
+    flush = flush_buf.zero_
+    clean = flush_buf.view(torch.float32).sum
+    one = torch.zeros(1, device="cuda")
+    print(f"[phase 2] graph replay of a one-element add, the floor of a graph-replay time: "
+          f"{_graph_ms(lambda: one.add_(1), flush):.4f} ms")
+    timing = {}
+    for K, N in W8A8_SHAPES:
+        for M in W8A8_TIMED_ROWS:
+            x_q, w_q, xs, ws = _int8_operands(torch, gen, M, K, N)
+            x_lib = _int_mm_rows(torch, x_q, w_q)
+            bound, by = _bound_ms(_nbytes(x_q, w_q, xs, ws) + 4 * M * N, 2 * M * N * K, "int8")
+            tm = _timings(lambda: i8.int8_matmul(x_q, w_q, xs, ws),
+                          lambda: ref.ref_int8_matmul(x_q, w_q, xs, ws),
+                          lambda: torch._int_mm(x_lib, w_q)[:M].float() * xs * ws, flush, bound, by)
+            kernel = lambda: i8.int8_matmul(x_q, w_q, xs, ws)  # noqa: E731
+            tm.update(device_ms=_device_ms(kernel, flush, "int8_mm_kernel"),
+                      device_clean_ms=_device_ms(kernel, clean, "int8_mm_kernel"))
+            timing[(M, K, N)] = tm
+            padded = f" (rows padded to {x_lib.shape[0]})" if x_lib.shape[0] != M else ""
+            print(f"[phase 2] int8_matmul ({M},{K})x({K},{N}) " + _timing_text(tm, "_int_mm+scale")
+                  + padded + f"  kernel device time {tm['device_ms']:.4f} ms ({tm['device_ms'] / bound:.2f}x "
+                  f"bound), clean L2 {tm['device_clean_ms']:.4f} ms ({tm['device_clean_ms'] / bound:.2f}x)")
+    return dict(max_abs_err=worst, **timing[(32, 4096, 11008)])
+
+
 def phase_kernels(torch, results: dict) -> None:
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import int8_matmul as i8
@@ -467,33 +580,7 @@ def phase_kernels(torch, results: dict) -> None:
     results["tree_attention"] = dict(max_abs_err=worst, **timing["float32"])
 
     # --- W8A8 (#3)
-    worst, timing = 0.0, {}
-    # a ragged M (two row tiles, the second partial) for agreement, then the
-    # decode step's two MLP shapes, timed
-    for (M, K, N) in ((40, 256, 192), (32, 4096, 11008), (32, 11008, 4096)):
-        x_q = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
-        w_q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
-        xs = torch.rand(M, 1, generator=gen, device="cuda") / 127
-        ws = torch.rand(1, N, generator=gen, device="cuda") / 127
-        got = i8.int8_matmul(x_q, w_q, xs, ws)
-        want = ref.ref_int8_matmul(x_q, w_q, xs, ws)
-        torch.cuda.synchronize()
-        e = _err(got, want)
-        print(f"[phase 2] int8_matmul ({M},{K})x({K},{N}) err abs={e:.3e} rel={_rel(got, want):.3e}")
-        if e > TOL["int8"]:
-            raise AssertionError(f"int8_matmul disagrees at ({M},{K},{N})")
-        worst = max(worst, e)
-        if M != 32:
-            continue
-        ms = _time_ms(lambda: i8.int8_matmul(x_q, w_q, xs, ws), flush)
-        graph = _graph_ms(lambda: i8.int8_matmul(x_q, w_q, xs, ws), flush)
-        plain = _time_ms(lambda: ref.ref_int8_matmul(x_q, w_q, xs, ws), flush)
-        lib = _time_ms(lambda: torch._int_mm(x_q, w_q), flush)
-        bound, by = _bound_ms(_nbytes(x_q, w_q, xs, ws) + 4 * M * N, 2 * M * N * K, "int8")
-        timing[f"{M}x{K}x{N}"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
-        print(f"[phase 2] int8_matmul ({M},{K})x({K},{N}) kernel {ms:.4f} ms (graph replay {graph:.4f} ms)  "
-              f"plain {plain:.4f} ms  _int_mm {lib:.4f} ms  bound {bound:.4f} ms ({by})")
-    results["int8_matmul"] = dict(max_abs_err=worst, **timing["32x4096x11008"])
+    results["int8_matmul"] = _w8a8_kernel(torch, gen, flush_buf)
     del flush_buf
 
 
@@ -652,7 +739,8 @@ def _plain_w8a8():
 
 def phase_int8(torch, results: dict) -> None:
     """decode_step(quantize="int8") at vicuna-7b width, bf16, against the same
-    call with the plain W8A8 version."""
+    call with the plain W8A8 version; then one quantized_matmul split into
+    its parts."""
     import numpy as np
 
     from repro_torch.config import get_config
@@ -686,6 +774,35 @@ def phase_int8(torch, results: dict) -> None:
     if counts["int8_matmul"] <= 0:
         raise AssertionError("the W8A8 kernel was not launched by decode_step(quantize='int8')")
     results["int8_matmul"]["launches"] = counts["int8_matmul"]
+    del params, cache
+    _quantized_matmul_parts(torch)
+
+
+def _quantized_matmul_parts(torch) -> None:
+    """One ``ops.quantized_matmul`` at the gate/up product (32 rows, 4096 ->
+    11008) by graph replay, L2 flushed, in bfloat16 and float32, split into
+    its parts (the reference quantizes the weight anew on every call), beside
+    the unquantized x @ w at the same shape."""
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(32, 4096, generator=gen, device="cuda").to(dtype)
+        w = torch.randn(4096, 11008, generator=gen, device="cuda").to(dtype)
+        x_q, xs = i8.quantize_rows(x)
+        w_q, ws = i8.quantize_cols(w)
+        parts = {"quantize_rows": lambda: i8.quantize_rows(x),
+                 "quantize_cols": lambda: i8.quantize_cols(w),
+                 "kernel": lambda: i8.int8_matmul(x_q, w_q, xs, ws),
+                 "quantized_matmul": lambda: ops.quantized_matmul(x, w),
+                 "x @ w": lambda: x @ w}
+        ms = {k: _graph_ms(f, flush_buf.zero_) for k, f in parts.items()}
+        print(f"[phase 5] quantized_matmul {str(dtype)[6:]} (32, 4096) x (4096, 11008), graph replay ms: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+              + f"; quantize_cols / kernel {ms['quantize_cols'] / ms['kernel']:.1f}x")
+    del flush_buf
 
 
 # ------------------------------------------------------------------ phase 6

@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
-"""Time the port's attention kernels from one source tree, for comparing
-two versions on the same card.
+"""Time the port's kernels from one source tree, for comparing two
+versions on the same card.
 
-    python3 attn_ab.py SRC_ROOT TAG
+    python3 kernel_ab.py SRC_ROOT TAG
 
 SRC_ROOT holds a ``repro_torch`` package (``src`` of a checkout, or of an
 older commit unpacked with ``git archive`` into a git-ignored directory).
 Each run builds that tree's kernels and prints one line per case: the
 verify merge of the dense flash decode (B=1, 32 heads, T=32, S=160 and
 2048), tree attention (T=32) and the paged merge (B=4, T=16 over 4 pages
-of 64 and T=32 over 32 pages), in float32 and bfloat16, by CUDA-graph
-replay with the L2 flushed before every replay (``chip_smoke._graph_ms``),
-with the max abs error against the plain version and, for the paged
-kernel, whether it is bitwise equal to the dense kernel on the gathered
-view. Run versions in turns in one call (A, B, B, A): two calls may land
-on two cards.
+of 64 and T=32 over 32 pages), in float32 and bfloat16; the W8A8 product
+at M = 4, 32, 64 rows in both MLP shapes (4096 -> 11008, 11008 -> 4096).
+Every case is timed by CUDA-graph replay with the L2 flushed before every
+replay (``chip_smoke._graph_ms``), with the max abs error against the plain
+version and, for the paged kernel, whether it is bitwise equal to the dense
+kernel on the gathered view (for W8A8, whether it is bitwise equal to the
+plain version). Run versions in turns in one call (A, B, B, A): two calls
+may land on two cards.
 """
 from __future__ import annotations
 
@@ -29,10 +31,11 @@ def main(root: str, tag: str) -> int:
 
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import int8_matmul as i8
     from repro_torch.kernels import tree_attention as ta
 
     if not torch.cuda.is_available():
-        print("attn_ab: no CUDA device", file=sys.stderr)
+        print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     if not _build.__file__.startswith(root):
         raise RuntimeError(f"imported {_build.__file__}, not the tree under {root}")
@@ -76,6 +79,13 @@ def main(root: str, tag: str) -> int:
             rows.append((f"paged merge {dn} B=4 T={T} {n_pp} pages", ms, cs._err(got, want),
                          f" bitwise dense={bitwise}"))
             del kd, vd
+    for K, N in cs.W8A8_SHAPES:
+        for M in (4, 32, 64):
+            x_q, w_q, xs, ws = cs._int8_operands(torch, gen, M, K, N)
+            got, want = i8.int8_matmul(x_q, w_q, xs, ws), ref.ref_int8_matmul(x_q, w_q, xs, ws)
+            ms = cs._graph_ms(lambda: i8.int8_matmul(x_q, w_q, xs, ws), flush)
+            rows.append((f"int8_matmul ({M},{K})x({K},{N})", ms, cs._err(got, want),
+                         f" bitwise={torch.equal(got, want)}"))
     for name, ms, err, extra in rows:
         print(f"[{tag}] {name:40s} graph replay {ms:.4f} ms  err {err:.2e}{extra}")
     return 0

@@ -3,8 +3,8 @@
 On a CPU tensor each wrapper computes its plain PyTorch version, which is
 what these tests hold against the reference (``repro.kernels.ref`` and the
 Pallas kernels in interpret mode). The hand-written CUDA kernels are held
-against the same plain versions by the ``cuda``-marked tests at the end and
-by ``chip_smoke.py``, on the card.
+against the same plain versions by ``test_torch_on_card.py`` and
+``chip_smoke.py``, on the card.
 
 Tolerances: attention partials and outputs are float32 on both sides and
 differ by summation order only (atol 1e-5); the int8 quantizers are
@@ -29,36 +29,15 @@ from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import int8_matmul as i8  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import tree_attention as ta  # noqa: E402
+from torch_inputs import attention_inputs as _inputs  # noqa: E402
+from torch_inputs import close  # noqa: E402
+from torch_inputs import tensors as _t  # noqa: E402
 
 ATOL = 1e-5
 
 
-def _inputs(B, KV, rep, T, S, hd, pos, seed=0):
-    """Shared numpy inputs in the kernels' (B, KV, R, hd) layout; row 0 of
-    batch 0 is fully masked (q_pos = -1)."""
-    rng = np.random.default_rng(seed)
-    R = rep * T
-    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
-    q, k, v = f(B, KV, R, hd), f(B, KV, S, hd), f(B, KV, S, hd)
-    kn, vn = f(B, KV, T, hd), f(B, KV, T, hd)
-    slots = np.arange(S)[None].repeat(B, 0)
-    kv_pos = np.where(slots < pos, slots, -1).astype(np.int32)
-    q_pos = np.tile(pos + np.arange(T), (B, rep)).astype(np.int32)
-    q_pos[0, 0] = -1
-    tm = np.tril(np.ones((T, T), bool))
-    if T >= 4:
-        tm[3, 2] = False
-    tmask = np.broadcast_to(tm, (B, T, T)).copy()
-    return q, k, v, kv_pos, q_pos, kn, vn, tmask
-
-
-def _t(*arrays):
-    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-
-
 def _close(got, want, atol=ATOL):
-    np.testing.assert_allclose(np.asarray(got, np.float64), np.asarray(want, np.float64),
-                               atol=atol, rtol=0)
+    close(got, want, atol)
 
 
 @pytest.mark.parametrize("kind", ["causal", "window", "streaming"])
@@ -150,9 +129,10 @@ def test_int8_matmul_plain_matches_oracles():
     np.testing.assert_allclose(got, pallas, rtol=1e-6, atol=1e-6)
 
 
-def test_quantized_matmul_matches_pallas():
+@pytest.mark.parametrize("M", [1, 4, 6, 20, 64])      # chain and tree draft steps, verifies
+def test_quantized_matmul_matches_pallas(M):
     rng = np.random.default_rng(4)
-    x = rng.standard_normal((6, 200)).astype(np.float32)     # ragged K and N: padded
+    x = rng.standard_normal((M, 200)).astype(np.float32)     # ragged K and N: padded
     w = rng.standard_normal((200, 72)).astype(np.float32)
     want = np.asarray(jops.quantized_matmul(jnp.asarray(x), jnp.asarray(w), interpret=True))
     got = ops.quantized_matmul(torch.from_numpy(x), torch.from_numpy(w))
@@ -160,67 +140,46 @@ def test_quantized_matmul_matches_pallas():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-# ------------------------------------------------------------- on the card
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with nvcc: the CUDA kernels have no CPU mode")
-    return torch.device("cuda")
+DECODE_ROWS = [1, 4, 16, 17, 20, 32, 40, 64, 96]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_attention_kernels_match_plain_on_card(dtype):
-    dev = _card()
-    q, k, v, kv_pos, q_pos, kn, vn, tmask = _t(*_inputs(2, 4, 2, 8, 300, 128, pos=250))
-    dt = getattr(torch, dtype)
-    q, k, v, kn, vn = (a.to(dev, dt) for a in (q, k, v, kn, vn))
-    kv_pos, q_pos, tmask = kv_pos.to(dev), q_pos.to(dev), tmask.to(dev)
-    tree = ta.tree_attention_partial(q, kn, vn, tmask)
-    for g, w in zip(tree, ref.tree_attention_partial(q, kn, vn, tmask)):
-        _close(g.cpu(), w.cpu(), atol=1e-4)
-    got = fd.flash_decode_merge(q, k, v, kv_pos, q_pos, tree)
-    want = ref.ref_verify_attention(q, k, v, kv_pos, q_pos, kn, vn, tmask)
-    _close(got.cpu(), want.cpu(), atol=1e-4)
+@pytest.mark.parametrize("K,N", [(4096, 11008), (11008, 4096), (256, 192)])
+def test_int8_plan_covers_k_and_fills_the_card(K, N):
+    """The W8A8 launch plan on a 132-SM H100 whose CTA slots hold clusters
+    perfectly packed: the smallest row tile that covers M, K ranges that
+    take every K tile exactly once, one cluster per (row tile, strip) within
+    one wave, and at the MLP shapes at least two CTAs per SM."""
+    sms, k_tiles = 132, K // i8.TILE_K
+    clusters = lambda bm, splits: i8.CTAS_PER_SM * sms // splits  # noqa: E731
+    for M in DECODE_ROWS:
+        bm, splits = i8.plan(M, K, N, clusters)
+        assert bm == min([b for b in i8.ROW_TILES if b >= M] or [max(i8.ROW_TILES)])
+        assert 1 <= splits <= min(i8.MAX_SPLITS, k_tiles)
+        ranges = [i8.k_range(s, splits, k_tiles) for s in range(splits)]
+        covered = [kt for lo, hi in ranges for kt in range(lo, hi)]
+        assert covered == list(range(k_tiles))
+        assert all(hi - lo >= min(i8.MIN_SPLIT_TILES, k_tiles) for lo, hi in ranges)
+        items = -(-M // bm) * -(-N // i8.STRIP)
+        assert items <= clusters(bm, splits)
+        if K >= 4096:
+            assert 2 * sms <= items * splits <= i8.CTAS_PER_SM * sms, (M, items * splits)
+    # gate/up: 64 K tiles in 4 ranges; down: 172 in 12 ranges of 14-15
+    assert i8.plan(32, 4096, 11008, clusters) == (32, 4)
+    assert i8.plan(32, 11008, 4096, clusters) == (32, 12)
+    # a card that holds fewer clusters gets fewer splits, down to none
+    assert i8.plan(32, 4096, 11008, lambda bm, s: 86 if s <= 3 else 80) == (32, 3)
+    assert i8.plan(32, 4096, 11008, lambda bm, s: 0) == (32, 1)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rep,T,S", [
-    (1, 5, 300),       # R = 5: one padded 16-row tile; S not a multiple of the 32-slot key tile
-    (1, 16, 300),      # R = 16: one full row tile
-    (1, 32, 2048),     # R = 32: two m16 tiles in one CTA, the main path's verify
-    (8, 8, 300),       # R = 64 (GQA rep 8): two 32-row CTAs per head
-])
-def test_attention_kernels_at_tile_edges_on_card(dtype, rep, T, S):
-    """The tensor-core kernels at the row and key tiles' edges, with a fully
-    masked cache row and a fully masked tree row, against the plain twins."""
-    dev = _card()
-    q, k, v, kv_pos, q_pos, kn, vn, tmask = _inputs(2, 2, rep, T, S, 128, pos=S - 21, seed=6)
-    tmask[1, 1] = False                                  # a fully masked tree row
-    dt = getattr(torch, dtype)
-    q, k, v, kn, vn = (a.to(dev, dt) for a in _t(q, k, v, kn, vn))
-    kv_pos, q_pos, tmask = (a.to(dev) for a in _t(kv_pos, q_pos, tmask))
-    tree = ta.tree_attention_partial(q, kn, vn, tmask)
-    want_t = ref.tree_attention_partial(q, kn, vn, tmask)
-    for g, w in zip(tree, want_t):
-        _close(g.cpu(), w.cpu(), atol=1e-4)
-    got = fd.flash_decode_partial(q, k, v, kv_pos, q_pos)
-    want = ref.flash_decode_partial(q, k, v, kv_pos, q_pos)
-    _close((got[0] / got[2][..., None]).cpu(), (want[0] / want[2][..., None]).cpu(), atol=1e-4)
-    _close(got[1].cpu(), want[1].cpu(), atol=1e-4)
-    assert float(got[2][0, 0, 0]) == S                   # the masked row averages every slot
-    merged = fd.flash_decode_merge(q, k, v, kv_pos, q_pos, tree)
-    _close(merged.cpu(), ref.ref_verify_attention(q, k, v, kv_pos, q_pos, kn, vn, tmask).cpu(),
-           atol=1e-4)
-
-
-@pytest.mark.cuda
-def test_int8_kernel_matches_plain_on_card():
-    dev = _card()
-    rng = np.random.default_rng(5)
-    x_q, w_q = (torch.from_numpy(rng.integers(-127, 128, s).astype(np.int8)).to(dev)
-                for s in ((40, 256), (256, 192)))
-    xs = torch.rand(40, 1, device=dev)
-    ws = torch.rand(1, 192, device=dev)
-    torch.testing.assert_close(i8.int8_matmul(x_q, w_q, xs, ws),
-                               ref.ref_int8_matmul(x_q, w_q, xs, ws), rtol=0, atol=0)
+def test_int8_matmul_refuses_what_the_kernel_cannot_take():
+    ok = (torch.zeros(4, 128, dtype=torch.int8), torch.zeros(128, 64, dtype=torch.int8),
+          torch.ones(4, 1), torch.ones(1, 64))
+    i8.int8_matmul(*ok)
+    with pytest.raises(ValueError, match="multiples"):
+        i8.int8_matmul(ok[0][:, :100].contiguous(), ok[1][:100], ok[2], ok[3])
+    with pytest.raises(ValueError, match="at most"):
+        K = i8.MAX_K + i8.TILE_K - i8.MAX_K % i8.TILE_K
+        i8.int8_matmul(torch.zeros(1, K, dtype=torch.int8), torch.zeros(K, 64, dtype=torch.int8),
+                       torch.ones(1, 1), ok[3])
+    with pytest.raises(TypeError):
+        i8.int8_matmul(ok[0].float(), *ok[1:])

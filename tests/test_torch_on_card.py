@@ -1,0 +1,182 @@
+"""The hand-written CUDA kernels against their plain versions, on the card.
+
+Every test here carries the ``cuda`` marker and skips without an NVIDIA GPU
+(the kernels have no CPU mode). The module imports no JAX, so it is
+collected on the card's machine, which has none:
+
+    python -m pytest -q -m cuda tests/test_torch_on_card.py
+
+Tolerances: the attention kernels compute with TF32 tensor-core products
+(3xTF32 for float32 operands), within 1e-4 of the plain versions in float32
+and bfloat16; the paged kernel is bitwise equal to the dense kernel on the
+gathered view; the W8A8 kernel adds exact int32 partial sums and scales in
+the plain version's order, so it is bitwise equal (tolerance 0).
+"""
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro_torch.kernels import flash_decode as fd  # noqa: E402
+from repro_torch.kernels import int8_matmul as i8  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import tree_attention as ta  # noqa: E402
+from torch_inputs import attention_inputs, close, int8_inputs, paged_inputs, tensors  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+ATOL = 1e-4
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+# ------------------------------------------------------------- attention
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernels_match_plain_on_card(dtype):
+    dev = _card()
+    q, k, v, kv_pos, q_pos, kn, vn, tmask = tensors(*attention_inputs(2, 4, 2, 8, 300, 128, pos=250))
+    dt = getattr(torch, dtype)
+    q, k, v, kn, vn = (a.to(dev, dt) for a in (q, k, v, kn, vn))
+    kv_pos, q_pos, tmask = kv_pos.to(dev), q_pos.to(dev), tmask.to(dev)
+    tree = ta.tree_attention_partial(q, kn, vn, tmask)
+    for g, w in zip(tree, ref.tree_attention_partial(q, kn, vn, tmask)):
+        close(g.cpu(), w.cpu(), ATOL)
+    got = fd.flash_decode_merge(q, k, v, kv_pos, q_pos, tree)
+    want = ref.ref_verify_attention(q, k, v, kv_pos, q_pos, kn, vn, tmask)
+    close(got.cpu(), want.cpu(), ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rep,T,S", [
+    (1, 5, 300),       # R = 5: one padded 16-row tile; S not a multiple of the 32-slot key tile
+    (1, 16, 300),      # R = 16: one full row tile
+    (1, 32, 2048),     # R = 32: two m16 tiles in one CTA, the main path's verify
+    (8, 8, 300),       # R = 64 (GQA rep 8): two 32-row CTAs per head
+])
+def test_attention_kernels_at_tile_edges_on_card(dtype, rep, T, S):
+    """The tensor-core kernels at the row and key tiles' edges, with a fully
+    masked cache row and a fully masked tree row, against the plain twins."""
+    dev = _card()
+    q, k, v, kv_pos, q_pos, kn, vn, tmask = attention_inputs(2, 2, rep, T, S, 128, pos=S - 21, seed=6)
+    tmask[1, 1] = False                                  # a fully masked tree row
+    dt = getattr(torch, dtype)
+    q, k, v, kn, vn = (a.to(dev, dt) for a in tensors(q, k, v, kn, vn))
+    kv_pos, q_pos, tmask = (a.to(dev) for a in tensors(kv_pos, q_pos, tmask))
+    tree = ta.tree_attention_partial(q, kn, vn, tmask)
+    want_t = ref.tree_attention_partial(q, kn, vn, tmask)
+    for g, w in zip(tree, want_t):
+        close(g.cpu(), w.cpu(), ATOL)
+    got = fd.flash_decode_partial(q, k, v, kv_pos, q_pos)
+    want = ref.flash_decode_partial(q, k, v, kv_pos, q_pos)
+    close((got[0] / got[2][..., None]).cpu(), (want[0] / want[2][..., None]).cpu(), ATOL)
+    close(got[1].cpu(), want[1].cpu(), ATOL)
+    assert float(got[2][0, 0, 0]) == S                   # the masked row averages every slot
+    merged = fd.flash_decode_merge(q, k, v, kv_pos, q_pos, tree)
+    close(merged.cpu(), ref.ref_verify_attention(q, k, v, kv_pos, q_pos, kn, vn, tmask).cpu(), ATOL)
+
+
+# ------------------------------------------------------------- paged attention
+def _paged(x, names, dev, dtype=None):
+    return [a.to(dev, dtype) if dtype else a.to(dev) for a in tensors(*(x[n] for n in names))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernel_matches_plain_on_card(dtype):
+    dev = _card()
+    x = paged_inputs(B=2, KV=4, rep=1, T=32, hd=128, P=16, n_pp=6)
+    q, kp, vp = _paged(x, ("q", "k_pages", "v_pages"), dev, getattr(torch, dtype))
+    table, kv_pos, q_pos = _paged(x, ("table", "kv_pos", "q_pos"), dev)
+    got = fd.flash_decode_paged_partial(q, kp, vp, table, kv_pos, q_pos)
+    want = ref.flash_decode_paged_partial(q, kp, vp, table, kv_pos, q_pos)
+    for g, w in zip(got, want):
+        close((g / got[2][..., None] if g.ndim == 4 else g).cpu(),
+              (w / want[2][..., None] if w.ndim == 4 else w).cpu(), ATOL)
+    k, v = (ref.paged_gather(p, table).transpose(1, 2) for p in (kp, vp))
+    dense = fd.flash_decode_partial(q, k, v, kv_pos, q_pos)
+    for g, w in zip(got, dense):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P,rep,T", [(16, 1, 5), (64, 1, 16), (16, 1, 32), (64, 8, 8)])
+def test_paged_kernel_tile_edges_on_card(dtype, P, rep, T):
+    """Pages of 16 (two per key tile) and 64 (two key tiles per page) at
+    R = 5, 16, 32 and 64 rows, ragged live lengths and a -1 tail, a fully
+    masked row: within 1e-4 of the plain version and bitwise equal to the
+    dense kernel on the gathered view, partials and merged output."""
+    dev = _card()
+    x = paged_inputs(B=2, KV=2, rep=rep, T=T, hd=128, P=P, n_pp=300 // P + 1, seed=5)
+    q, kp, vp, kn, vn = _paged(x, ("q", "k_pages", "v_pages", "k_new", "v_new"), dev,
+                               getattr(torch, dtype))
+    table, kv_pos, q_pos, tmask = _paged(x, ("table", "kv_pos", "q_pos", "tmask"), dev)
+    got = fd.flash_decode_paged_partial(q, kp, vp, table, kv_pos, q_pos)
+    want = ref.flash_decode_paged_partial(q, kp, vp, table, kv_pos, q_pos)
+    close((got[0] / got[2][..., None]).cpu(), (want[0] / want[2][..., None]).cpu(), ATOL)
+    close(got[1].cpu(), want[1].cpu(), ATOL)
+    k, v = (ref.paged_gather(p, table).transpose(1, 2) for p in (kp, vp))
+    for g, w in zip(got, fd.flash_decode_partial(q, k, v, kv_pos, q_pos)):
+        assert torch.equal(g, w)
+    tree = ref.tree_attention_partial(q, kn, vn, tmask)
+    paged = fd.flash_decode_paged_merge(q, kp, vp, table, kv_pos, q_pos, tree)
+    assert torch.equal(paged, fd.flash_decode_merge(q, k, v, kv_pos, q_pos, tree))
+    close(paged.cpu(), ref.merge_partials(want, tree).cpu(), ATOL)
+
+
+# ------------------------------------------------------------- W8A8
+def test_int8_kernel_matches_plain_on_card():
+    dev = _card()
+    rng = np.random.default_rng(5)
+    x_q, w_q = (torch.from_numpy(rng.integers(-127, 128, s).astype(np.int8)).to(dev)
+                for s in ((40, 256), (256, 192)))
+    xs = torch.rand(40, 1, device=dev)
+    ws = torch.rand(1, 192, device=dev)
+    torch.testing.assert_close(i8.int8_matmul(x_q, w_q, xs, ws),
+                               ref.ref_int8_matmul(x_q, w_q, xs, ws), rtol=0, atol=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _weights(K, N):
+    _, w_q, _, ws = int8_inputs(1, K, N, seed=K + N)
+    return torch.from_numpy(w_q).cuda(), torch.from_numpy(ws).cuda()
+
+
+def _int8_case(M, K, N):
+    """M rows of x and their scales, and the (K, N) weight shared by every M."""
+    x_q, _, xs, _ = int8_inputs(M, K, 64, seed=M + K)
+    w_q, ws = _weights(K, N)
+    return torch.from_numpy(x_q).cuda(), w_q, torch.from_numpy(xs).cuda(), ws
+
+
+@pytest.mark.parametrize("K,N", [(4096, 11008), (11008, 4096), (256, 192)])
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 20, 32, 40, 64, 96])
+def test_int8_kernel_bitwise_at_decode_rows_on_card(M, K, N):
+    """Every row count the decode path runs (chain steps of 1-4 rows, tree
+    steps and B=4 x T=5 verifies of 16-20, T=32, B=4 x T=16, and ragged 17,
+    40, 96 across row tiles) at both MLP shapes and a small one whose
+    second 128-column strip ends half way: bitwise equal to the plain
+    version. The plan splits K unevenly at the MLP shapes."""
+    _card()
+    x_q, w_q, xs, ws = _int8_case(M, K, N)
+    got = i8.int8_matmul(x_q, w_q, xs, ws)
+    assert torch.equal(got, ref.ref_int8_matmul(x_q, w_q, xs, ws))
+
+
+@pytest.mark.parametrize("M,K,N,bm,splits", [
+    (20, 4096, 11008, 32, 7),     # 64 K tiles in 7 ranges of 9-10
+    (4, 11008, 4096, 16, 1),      # no split: the whole K in one CTA, no workspace
+    (40, 256, 192, 16, 3),        # three 16-row tiles, the last partial; ranges of 1, 1, 2
+    (96, 11008, 4096, 64, 13),    # 172 K tiles in ranges of 13-14, two row tiles
+])
+def test_int8_kernel_bitwise_under_forced_plans_on_card(M, K, N, bm, splits):
+    """Launch plans the wrapper would not pick: row tiles smaller than M
+    and split counts that cut K anywhere, all bitwise equal."""
+    _card()
+    x_q, w_q, xs, ws = _int8_case(M, K, N)
+    got = i8._launch(x_q, w_q, xs, ws, bm, splits)
+    assert torch.equal(got, ref.ref_int8_matmul(x_q, w_q, xs, ws))

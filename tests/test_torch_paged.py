@@ -7,8 +7,8 @@ mode and, bit for bit, against the port's dense plain version on the
 gathered view. The model path (``decode_step``, ``write_slot``,
 ``commit_cache``) on a paged cache is held against the JAX functions on the
 same paged cache, carried across by ``bridge.cache_from_jax``. The CUDA
-kernel is held against the plain version by the ``cuda``-marked test at the
-end and by ``chip_smoke.py``, on the card.
+kernel is held against the plain version by ``test_torch_on_card.py`` and
+``chip_smoke.py``, on the card.
 
 Tolerances: partials and verify outputs are float32 on both sides and
 differ by summation order only (atol 1e-5); logits atol 1e-4 (float32,
@@ -35,6 +35,7 @@ from repro_torch.config import get_config  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from torch_inputs import paged_inputs as _paged_inputs  # noqa: E402
 
 ATOL = 1e-5
 J_CFG = dataclasses.replace(j_get_config("vicuna-7b").reduced(), num_layers=3)
@@ -49,30 +50,6 @@ PROMPTS = [_rng.integers(2, CFG.vocab_size, size=n).astype(np.int32) for n in (8
 def _close(got, want, atol=ATOL):
     np.testing.assert_allclose(np.asarray(got, np.float64), np.asarray(want, np.float64),
                                atol=atol, rtol=0)
-
-
-def _paged_inputs(B=2, KV=2, rep=2, T=4, hd=64, P=PAGE, n_pp=4, seed=0):
-    """Kernel inputs over a scrambled page table: slot 0 owns n_pp pages,
-    slot 1 three pages and a -1 tail, both end in a partial tail page; the
-    first query row of slot 0 sees no slot. Pools are in the model's
-    (NP, P, KV, hd) layout."""
-    rng = np.random.default_rng(seed)
-    R, S, NP = rep * T, n_pp * P, B * n_pp + 2
-    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
-    perm = rng.permutation(NP)
-    table = np.full((B, n_pp), -1, np.int32)
-    table[0] = perm[:n_pp]
-    table[1, :3] = perm[n_pp:n_pp + 3]
-    pos = np.array([S - 7, 2 * P + 5])[:, None]
-    slots = np.arange(S)[None].repeat(B, 0)
-    kv_pos = np.where(slots < pos, slots, -1).astype(np.int32)
-    q_pos = np.tile(pos + np.arange(T), (1, rep)).astype(np.int32)
-    q_pos[0, 0] = -1
-    tm = np.tril(np.ones((T, T), bool))
-    tm[3, 2] = False
-    return dict(q=f(B, KV, R, hd), k_pages=f(NP, P, KV, hd), v_pages=f(NP, P, KV, hd),
-                table=table, kv_pos=kv_pos, q_pos=q_pos, k_new=f(B, KV, T, hd),
-                v_new=f(B, KV, T, hd), tmask=np.broadcast_to(tm, (B, T, T)).copy())
 
 
 def _t(x):
@@ -255,52 +232,3 @@ def test_init_cache_paged_layout_matches_reference():
         M.init_cache(CFG, 1, MAX_LEN, paged=True, page_size=PAGE, ring_window=True, device="cpu")
     with pytest.raises(NotImplementedError):
         M.prefill(CFG, PARAMS, {"tokens": torch.zeros(1, 4, dtype=torch.int32)}, got)
-
-
-# ------------------------------------------------------------- on the card
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_paged_kernel_matches_plain_on_card(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with nvcc: the CUDA kernels have no CPU mode")
-    x = _paged_inputs(B=2, KV=4, rep=1, T=32, hd=128, P=16, n_pp=6)
-    dt = getattr(torch, dtype)
-    q, kp, vp = (_t(x[n]).to("cuda", dt) for n in ("q", "k_pages", "v_pages"))
-    table, kv_pos, q_pos = (_t(x[n]).cuda() for n in ("table", "kv_pos", "q_pos"))
-    got = fd.flash_decode_paged_partial(q, kp, vp, table, kv_pos, q_pos)
-    want = ref.flash_decode_paged_partial(q, kp, vp, table, kv_pos, q_pos)
-    for g, w in zip(got, want):
-        _close((g / got[2][..., None] if g.ndim == 4 else g).cpu(),
-               (w / want[2][..., None] if w.ndim == 4 else w).cpu(), atol=1e-4)
-    k, v = (ref.paged_gather(p, table).transpose(1, 2) for p in (kp, vp))
-    dense = fd.flash_decode_partial(q, k, v, kv_pos, q_pos)
-    for g, w in zip(got, dense):
-        assert torch.equal(g, w)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("P,rep,T", [(16, 1, 5), (64, 1, 16), (16, 1, 32), (64, 8, 8)])
-def test_paged_kernel_tile_edges_on_card(dtype, P, rep, T):
-    """Pages of 16 (two per key tile) and 64 (two key tiles per page) at
-    R = 5, 16, 32 and 64 rows, ragged live lengths and a -1 tail, a fully
-    masked row: within 1e-4 of the plain version and bitwise equal to the
-    dense kernel on the gathered view, partials and merged output."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with nvcc: the CUDA kernels have no CPU mode")
-    x = _paged_inputs(B=2, KV=2, rep=rep, T=T, hd=128, P=P, n_pp=300 // P + 1, seed=5)
-    dt = getattr(torch, dtype)
-    q, kp, vp, kn, vn = (_t(x[n]).to("cuda", dt) for n in ("q", "k_pages", "v_pages", "k_new",
-                                                            "v_new"))
-    table, kv_pos, q_pos, tmask = (_t(x[n]).cuda() for n in ("table", "kv_pos", "q_pos", "tmask"))
-    got = fd.flash_decode_paged_partial(q, kp, vp, table, kv_pos, q_pos)
-    want = ref.flash_decode_paged_partial(q, kp, vp, table, kv_pos, q_pos)
-    _close((got[0] / got[2][..., None]).cpu(), (want[0] / want[2][..., None]).cpu(), atol=1e-4)
-    _close(got[1].cpu(), want[1].cpu(), atol=1e-4)
-    k, v = (ref.paged_gather(p, table).transpose(1, 2) for p in (kp, vp))
-    for g, w in zip(got, fd.flash_decode_partial(q, k, v, kv_pos, q_pos)):
-        assert torch.equal(g, w)
-    tree = ref.tree_attention_partial(q, kn, vn, tmask)
-    paged = fd.flash_decode_paged_merge(q, kp, vp, table, kv_pos, q_pos, tree)
-    assert torch.equal(paged, fd.flash_decode_merge(q, k, v, kv_pos, q_pos, tree))
-    _close(paged.cpu(), ref.merge_partials(want, tree).cpu(), atol=1e-4)

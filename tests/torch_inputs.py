@@ -1,0 +1,71 @@
+"""Inputs shared by the port's kernel tests, made with numpy from a seed.
+
+JAX-free, so that the ``cuda``-marked tests of ``test_torch_on_card.py``
+can be collected on a machine without JAX; the CPU tests that hold the
+same kernels against the JAX reference import it too.
+"""
+import numpy as np
+import torch
+
+
+def attention_inputs(B, KV, rep, T, S, hd, pos, seed=0):
+    """Verify-attention inputs in the kernels' (B, KV, R, hd) layout; row 0
+    of batch 0 is fully masked (q_pos = -1)."""
+    rng = np.random.default_rng(seed)
+    R = rep * T
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    q, k, v = f(B, KV, R, hd), f(B, KV, S, hd), f(B, KV, S, hd)
+    kn, vn = f(B, KV, T, hd), f(B, KV, T, hd)
+    slots = np.arange(S)[None].repeat(B, 0)
+    kv_pos = np.where(slots < pos, slots, -1).astype(np.int32)
+    q_pos = np.tile(pos + np.arange(T), (B, rep)).astype(np.int32)
+    q_pos[0, 0] = -1
+    tm = np.tril(np.ones((T, T), bool))
+    if T >= 4:
+        tm[3, 2] = False
+    tmask = np.broadcast_to(tm, (B, T, T)).copy()
+    return q, k, v, kv_pos, q_pos, kn, vn, tmask
+
+
+def paged_inputs(B=2, KV=2, rep=2, T=4, hd=64, P=16, n_pp=4, seed=0):
+    """Paged kernel inputs over a scrambled page table: slot 0 owns n_pp
+    pages, slot 1 three pages and a -1 tail, both end in a partial tail
+    page; the first query row of slot 0 sees no slot. Pools are in the
+    model's (NP, P, KV, hd) layout."""
+    rng = np.random.default_rng(seed)
+    R, S, NP = rep * T, n_pp * P, B * n_pp + 2
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    perm = rng.permutation(NP)
+    table = np.full((B, n_pp), -1, np.int32)
+    table[0] = perm[:n_pp]
+    table[1, :3] = perm[n_pp:n_pp + 3]
+    pos = np.array([S - 7, 2 * P + 5])[:, None]
+    slots = np.arange(S)[None].repeat(B, 0)
+    kv_pos = np.where(slots < pos, slots, -1).astype(np.int32)
+    q_pos = np.tile(pos + np.arange(T), (1, rep)).astype(np.int32)
+    q_pos[0, 0] = -1
+    tm = np.tril(np.ones((T, T), bool))
+    tm[3, 2] = False
+    return dict(q=f(B, KV, R, hd), k_pages=f(NP, P, KV, hd), v_pages=f(NP, P, KV, hd),
+                table=table, kv_pos=kv_pos, q_pos=q_pos, k_new=f(B, KV, T, hd),
+                v_new=f(B, KV, T, hd), tmask=np.broadcast_to(tm, (B, T, T)).copy())
+
+
+def int8_inputs(M, K, N, seed=0):
+    """W8A8 operands: int8 x (M, K) and w (K, N) over the full [-127, 127]
+    range, positive float32 scales (M, 1) and (1, N)."""
+    rng = np.random.default_rng(seed)
+    x_q = rng.integers(-127, 128, (M, K)).astype(np.int8)
+    w_q = rng.integers(-127, 128, (K, N)).astype(np.int8)
+    xs = rng.random((M, 1)).astype(np.float32) / 127
+    ws = rng.random((1, N)).astype(np.float32) / 127
+    return x_q, w_q, xs, ws
+
+
+def tensors(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def close(got, want, atol):
+    np.testing.assert_allclose(np.asarray(got, np.float64), np.asarray(want, np.float64),
+                               atol=atol, rtol=0)
