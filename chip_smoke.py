@@ -18,9 +18,12 @@ single-stream CAS-Spec path at vicuna-7b width with random weights: float32
 AR vs DyTC token identity, the same in bfloat16, and decode_step through
 the W8A8 kernel, with one quantized_matmul timed in its parts. Phase 6 drives
 the batched server (tree_fused and chain_fused, dense and paged caches,
-four slots) at the same width in float32 and holds every stream to AR.
+four slots) at the same width in float32 in split rounds, phase 7 in
+single-dispatch rounds (one CUDA-graph replay per round), and both hold
+every stream to AR; phase 7 also profiles a steady window of rounds.
 The last line is the JSON device record; the line before it lists the
-kernels. Exits non-zero, with no result, when any phase fails or when no
+kernels, with the launches of phases 3, 5, 6 and 7 (graph replays
+counted by the server). Exits non-zero, with no result, when any phase fails or when no
 CUDA device (or no repro_torch beside this script) is present.
 """
 from __future__ import annotations
@@ -376,6 +379,55 @@ def _paged_kernel(torch, gen, flush, results: dict) -> None:
     results["flash_decode_paged"] = dict(max_abs_err=worst, **timing[("float32", 16, 4)])
 
 
+def _bounded_kernels(torch, gen, flush) -> None:
+    """Flash decode (#1, #4) reading its live length on the device: a dense
+    and a paged launch over the whole cache with ``bound`` (the committed
+    lengths, as the model passes the cache's pos) held bitwise against a
+    dense launch over the cache cut on the host to L = max(pos), partials
+    and merged output, at the main path's verify (B=1, T=32, 160 live slots
+    of 2048) and the server's (B=4, T=16 and T=5, slots of 232/168/104/40
+    over 1024), in float32 and bfloat16; the merged launches of the two
+    float32 server shapes timed by graph replay beside the cut one."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tree_attention as ta
+
+    B1, SRV = (160,), (232, 168, 104, 40)
+    for B, T, n_pp, pos in ((1, 32, 32, B1), (4, 16, 16, SRV), (4, 5, 16, SRV)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kp, vp, table, kv_pos, q_pos, kn, vn, tmask = _paged_inputs(
+                torch, gen, B, 32, T, 64, n_pp, dtype, pos)
+            bound = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            L = max(pos)
+            k, v = (ref.paged_gather(p, table).transpose(1, 2) for p in (kp, vp))
+            cut = (k[:, :, :L], v[:, :, :L], kv_pos[:, :L].contiguous(), q_pos)
+            tree = ta.tree_attention_partial(q, kn.transpose(1, 2), vn.transpose(1, 2), tmask)
+            runs = {
+                "cut": lambda: fd.flash_decode_merge(q, *cut, tree),
+                "dense": lambda: fd.flash_decode_merge(q, k, v, kv_pos, q_pos, tree, bound=bound),
+                "paged": lambda: fd.flash_decode_paged_merge(q, kp, vp, table, kv_pos, q_pos, tree,
+                                                             bound=bound),
+            }
+            want = fd.flash_decode_partial(q, *cut)
+            parts = (fd.flash_decode_partial(q, k, v, kv_pos, q_pos, bound=bound),
+                     fd.flash_decode_paged_partial(q, kp, vp, table, kv_pos, q_pos, bound=bound))
+            merged = {name: fn() for name, fn in runs.items()}
+            torch.cuda.synchronize()
+            bitwise = (all(torch.equal(g, w) for got in parts for g, w in zip(got, want))
+                       and torch.equal(merged["dense"], merged["cut"])
+                       and torch.equal(merged["paged"], merged["cut"]))
+            name = f"{str(dtype)[6:]} B={B} T={T} {L} live of {n_pp * 64}"
+            text = ""
+            if dtype == torch.float32 and B == 4:
+                ms = {n: _graph_ms(fn, flush) for n, fn in runs.items()}
+                text = "; graph replay ms: " + ", ".join(f"{n} {t:.4f}" for n, t in ms.items())
+            print(f"[phase 2] flash_decode bounded on the device {name}: dense and paged over "
+                  f"the whole cache bitwise equal to the host cut (partials and merge)={bitwise}"
+                  + text)
+            if not bitwise:
+                raise AssertionError(f"a device-bounded flash decode differs from the host cut ({name})")
+
+
 W8A8_ROWS = (1, 4, 16, 17, 20, 32, 40, 64, 96)   # chain and tree steps, verifies, ragged row tiles
 W8A8_TIMED_ROWS = (4, 16, 32, 64)
 W8A8_SHAPES = ((4096, 11008), (11008, 4096))      # the MLP's gate/up and down products
@@ -468,6 +520,7 @@ def phase_kernels(torch, results: dict) -> None:
     flush = flush_buf.zero_
     F = torch.nn.functional
     _paged_kernel(torch, gen, flush, results)
+    _bounded_kernels(torch, gen, flush)
     B, KV, hd, S, pos, window, sink = 1, 32, 128, 2048, 1500, 256, 4
     tol = TOL["attention"]
 
@@ -815,7 +868,8 @@ def _serve(torch, srv, prompts, ar_streams, readmit=()):
     GEN_TOKENS tokens (a finished slot is released; the slots in
     ``readmit`` are admitted once more with the same prompt, onto the pages
     they gave back, in reverse order), and hold every stream to its AR
-    stream. Returns a record of the run."""
+    stream. Returns a record of the run. Kernel launches are the wrappers'
+    counts plus, in single mode, those of the server's graph replays."""
     paged_kw = dict(max_new_tokens=GEN_TOKENS) if srv.paged else {}
     for b, p in enumerate(prompts):
         srv.add_request(b, p, **paged_kw)
@@ -824,7 +878,7 @@ def _serve(torch, srv, prompts, ar_streams, readmit=()):
     done = []                                      # (prompt index, stream)
     torch.cuda.synchronize()
     _reset_counts()
-    steps0 = dict(srv.stats)
+    steps0, graph0 = dict(srv.stats), dict(srv.graph_launches)
     slot_rounds, t0 = 0, time.perf_counter()
     while gen:
         slot_rounds += len(gen)
@@ -840,28 +894,55 @@ def _serve(torch, srv, prompts, ar_streams, readmit=()):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _read_counts()
+    for k, v in srv.graph_launches.items():
+        counts[k] += v - graph0.get(k, 0)
     st = {k: v - steps0[k] for k, v in srv.stats.items()}
     for i, stream in done:
         if stream[:GEN_TOKENS] != ar_streams[i][:GEN_TOKENS]:
             raise AssertionError(f"prompt {i}: the server's stream left AR:\n"
                                  f"AR     {ar_streams[i][:GEN_TOKENS]}\nserver {stream[:GEN_TOKENS]}")
     return dict(requests=len(done), rounds=st["steps"], target_calls=st["target_calls"],
-                draft_dispatches=st["draft_dispatches"], tokens=st["tokens"],
+                draft_dispatches=st["draft_dispatches"], draft_rounds=st["draft_rounds"],
+                graph_replays=st["graph_replays"], host_syncs=st["host_syncs"], tokens=st["tokens"],
                 tokens_per_slot_round=st["tokens"] / slot_rounds, wall_s=wall,
-                launches=counts, launches_per_round={k: v / st["steps"] for k, v in counts.items()})
+                ms_per_round=wall / st["steps"] * 1e3, launches=counts,
+                launches_per_round={k: v / st["steps"] for k, v in counts.items()})
 
 
-def phase_server(torch, ar_streams: list, results: dict) -> None:
-    """The batched server at vicuna-7b width, float32, four slots: tree_fused
-    dense and paged, chain_fused paged, and tree_fused on a pool sized for
-    the requests alone with two slots released and re-admitted. Every
-    stream equals the AR stream of its prompt; a dense and a paged
-    decode_step over the same admitted state give bitwise-equal logits."""
+def _check_launches(name: str, counts: dict, is_paged: bool) -> None:
+    used = "flash_decode_paged" if is_paged else "flash_decode"
+    unused = "flash_decode" if is_paged else "flash_decode_paged"
+    if counts[used] <= 0 or counts["tree_attention"] <= 0 or counts[unused] != 0:
+        raise AssertionError(f"{name}: launches {counts} do not show the {used} path")
+
+
+def _runs(prompts):
+    """The served configurations of phases 6 and 7: (name, mode, paged,
+    server arguments, slots re-admitted)."""
+    from repro_torch.core.tree import bucket_for
+
+    # the server's own reservation: prompt + GEN_TOKENS + two tree buckets
+    slack = 2 * bucket_for(1 + SERVER["draft_k"] + 2 * SERVER["tree_expansions"])
+    return [("tree_fused dense", "tree_fused", False, {}, ()),
+            ("tree_fused paged", "tree_fused", True, {}, ()),
+            ("chain_fused paged", "chain_fused", True, {}, ()),
+            ("tree_fused paged, undersubscribed pool, 2 re-admissions", "tree_fused", True,
+             dict(num_pages=sum(-(-(len(p) + GEN_TOKENS + slack) // PAGE) for p in prompts)),
+             (0, 1))]
+
+
+def phase_server(torch, ar_streams: list, results: dict) -> dict:
+    """The batched server at vicuna-7b width, float32, four slots, in split
+    rounds: tree_fused dense and paged, chain_fused paged, and tree_fused on
+    a pool sized for the requests alone with two slots released and
+    re-admitted. Every stream equals the AR stream of its prompt; a dense
+    and a paged decode_step over the same admitted state give bitwise-equal
+    logits. Then one profiled window of split rounds. Returns what phase 7
+    serves again."""
     import numpy as np
 
     from repro_torch.config import get_config
     from repro_torch.core import SpecEngine, layer_sparsity
-    from repro_torch.core.tree import bucket_for
     from repro_torch.models import decode_step, init_params
     from repro_torch.serving import BatchedSpecServer
 
@@ -876,12 +957,12 @@ def phase_server(torch, ar_streams: list, results: dict) -> None:
     del eng
     spec = layer_sparsity(cfg, 0.5)
 
-    def server(mode, paged, **kw):
-        return BatchedSpecServer(cfg, params, mode=mode, draft_spec=spec, paged=paged,
-                                 page_size=PAGE, **SERVER, **kw)
+    def server(mode, paged, draft=True, **kw):
+        return BatchedSpecServer(cfg, params, mode=mode, draft_spec=spec if draft else None,
+                                 paged=paged, page_size=PAGE, **SERVER, **kw)
 
     # one dense and one paged decode_step over the same admitted state
-    dense, paged = server("tree_fused", False), server("tree_fused", True)
+    dense, paged = (server("tree_fused", p, round_mode="split") for p in (False, True))
     for srv in (dense, paged):
         for b, p in enumerate(prompts):
             srv.add_request(b, p)
@@ -899,34 +980,116 @@ def phase_server(torch, ar_streams: list, results: dict) -> None:
     del dense, paged, logits
     torch.cuda.empty_cache()
 
-    # the server's own reservation: prompt + GEN_TOKENS + two tree buckets
-    slack = 2 * bucket_for(1 + SERVER["draft_k"] + 2 * SERVER["tree_expansions"])
-    runs = [("tree_fused dense", "tree_fused", False, {}, ()),
-            ("tree_fused paged", "tree_fused", True, {}, ()),
-            ("chain_fused paged", "chain_fused", True, {}, ()),
-            ("tree_fused paged, undersubscribed pool, 2 re-admissions", "tree_fused", True,
-             dict(num_pages=sum(-(-(len(p) + GEN_TOKENS + slack) // PAGE) for p in prompts)),
-             (0, 1))]
-    paged_launches = 0
-    for name, mode, is_paged, kw, readmit in runs:
-        srv = server(mode, is_paged, **kw)
+    paged_launches, split_ms = 0, {}
+    for name, mode, is_paged, kw, readmit in _runs(prompts):
+        srv = server(mode, is_paged, round_mode="split", **kw)
         rec = _serve(torch, srv, prompts, ar_streams, readmit)
+        split_ms[name] = rec["ms_per_round"]
         pages = f", pool {len(srv._free_pages)} pages free at the end" if is_paged else ""
         print(f"[phase 6] {name}: {rec['requests']} requests identical to AR | {rec['rounds']} rounds, "
               f"{rec['target_calls']} target calls, {rec['draft_dispatches']} draft passes, "
               f"{rec['tokens']} tokens, {rec['tokens_per_slot_round']:.2f} tokens per slot-round, "
-              f"{rec['wall_s']:.3f} s{pages} | launches per round: "
+              f"{rec['wall_s']:.3f} s ({rec['ms_per_round']:.2f} ms per round), "
+              f"{rec['host_syncs'] / rec['rounds']:.2f} host syncs per round{pages} | "
+              "launches per round: "
               + ", ".join(f"{k} {v:.2f}" for k, v in rec["launches_per_round"].items()))
-        counts = rec["launches"]
-        used = "flash_decode_paged" if is_paged else "flash_decode"
-        unused = "flash_decode" if is_paged else "flash_decode_paged"
-        if counts[used] <= 0 or counts["tree_attention"] <= 0 or counts[unused] != 0:
-            raise AssertionError(f"{name}: launches {counts} do not show the {used} path")
-        paged_launches += counts["flash_decode_paged"]
+        _check_launches(name, rec["launches"], is_paged)
+        paged_launches += rec["launches"]["flash_decode_paged"]
         del srv
         torch.cuda.empty_cache()
     results["flash_decode_paged"]["launches"] = paged_launches
-    del params
+    _profile_rounds(torch, server("tree_fused", False, round_mode="split"), prompts, 6)
+    torch.cuda.empty_cache()
+    return dict(cfg=cfg, params=params, spec=spec, prompts=prompts, ar_streams=ar_streams,
+                split_ms=split_ms, server=server)
+
+
+# ------------------------------------------------------------------ phase 7
+def _profile_rounds(torch, srv, prompts, phase: int, n_rounds: int = 8) -> None:
+    """Device time by kernel group over a steady window of server rounds
+    (after 4 warm-up rounds, four slots), and the device's idle share of the
+    window's wall time. The profiler's own overhead lengthens the wall
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for b, p in enumerate(prompts):
+        srv.add_request(b, p)
+    for _ in range(4):
+        srv.step()
+    torch.cuda.synchronize()
+    rounds0 = srv.stats["steps"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_rounds):
+            srv.step()
+        srv.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups: dict = {}
+    launches = 0
+    for e in prof.key_averages():
+        dt = getattr(e, "self_device_time_total", 0.0)
+        if dt > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            g = _kernel_group(e.key)
+            groups[g] = groups.get(g, 0.0) + dt / 1e3
+            launches += e.count
+    busy = sum(groups.values())
+    rounds = srv.stats["steps"] - rounds0
+    drafted = srv.stats["draft_rounds"] + srv.stats["draft_dispatches"]
+    print(f"[phase {phase}] profile tree_fused dense {srv.round_mode} rounds ({rounds} rounds, "
+          f"{drafted} of {srv.stats['steps']} rounds needed the draft so far): "
+          f"wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms, idle share "
+          f"{1 - busy / (wall * 1e3):.3f}, {launches} device kernels; by group (ms): "
+          + ", ".join(f"{g} {t:.2f}" for g, t in sorted(groups.items(), key=lambda x: -x[1])))
+    if busy <= 0:
+        raise AssertionError("the profiler recorded no device time in the server's rounds")
+
+
+def phase_single(torch, served: dict, results: dict) -> None:
+    """The batched server of phase 6 in single-dispatch rounds: each round
+    one replay of a CUDA graph captured at build, the draft run masked in
+    every round (PyTorch 2.11's graphs have no conditional node to skip
+    it). The same four runs as phase 6 at sync_every=1, tree_fused dense at
+    sync_every=4, and tree_fused dense with PLD alone, whose rounds have no
+    draft at all (the masked draft's cost); every stream equals AR. Then
+    one profiled window of single rounds."""
+    prompts, ar_streams = served["prompts"], served["ar_streams"]
+    runs = _runs(prompts)
+    runs.append(("tree_fused dense, sync_every=4", "tree_fused", False, dict(sync_every=4), ()))
+    runs.append(("tree_fused dense, PLD only", "tree_fused", False, dict(draft=False), ()))
+    launches = {"flash_decode": 0, "tree_attention": 0, "flash_decode_paged": 0}
+    for name, mode, is_paged, kw, readmit in runs:
+        _reset_counts()
+        srv = served["server"](mode, is_paged, round_mode="single", **kw)
+        if srv._graph is None:
+            raise AssertionError(f"{name}: no CUDA graph was captured")
+        rec = _serve(torch, srv, prompts, ar_streams, readmit)
+        split = served["split_ms"].get(name, served["split_ms"].get(name.split(", ")[0]))
+        replays = sum(srv.replay_launches.values())
+        print(f"[phase 7] {name}: {rec['requests']} requests identical to AR | {rec['rounds']} rounds, "
+              f"{rec['tokens_per_slot_round']:.2f} tokens per slot-round, {rec['wall_s']:.3f} s, "
+              f"{rec['ms_per_round']:.2f} ms per round (split rounds, phase 6: {split:.2f}), "
+              f"{rec['host_syncs'] / rec['rounds']:.2f} host syncs and "
+              f"{rec['graph_replays'] / rec['rounds']:.2f} graph replays per round, "
+              f"{rec['rounds'] - rec['draft_rounds']} of {rec['rounds']} rounds needed no draft "
+              f"(it ran masked) | capture {srv.capture_s * 1e3:.1f} ms, graph pool "
+              f"{srv.graph_pool_bytes / 2**20:.1f} MiB, {replays} kernel launches per replay "
+              "| launches per round: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in rec["launches_per_round"].items()))
+        if (rec["host_syncs"] * srv.sync_every != rec["rounds"] or rec["draft_dispatches"]
+                or rec["graph_replays"] != rec["rounds"]):
+            raise AssertionError(f"{name}: {rec['host_syncs']} host syncs and "
+                                 f"{rec['graph_replays']} replays in {rec['rounds']} rounds")
+        _check_launches(name, rec["launches"], is_paged)
+        for k in launches:
+            launches[k] += rec["launches"][k]
+        del srv
+        torch.cuda.empty_cache()
+    for k, v in launches.items():
+        results[k]["launches"] += v
+    srv = served["server"]("tree_fused", False, round_mode="single")
+    _profile_rounds(torch, srv, prompts, 7)
+    del srv
     torch.cuda.empty_cache()
 
 
@@ -952,7 +1115,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_int8(torch, results)
     torch.cuda.empty_cache()
-    phase_server(torch, ar_streams, results)
+    served = phase_server(torch, ar_streams, results)
+    phase_single(torch, served, results)
+    del served
+    torch.cuda.empty_cache()
     kernels = []
     for name, src, replaces in (
         ("flash_decode", "src/repro_torch/csrc/flash_decode.cu", "src/repro/kernels/flash_decode.py:171"),

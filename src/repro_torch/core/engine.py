@@ -1,7 +1,8 @@
 """CAS-Spec engines: the single-sequence ``SpecEngine`` (DSIA draft
 execution + tree verification) and the batched server's round functions
 (``chain_draft_scan``, ``tree_draft_scan``, ``verify_accept_commit``,
-``tree_verify_accept_commit``).
+``tree_verify_accept_commit`` and its host-walk twin for the split rounds,
+and the single-dispatch rounds ``chain_round`` / ``tree_round``).
 
 Execution modes for layer-gated drafts:
   - "slice": run only the kept layers (fewer FLOPs — the honest speed of a
@@ -21,6 +22,16 @@ its drop-mode scatters are one-hot ``torch.where`` updates (an index of N
 matches no column). A layer-sparse draft runs either through the gate
 vector (``gates``, mask exec) or, on a homogeneous stack, through
 ``layer_ids`` (slice exec): the kept layers only, the same numbers.
+
+``chain_round`` and ``tree_round`` are the reference's single-dispatch
+rounds, greedy, with ``draft_kv="recompute"``: PLD over a carried context
+buffer, the Eq. 5 budgets from the carried Eq. 4 state, the draft, the
+verify, the accepted-path walk, the cache and context commit and the EMA
+update, with fixed shapes and no host read, so that the server can
+capture one round as a CUDA graph. The reference skips the draft at run
+time (``lax.cond``) in rounds where no budget needs it. A CUDA graph of
+PyTorch 2.11 has no conditional node, so here the draft always runs,
+masked by the budgets: where none needs it, it writes nothing.
 """
 from __future__ import annotations
 
@@ -33,11 +44,15 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.config.base import ModelConfig
 from repro_torch.core import verify as verify_lib
-from repro_torch.core.acceptance import AcceptanceTracker
+from repro_torch.core.acceptance import AcceptanceTracker, ema_update
 from repro_torch.core.dsia import DraftSpec
-from repro_torch.core.latency import CostTracker
-from repro_torch.core.pld import PromptLookup
-from repro_torch.core.tree import DraftTree, bucket_for
+from repro_torch.core.latency import (
+    CostTracker,
+    best_chain_length_batched,
+    best_tree_expansions_batched,
+)
+from repro_torch.core.pld import PromptLookup, propose_device
+from repro_torch.core.tree import DraftTree, bucket_for, tree_seed_device
 from repro_torch.models import model as M
 
 
@@ -277,7 +292,7 @@ def tree_draft_scan(
     limit: torch.Tensor,              # (B,) int32 per-slot expansion budget (Eq. 5)
     alpha: torch.Tensor,              # (B,) float32 per-slot neural acceptance
     c: torch.Tensor,                  # () float32 draft cost coefficient
-    t_min: torch.Tensor,              # () float32 min-speedup threshold
+    t_min,                            # () float32 tensor or float: min-speedup threshold
     gates=None,                       # (num_layers,) DSIA layer gates (mask exec)
     *,
     top_p: float = 0.3,
@@ -376,9 +391,28 @@ def tree_verify_accept_commit(cfg: ModelConfig, params: dict, cache: dict,
                               mask: torch.Tensor, count: torch.Tensor, live: torch.Tensor):
     """One target round for tree proposals: decode the padded node block
     under the per-slot ancestor masks, walk the longest target-greedy path
-    per slot (on the host: one read of the argmax) and commit it. Returns
-    (cache, path_idx (B, N), n_acc (B,), bonus (B,)); the last three are
-    int32 numpy arrays."""
+    per slot on the device (``verify.greedy_accept_tree_device``) and commit
+    it (dead slots accept nothing). Returns (cache, path_idx (B, N), n_acc
+    (B,), bonus (B,)), int32 tensors; no host read."""
+    logits, staged = M.decode_step(cfg, params, cache, tokens, tree_mask=mask,
+                                   q_pos=cache["pos"][:, None] + depth)
+    nxt = logits.argmax(dim=-1).to(torch.int32)
+    path, n_acc, bonus = verify_lib.greedy_accept_tree_device(tokens, parents, count, nxt)
+    n_acc = torch.where(live, n_acc, 0)
+    cache = M.commit_cache(cfg, cache, staged, path, n_acc)
+    return cache, path, n_acc, bonus
+
+
+def tree_verify_accept_commit_host(cfg: ModelConfig, params: dict, cache: dict,
+                                   tokens: torch.Tensor, parents: torch.Tensor,
+                                   depth: torch.Tensor, mask: torch.Tensor, count: torch.Tensor,
+                                   live: torch.Tensor):
+    """``tree_verify_accept_commit`` for the split rounds, which read each
+    round's outcome on the host anyway: one read of the target's argmax, the
+    walk in numpy (``verify.greedy_accept_tree_batched``: cheaper there than
+    the device walk's N-1 steps of small launches), then the commit.
+    Returns (cache, path_idx (B, N), n_acc (B,), bonus (B,)); the last three
+    are int32 numpy arrays."""
     logits, staged = M.decode_step(cfg, params, cache, tokens, tree_mask=mask,
                                    q_pos=cache["pos"][:, None] + depth)
     nxt = logits.argmax(dim=-1).cpu().numpy()
@@ -389,3 +423,176 @@ def tree_verify_accept_commit(cfg: ModelConfig, params: dict, cache: dict,
     cache = M.commit_cache(cfg, cache, staged, torch.as_tensor(path, device=dev),
                            torch.as_tensor(n_acc, device=dev))
     return cache, path, n_acc, bonus
+
+
+# ===================================================== single-dispatch rounds
+def _round_prologue(cache: dict, state: dict, draft_k: int, max_ngram: int, min_ngram: int):
+    """Shared head of the rounds: append the pending token to the context
+    buffer and propose PLD chains for every slot. Returns (ctx, chains,
+    have), dead slots' proposals zeroed."""
+    ctx, n = state["ctx"], cache["pos"]
+    L = ctx.shape[1]
+    # writing pending at position n is the commit of this round's first
+    # accepted token (a live slot always accepts it); past the buffer it drops
+    d = torch.remainder(n, L).long()[:, None]
+    ctx = ctx.scatter(1, d, torch.where(n < L, state["pending"], ctx.gather(1, d)[:, 0])[:, None])
+    chains, have = propose_device(ctx, torch.clamp(n + 1, max=L), draft_k,
+                                  max_ngram=max_ngram, min_ngram=min_ngram)
+    have = torch.where(state["live"], have, 0)
+    chains = torch.where(torch.arange(draft_k, device=ctx.device)[None] < have[:, None], chains, 0)
+    return ctx, chains, have
+
+
+def _commit_ctx(ctx: torch.Tensor, n: torch.Tensor, acc_tok: torch.Tensor,
+                n_acc: torch.Tensor) -> torch.Tensor:
+    """Write this round's accepted tokens into the context buffer at
+    positions [n, n + n_acc) (those inside the buffer): the device-side
+    upkeep that keeps the next round's PLD exact. Positions taken modulo
+    the buffer are distinct per slot, so the entries that write nothing
+    write their own old value back."""
+    L = ctx.shape[1]
+    t_ids = torch.arange(acc_tok.shape[1], device=ctx.device)
+    dest = n[:, None] + t_ids[None, :]
+    d = torch.remainder(dest, L).long()
+    ok = (t_ids[None, :] < n_acc[:, None]) & (dest < L)
+    return ctx.scatter(1, d, torch.where(ok, acc_tok.to(ctx.dtype), ctx.gather(1, d)))
+
+
+def _ema_step(state: dict, outcome: torch.Tensor, obs: torch.Tensor) -> dict:
+    alpha, hist, hist_n, hist_ptr = ema_update(state["alpha"], state["hist"], state["hist_n"],
+                                               state["hist_ptr"], outcome, obs)
+    return {"alpha": alpha, "hist": hist, "hist_n": hist_n, "hist_ptr": hist_ptr}
+
+
+def chain_round(
+    cfg: ModelConfig,
+    params: dict,
+    cache: dict,                      # committed in place
+    state: dict,                      # carried round state (see the server)
+    c: torch.Tensor,                  # () float32 draft cost coefficient
+    *,
+    draft_k: int,
+    use_draft: bool,
+    adaptive: bool,
+    min_obs: int,
+    t_min: float,
+    layer_ids: Optional[List[int]] = None,   # kept layers (slice exec)
+    draft_kv: str = "recompute",
+    max_ngram: int = 4,
+    min_ngram: int = 1,
+):
+    """One ``chain_fused`` serving round on carried state, greedy: device
+    PLD, Eq. 5 per-slot budgets from the carried Eq. 4 state, the
+    ``draft_k``-step chain draft (masked by the budgets: it writes nothing
+    where PLD covers every budget), the verify, acceptance, cache and
+    context commit and the EMA update, with no host read.
+
+    ``state`` holds ``pending (B,) int32``, ``live (B,) bool``, ``ctx (B,
+    max_len) int32`` and the Eq. 4 arrays ``alpha``, ``hist``, ``hist_n``,
+    ``hist_ptr`` (``acceptance.ema_init``). Returns (new state, out): new
+    tensors for the caller to copy into the carried ones, and the round's
+    facts: ``acc (B, k+1)`` (valid prefix ``n_acc``), ``drafted``,
+    ``pld_have``, ``budget`` (B,) and ``ran`` () bool, whether a budget
+    needed the draft (the reference's skip predicate). The draft runs the
+    layers ``layer_ids`` (slice exec; None: every layer); the gate vector
+    of mask exec is read on the host, so no round takes one."""
+    live, pending = state["live"], state["pending"]
+    n = cache["pos"].clone()                 # the commit advances pos in place
+    ctx, chains, have = _round_prologue(cache, state, draft_k, max_ngram, min_ngram)
+    pld_have = have.clone()
+    limit = torch.zeros_like(have)
+    ran = torch.zeros((), dtype=torch.bool, device=have.device)
+    if use_draft:
+        if adaptive:
+            budget = best_chain_length_batched(state["alpha"], c, draft_k, t_min)
+            limit = torch.where(state["hist_n"] >= min_obs, budget, draft_k)
+        else:
+            limit = torch.full_like(have, draft_k)
+        limit = torch.where(live, limit, 0)
+        ran = (limit > have).any()
+        chains, have = chain_draft_scan(cfg, draft_k, params, cache, pending, chains, have,
+                                        limit, layer_ids=layer_ids, draft_kv=draft_kv)
+    cache, _, n_chain, new_pending = verify_accept_commit(cfg, params, cache, pending, chains,
+                                                          have, live)
+    n_acc = torch.where(live, n_chain + 1, 0)
+    acc_tok = torch.cat([pending[:, None], chains], dim=1)
+    new = {"ctx": _commit_ctx(ctx, n, acc_tok, n_acc),
+           "pending": torch.where(live, new_pending, pending).to(torch.int32)}
+    # Eq. 4 EMA over the neural drafter: the first neural position's outcome,
+    # only when the PLD prefix was fully accepted (parent-accepted rule)
+    obs = live & (have > pld_have) & (n_chain >= pld_have)
+    new.update(_ema_step(state, (n_chain > pld_have).float(), obs))
+    out = {"acc": acc_tok, "n_acc": n_acc, "drafted": torch.clamp(have - pld_have, min=0),
+           "pld_have": pld_have, "budget": limit, "ran": ran}
+    return new, out
+
+
+def tree_round(
+    cfg: ModelConfig,
+    params: dict,
+    cache: dict,                      # committed in place
+    state: dict,                      # carried round state (see chain_round)
+    c: torch.Tensor,                  # () float32 draft cost coefficient
+    *,
+    draft_k: int,
+    expansions: int,
+    top_k: int,
+    top_p: float,
+    bucket: int,
+    pld_alpha: float,
+    use_draft: bool,
+    adaptive: bool,
+    min_obs: int,
+    t_min: float,
+    layer_ids: Optional[List[int]] = None,   # kept layers (slice exec)
+    draft_kv: str = "recompute",
+    max_ngram: int = 4,
+    min_ngram: int = 1,
+):
+    """One ``tree_fused`` (DyTC, §4.2) serving round on carried state,
+    greedy: device PLD, tree seeding, the ``expansions``-step growth
+    (masked by the budgets: it adds no node where every budget is 0), the
+    verify, the accepted-path walk, the cache and context commit and the
+    Eq. 4 update, with no host read. Same ``state`` and returns as
+    ``chain_round``; ``out["acc"]`` holds the accepted path's tokens (B,
+    bucket)."""
+    live, pending = state["live"], state["pending"]
+    n = cache["pos"].clone()
+    B = live.shape[0]
+    ctx, chains, have = _round_prologue(cache, state, draft_k, max_ngram, min_ngram)
+    tree = tree_seed_device(pending, chains, have, bucket, pld_alpha)
+    first_neural = torch.full((B,), -1, dtype=torch.int32, device=live.device)
+    limits = torch.zeros_like(have)
+    ran = torch.zeros((), dtype=torch.bool, device=have.device)
+    if use_draft and expansions > 0:
+        if adaptive:
+            budget = best_tree_expansions_batched(state["alpha"], c, expansions, t_min)
+            limits = torch.where(state["hist_n"] >= min_obs, budget, expansions)
+        else:
+            limits = torch.full_like(have, expansions)
+        limits = torch.where(live, limits, 0)
+        ran = (limits > 0).any()
+        *tree, first_neural = tree_draft_scan(
+            cfg, expansions, top_k, params, cache, *tree, limits, state["alpha"],
+            torch.clamp(c.float(), min=1e-3), t_min, top_p=top_p, layer_ids=layer_ids,
+            draft_kv=draft_kv)
+    tokens, parents, depth, _, mask, count = tree
+    cache, path, n_acc, bonus = tree_verify_accept_commit(cfg, params, cache, tokens, parents,
+                                                          depth, mask, count, live)
+    acc_tok = torch.gather(tokens, 1, path.long())
+    new = {"ctx": _commit_ctx(ctx, n, acc_tok, n_acc),
+           "pending": torch.where(live, bonus, pending).to(torch.int32)}
+    # Eq. 4 EMA at the slot's first neural node (parent-accepted rule)
+    N = tokens.shape[1]
+    t_ids = torch.arange(N, device=tokens.device)
+    on_path = torch.where(t_ids[None, :] < n_acc[:, None], path, N).long()
+    acc_mask = torch.zeros((B, N + 1), dtype=torch.bool, device=tokens.device)
+    acc_mask = acc_mask.scatter(1, on_path, True)[:, :N]      # duplicates all write True
+    fn_c = torch.clamp(first_neural, 0, N - 1).long()[:, None]
+    fn_parent = torch.gather(parents, 1, fn_c)[:, 0]
+    parent_ok = torch.gather(acc_mask, 1, torch.clamp(fn_parent, 0, N - 1).long()[:, None])[:, 0]
+    obs = live & (first_neural >= 0) & (fn_parent >= 0) & parent_ok
+    new.update(_ema_step(state, torch.gather(acc_mask, 1, fn_c)[:, 0].float(), obs))
+    out = {"acc": acc_tok, "n_acc": n_acc, "drafted": torch.clamp(count - have - 1, min=0),
+           "pld_have": have, "budget": limits, "ran": ran}
+    return new, out

@@ -1,10 +1,13 @@
-"""EWIF of vanilla SD and the DyTC objective (Eq. 5) with its argmax, host
-math; a copy of the reference's ``core/ewif.py`` functions the scheduler
-and the batched server need."""
+"""EWIF of vanilla SD and the DyTC objective (Eq. 5) with its argmax; a
+copy of the reference's ``core/ewif.py`` functions the scheduler and the
+batched server need: host math, and the ``*_grid`` tensor forms the
+single-dispatch serving round evaluates on the device."""
 from __future__ import annotations
 
 import math
 from typing import Tuple
+
+import torch
 
 
 def t_sd(alpha: float, c: float, k: int) -> float:
@@ -12,6 +15,27 @@ def t_sd(alpha: float, c: float, k: int) -> float:
     if alpha >= 1.0:
         return (k + 1) / (c * k + 1)
     return (1.0 - alpha ** (k + 1)) / ((1.0 - alpha) * (c * k + 1.0))
+
+
+def t_sd_grid(alpha: torch.Tensor, c, k_max: int) -> torch.Tensor:
+    """``t_sd`` over slots and chain lengths: ``alpha`` (B,) float32, ``c``
+    a scalar; returns (B, k_max + 1) float32 for k = 0..k_max (k = 0, plain
+    AR, is exactly 1)."""
+    ks = torch.arange(k_max + 1, dtype=torch.float32, device=alpha.device)[None, :]
+    a = alpha.float()[:, None]
+    a_safe = torch.clamp(a, max=1.0 - 1e-9)
+    v = (1.0 - a_safe ** (ks + 1.0)) / ((1.0 - a_safe) * (c * ks + 1.0))
+    return torch.where(a >= 1.0, (ks + 1.0) / (c * ks + 1.0), v)
+
+
+def dytc_objective_grid(alpha: torch.Tensor, c, k_max: int) -> torch.Tensor:
+    """``dytc_step_objective`` with the drafter as its own continuation
+    (alpha_dn = alpha, c_dn = c) over slots and k = 1..k_max: (B, k_max)."""
+    ks = torch.arange(1, k_max + 1, dtype=torch.float32, device=alpha.device)[None, :]
+    a = alpha.float()[:, None]
+    a_safe = torch.clamp(a, max=1.0 - 1e-9)
+    e_acc = torch.where(a >= 1.0, ks, a_safe * (1.0 - a_safe ** ks) / (1.0 - a_safe))
+    return (e_acc + (a_safe ** ks) * a_safe) / (c * ks + c)
 
 
 def dytc_step_objective(alpha: float, c: float, k: int, alpha_dn: float, c_dn: float) -> float:

@@ -1,6 +1,7 @@
 """Per-configuration cost coefficients (§4.2) and the batched server's
 per-slot draft budgets, host side; copies of the reference's
-``CostTracker``, ``best_chain_length`` and ``best_tree_expansions``.
+``CostTracker``, ``best_chain_length`` and ``best_tree_expansions``, and
+their ``*_batched`` tensor twins for the single-dispatch serving round.
 
 ``c_hat(config)`` is the ratio of a configuration's measured per-call
 latency to the target's single-step latency, an EMA of wall-clock
@@ -11,7 +12,9 @@ from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.core.ewif import best_dytc_k, t_sd
+import torch
+
+from repro_torch.core.ewif import best_dytc_k, dytc_objective_grid, t_sd, t_sd_grid
 
 
 class CostTracker:
@@ -62,3 +65,23 @@ def best_tree_expansions(alpha: float, c: float, e_max: int, t_min: float = 1.0)
     if best_k <= 0:
         return 0
     return best_k if t_sd(alpha, c, best_k) >= t_min else 0
+
+
+def best_chain_length_batched(alpha: torch.Tensor, c, k_max: int, t_min: float) -> torch.Tensor:
+    """``best_chain_length`` over per-slot ``alpha`` (B,): the argmax of the
+    T_SD grid, ties to the first maximum (the host loop replaces only on a
+    strictly greater value), 0 below ``t_min``. Returns (B,) int32."""
+    vals = t_sd_grid(alpha, c, k_max)
+    best_k = torch.argmax(vals, dim=1).to(torch.int32)
+    return torch.where(vals.amax(dim=1) >= t_min, best_k, 0)
+
+
+def best_tree_expansions_batched(alpha: torch.Tensor, c, e_max: int, t_min: float) -> torch.Tensor:
+    """``best_tree_expansions`` over per-slot ``alpha`` (B,): the argmax of
+    the Eq. 5 grid (first maximum), gated on the chain EWIF at that budget.
+    Returns (B,) int32."""
+    if e_max <= 0:
+        return torch.zeros(alpha.shape, dtype=torch.int32, device=alpha.device)
+    best_k = 1 + torch.argmax(dytc_objective_grid(alpha, c, e_max), dim=1)
+    gate = torch.gather(t_sd_grid(alpha, c, e_max), 1, best_k[:, None])[:, 0]
+    return torch.where(gate >= t_min, best_k.to(torch.int32), 0)

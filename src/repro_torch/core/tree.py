@@ -1,5 +1,6 @@
 """Draft token tree for DyTC (host-side structure) and the batched server's
-array seed, copies of the reference's.
+tree seed (numpy for the split rounds, tensors for the single-dispatch
+round), copies of the reference's.
 
 Node 0 is the root: the *pending bonus token* from the previous verification
 (Alg. 1 line 1). Its KV is not yet committed; every verification pass
@@ -12,6 +13,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 TREE_BUCKETS = (8, 16, 32, 64, 128)
 
@@ -134,3 +136,27 @@ def tree_seed_arrays(
     mask |= (j[None, None, :] < j[None, :, None]) & seeded[:, :, None]
     count = (have + 1).astype(np.int32)
     return tokens, parents, depth, p_acc, mask, count
+
+
+def tree_seed_device(pending: torch.Tensor, chains: torch.Tensor, have: torch.Tensor,
+                     bucket: int, pld_alpha: float = 0.3):
+    """``tree_seed_arrays`` on tensors, for the single-dispatch serving
+    round: the same node layout, mask convention and P_acc seeding, shapes
+    fixed by ``bucket``, no host read."""
+    B, K = chains.shape
+    N = bucket
+    if N < K + 1:
+        raise ValueError(f"bucket {N} cannot hold a {K}-token chain + root")
+    dev = chains.device
+    j = torch.arange(N, device=dev)
+    seeded = (j[None, :] >= 1) & (j[None, :] <= have[:, None])     # (B, N)
+    tokens = torch.zeros((B, N), dtype=torch.int32, device=dev)
+    tokens[:, 0] = pending
+    tokens[:, 1: K + 1] = torch.where(seeded[:, 1: K + 1], chains.to(torch.int32), 0)
+    parents = torch.where(seeded, j[None, :] - 1, -1).to(torch.int32)
+    depth = torch.where(seeded, j[None, :], 0).to(torch.int32)
+    p_acc = torch.where(seeded, pld_alpha ** depth.float(), 0.0)
+    p_acc[:, 0] = 1.0
+    eye = torch.eye(N, dtype=torch.bool, device=dev)
+    mask = eye[None] | ((j[None, None, :] < j[None, :, None]) & seeded[:, :, None])
+    return tokens, parents, depth, p_acc, mask, (have + 1).to(torch.int32)

@@ -1,4 +1,5 @@
-"""Lossless greedy verification (host walks), a copy of the reference's.
+"""Lossless greedy verification, a copy of the reference's: host walks
+(numpy) and the batched walk on tensors that the serving rounds run.
 
 The accepted path is exactly the target model's own greedy continuation,
 so spec-decoded output is token-identical to AR decoding.
@@ -8,6 +9,7 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.tree import DraftTree
 
@@ -66,6 +68,37 @@ def greedy_accept_tree_batched(
         n_acc = n_acc + found
         done |= ~found
     return path, n_acc.astype(np.int32), next_argmax[b_idx, node].astype(np.int32)
+
+
+def greedy_accept_tree_device(
+    tokens: torch.Tensor,           # (B, N) int32 node tokens (node 0 = root)
+    parents: torch.Tensor,          # (B, N) int32, -1 at root/unused
+    count: torch.Tensor,            # (B,) int32 real nodes per slot
+    next_argmax: torch.Tensor,      # (B, N) int32 target argmax after each node
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``greedy_accept_tree_batched`` on tensors, with no host read: N-1
+    masked steps (the longest possible path), first matching child, as the
+    reference's device walk. Returns (path_idx (B, N), n_acc (B,), bonus
+    (B,)), int32 tensors on the inputs' device."""
+    B, N = tokens.shape
+    dev = tokens.device
+    slot = torch.arange(N, device=dev)
+    real = slot[None, :] < count[:, None]
+    node = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+    n_acc = torch.ones((B,), dtype=torch.int32, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    path = torch.zeros((B, N), dtype=torch.int32, device=dev)
+    for _ in range(N - 1):
+        want = torch.gather(next_argmax, 1, node)
+        cand = real & (parents == node) & (tokens == want)
+        found = cand.any(dim=1) & ~done
+        child = cand.to(torch.uint8).argmax(dim=1, keepdim=True)   # first matching child
+        path = torch.where(found[:, None] & (slot[None, :] == n_acc[:, None]),
+                           child.to(torch.int32), path)
+        node = torch.where(found[:, None], child, node)
+        n_acc = n_acc + found.to(torch.int32)
+        done |= ~found
+    return path, n_acc, torch.gather(next_argmax, 1, node)[:, 0].to(torch.int32)
 
 
 def softmax(x: np.ndarray, temperature: float = 1.0, axis: int = -1) -> np.ndarray:

@@ -14,7 +14,7 @@
 //
 // Design: flash-decoding on tensor cores (attn_common.cuh). Blocks run in no
 // order on Hopper, so S is split across CTAs, one CTA per (split, kv-head,
-// batch x row-tile of 16 or 32 rows); the host picks the split count so that
+// batch x row-tile of 16 or 32 rows); the split count is chosen so that
 // about two CTAs per SM are in flight, and split lengths are multiples of the
 // 32-slot key tile. Each CTA streams its K/V range through a cp.async ring
 // (2 float32 or 4 bfloat16 tiles deep, 100 KB or 85 KB of shared memory
@@ -31,10 +31,19 @@
 // an unallocated page, reads page 0; the caller's kv_pos = -1 masks it),
 // read in the model's (NP, P, KV, hd) pool layout through strides; each
 // slot's head-dim row is contiguous, so the 16-byte copies follow one row
-// address per slot (any page size). The split boundaries are the caller's
-// (a function of the live length), so a paged call and a dense call over
+// address per slot (any page size). The split boundaries are a
+// function of the live length, so a paged call and a dense call over
 // the gathered view run the same tiles in the same order: bitwise the same
 // partials.
+//
+// The live length is read on the device, so that a call can be captured in
+// a CUDA graph and replayed as the cache grows: given the committed lengths
+// (`bound`, the cache's pos), it is L = max(1, max(bound)) clipped to S, and
+// every CTA and the combine compute the split plan from it (live_plan: the
+// host plan's formula). The grid is sized for the most splits any L <= S
+// asks for; the splits past L exit at once and the combine reads only the
+// ones that ran. A call over the whole cache with its bound therefore runs
+// exactly the tiles of a call over the cache cut to L on the host.
 #include "attn_common.cuh"
 
 namespace {
@@ -68,9 +77,30 @@ struct PagedSlots {
 };
 
 struct Launch {        // what every split CTA needs besides K/V addressing
-  int B, KV, R, S, kind, window, sink, split_len;
+  int B, KV, R, S, kind, window, sink, cap, n_bound;
+  const int* bound;    // (n_bound,) committed lengths, or null: the live length is S
   float scale;
 };
+
+// The split plan, a function of the live length L only: L's key tiles go to
+// max(1, min(tiles, cap)) splits of whole tiles (cap: the split count that
+// fills one wave of the card), and the splits covering [0, L) run.
+struct Plan {
+  int live, split_len, n_run;
+};
+
+__device__ __forceinline__ Plan live_plan(const int* bound, int n_bound, int S, int cap) {
+  int live = S;
+  if (bound != nullptr) {
+    int m = 1;
+    for (int i = 0; i < n_bound; ++i) m = max(m, bound[i]);
+    live = min(m, S);
+  }
+  const int tiles = (live + KT - 1) / KT;
+  const int n_split = max(1, min(tiles, cap));
+  const int split_len = (tiles + n_split - 1) / n_split * KT;
+  return {live, split_len, (live + split_len - 1) / split_len};
+}
 
 template <typename T, int HD, int MT, class Slots>
 __device__ __forceinline__ void split_body(
@@ -78,9 +108,11 @@ __device__ __forceinline__ void split_body(
     const T* __restrict__ v, const Slots& slots, const int* __restrict__ kv_pos,
     const int* __restrict__ q_pos, float* __restrict__ acc_p, float* __restrict__ m_p,
     float* __restrict__ l_p, int b, int rt) {
+  const Plan plan = live_plan(a.bound, a.n_bound, a.S, a.cap);
   const int split = blockIdx.x, g = blockIdx.y;
-  const int s_begin = split * a.split_len;
-  const int s_end = min(a.S, s_begin + a.split_len);
+  if (split >= plan.n_run) return;     // past the live length: the combine skips it
+  const int s_begin = split * plan.split_len;
+  const int s_end = min(plan.live, s_begin + plan.split_len);
   const long long bg = (long long)b * a.KV + g;
   const long long out_row0 = ((long long)split * a.B * a.KV + bg) * a.R;
   const PosVis vis{kv_pos + (long long)b * a.S, q_pos + (long long)b * a.R, a.kind, a.window,
@@ -117,17 +149,20 @@ __global__ void __launch_bounds__(THREADS, 2) paged_split_kernel(
                         l_p, b, rt);
 }
 
-// One CTA per query row, one thread per head-dim element. Without tree
-// partials (acc_d == nullptr) it writes the combined un-normalised partials
-// (acc, m, l); with them it writes the merged, normalised output.
+// One CTA per query row, one thread per head-dim element, over the splits
+// that ran (the split kernel's plan). Without tree partials (acc_d ==
+// nullptr) it writes the combined un-normalised partials (acc, m, l); with
+// them it writes the merged, normalised output.
 __global__ void combine_kernel(
     const float* __restrict__ acc_p, const float* __restrict__ m_p,
-    const float* __restrict__ l_p, int n_split, long long rows, int hd,
+    const float* __restrict__ l_p, long long rows, int hd, int S, int cap,
+    const int* __restrict__ bound, int n_bound,
     const float* __restrict__ acc_d, const float* __restrict__ m_d,
     const float* __restrict__ l_d,
     float* __restrict__ out, float* __restrict__ out_m, float* __restrict__ out_l) {
   const long long row = blockIdx.x;
   const int d = threadIdx.x;
+  const int n_split = live_plan(bound, n_bound, S, cap).n_run;
   float m = acc_d ? m_d[row] : -INFINITY;
   for (int s = 0; s < n_split; ++s) m = fmaxf(m, m_p[s * rows + row]);
   float l = 0.f, a = 0.f;
@@ -211,17 +246,20 @@ struct PagedLaunch {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k and v share it). kind: 0 causal,
-// 1 window, 2 streaming. Partials are (n_split, B, KV, R[, hd]) float32;
-// split i scans slots [i * split_len, min(S, (i + 1) * split_len)). Only
-// hd = 128 (vicuna-7b) is instantiated.
+// 1 window, 2 streaming. Partials are (n_grid, B, KV, R[, hd]) float32,
+// n_grid the most splits the plan asks for at any live length up to S;
+// split i scans slots [i * split_len, min(L, (i + 1) * split_len)), L the
+// live length read from `bound` (n_bound ints; null: L = S). Only hd = 128
+// (vicuna-7b) is instantiated.
 int fd_split(int dtype, const void* q, const void* k, const void* v, const int* kv_pos,
              const int* q_pos, float* acc_p, float* m_p, float* l_p, int B, int KV, int R,
              int S, int hd, long long k_sb, long long k_sg, long long k_ss, int kind,
-             int window, int sink, float scale, int n_split, int split_len, void* stream) {
+             int window, int sink, float scale, int n_grid, int cap, const int* bound,
+             int n_bound, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd != 128) return cudaErrorInvalidValue;
-  const Launch a{B, KV, R, S, kind, window, sink, split_len, scale};
-  return dispatch<DenseLaunch>(dtype, R, a, n_split, q, k, v, kv_pos, q_pos, acc_p, m_p, l_p,
+  const Launch a{B, KV, R, S, kind, window, sink, cap, n_bound, bound, scale};
+  return dispatch<DenseLaunch>(dtype, R, a, n_grid, q, k, v, kv_pos, q_pos, acc_p, m_p, l_p,
                                k_sb, k_sg, k_ss, st);
 }
 
@@ -232,22 +270,24 @@ int fd_paged_split(int dtype, const void* q, const void* k_pages, const void* v_
                    const int* table, const int* kv_pos, const int* q_pos, float* acc_p,
                    float* m_p, float* l_p, int B, int KV, int R, int n_pp, int page_size,
                    int num_pages, int hd, long long p_sp, long long p_sr, long long p_sg,
-                   int kind, int window, int sink, float scale, int n_split, int split_len,
-                   void* stream) {
+                   int kind, int window, int sink, float scale, int n_grid, int cap,
+                   const int* bound, int n_bound, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd != 128 || num_pages < 1) return cudaErrorInvalidValue;
-  const Launch a{B, KV, R, n_pp * page_size, kind, window, sink, split_len, scale};
-  return dispatch<PagedLaunch>(dtype, R, a, n_split, q, k_pages, v_pages, table, n_pp,
+  const Launch a{B, KV, R, n_pp * page_size, kind, window, sink, cap, n_bound, bound, scale};
+  return dispatch<PagedLaunch>(dtype, R, a, n_grid, q, k_pages, v_pages, table, n_pp,
                                page_size, num_pages, p_sp, p_sr, p_sg, kv_pos, q_pos, acc_p,
                                m_p, l_p, st);
 }
 
-int fd_combine(const float* acc_p, const float* m_p, const float* l_p, int n_split,
-               long long rows, int hd, const float* acc_d, const float* m_d, const float* l_d,
-               float* out, float* out_m, float* out_l, void* stream) {
+// S, cap, bound and n_bound as the split launch's: both run one plan.
+int fd_combine(const float* acc_p, const float* m_p, const float* l_p, long long rows, int hd,
+               int S, int cap, const int* bound, int n_bound, const float* acc_d,
+               const float* m_d, const float* l_d, float* out, float* out_m, float* out_l,
+               void* stream) {
   if (hd > 1024) return cudaErrorInvalidValue;
   combine_kernel<<<(unsigned)rows, hd, 0, static_cast<cudaStream_t>(stream)>>>(
-      acc_p, m_p, l_p, n_split, rows, hd, acc_d, m_d, l_d, out, out_m, out_l);
+      acc_p, m_p, l_p, rows, hd, S, cap, bound, n_bound, acc_d, m_d, l_d, out, out_m, out_l);
   return cudaGetLastError();
 }
 

@@ -15,11 +15,16 @@ any other strides, and page_table (B, n_pp) int32; slot s of row b is row
 s % P of page page_table[b, s // P] (-1, unallocated, reads page 0 and must
 be masked by kv_pos), so S = n_pp * P.
 
-The split of S across CTAs is a function of the live length only (``live``,
-by default S), in whole 32-slot key tiles, the same for both kernels: a
-paged call whose table spans more slots than ``live`` runs the same tiles
-as a dense call over the first ``live`` slots, so the two give
-bitwise-equal merged outputs.
+The split of S across CTAs is a function of the live length L only, in
+whole 32-slot key tiles, the same for both kernels. L is S, or, given
+``bound`` (a (B,) int32 tensor of committed lengths, the cache's ``pos``),
+max(1, max(bound)) read on the device: slots at or past it are masked for
+every row, and the kernels scan [0, L) only. A call over the whole cache
+with its bound runs the tiles of a call over the cache cut to L on the
+host, paged or dense, so the two give bitwise-equal results; and it reads
+no device value on the host, so it can be captured in a CUDA graph. The
+plain versions scan all S slots (a masked slot adds exactly zero to a row
+that sees any slot).
 
 On a CPU tensor every function computes the plain version
 (``kernels/ref.py``); on a CUDA tensor it launches the kernel or raises.
@@ -44,71 +49,75 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "fd_split": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
-                 _I, _I, _I, _F, _I, _I, _P],
+                 _I, _I, _I, _F, _I, _I, _P, _I, _P],
     "fd_paged_split": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _L, _L, _L, _I, _I, _I, _F, _I, _I, _P],
-    "fd_combine": [_P, _P, _P, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P],
+                       _L, _L, _L, _I, _I, _I, _F, _I, _I, _P, _I, _P],
+    "fd_combine": [_P, _P, _P, _L, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
 }
 
 
 def flash_decode_partial(
     q, k, v, kv_pos, q_pos, *, kind: str = "causal", window: int = 0, sink: int = 0,
-    scale: Optional[float] = None,
+    scale: Optional[float] = None, bound: Optional[torch.Tensor] = None,
 ) -> ref.Partials:
     """Un-normalised partials (acc (B,KV,R,hd), m (B,KV,R), l (B,KV,R)), float32."""
-    _check(q, k, v, kv_pos, q_pos, None, kind)
+    _check(q, k, v, kv_pos, q_pos, None, kind, bound)
     if q.device.type == "cpu":
         return ref.flash_decode_partial(q, k, v, kv_pos, q_pos, kind=kind, window=window,
                                         sink=sink, scale=scale)
-    return _dense(q, k, v, kv_pos, q_pos, None, kind, window, sink, scale)
+    return _dense(q, k, v, kv_pos, q_pos, None, kind, window, sink, scale, bound)
 
 
 def flash_decode_merge(
     q, k, v, kv_pos, q_pos, tree: ref.Partials, *, kind: str = "causal", window: int = 0,
-    sink: int = 0, scale: Optional[float] = None,
+    sink: int = 0, scale: Optional[float] = None, bound: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Cache partials merged with the staged-tree partials ``tree`` by
     logsumexp and normalised: (B, KV, R, hd) float32."""
-    _check(q, k, v, kv_pos, q_pos, tree, kind)
+    _check(q, k, v, kv_pos, q_pos, tree, kind, bound)
     if q.device.type == "cpu":
         cache = ref.flash_decode_partial(q, k, v, kv_pos, q_pos, kind=kind, window=window,
                                          sink=sink, scale=scale)
         return ref.merge_partials(cache, tree)
-    return _dense(q, k, v, kv_pos, q_pos, tree, kind, window, sink, scale)
+    return _dense(q, k, v, kv_pos, q_pos, tree, kind, window, sink, scale, bound)
 
 
 def flash_decode_paged_partial(
     q, k_pages, v_pages, page_table, kv_pos, q_pos, *, kind: str = "causal", window: int = 0,
-    sink: int = 0, scale: Optional[float] = None, live: Optional[int] = None,
+    sink: int = 0, scale: Optional[float] = None, bound: Optional[torch.Tensor] = None,
 ) -> ref.Partials:
     """Partials over a block-paged cache: (acc (B,KV,R,hd), m, l), float32."""
-    live = _check_paged(q, k_pages, v_pages, page_table, kv_pos, q_pos, None, kind, live)
+    _check_paged(q, k_pages, v_pages, page_table, kv_pos, q_pos, None, kind, bound)
     if q.device.type == "cpu":
         return ref.flash_decode_paged_partial(q, k_pages, v_pages, page_table, kv_pos, q_pos,
                                               kind=kind, window=window, sink=sink, scale=scale)
     return _paged(q, k_pages, v_pages, page_table, kv_pos, q_pos, None, kind, window, sink,
-                  scale, live)
+                  scale, bound)
 
 
 def flash_decode_paged_merge(
     q, k_pages, v_pages, page_table, kv_pos, q_pos, tree: ref.Partials, *,
     kind: str = "causal", window: int = 0, sink: int = 0, scale: Optional[float] = None,
-    live: Optional[int] = None,
+    bound: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Paged cache partials merged with the staged-tree partials and
     normalised: (B, KV, R, hd) float32."""
-    live = _check_paged(q, k_pages, v_pages, page_table, kv_pos, q_pos, tree, kind, live)
+    _check_paged(q, k_pages, v_pages, page_table, kv_pos, q_pos, tree, kind, bound)
     if q.device.type == "cpu":
         cache = ref.flash_decode_paged_partial(q, k_pages, v_pages, page_table, kv_pos, q_pos,
                                                kind=kind, window=window, sink=sink, scale=scale)
         return ref.merge_partials(cache, tree)
     return _paged(q, k_pages, v_pages, page_table, kv_pos, q_pos, tree, kind, window, sink,
-                  scale, live)
+                  scale, bound)
 
 
-def _check_common(q, k, v, kv_pos, q_pos, tree, kind, others=()) -> None:
+def _check_common(q, k, v, kv_pos, q_pos, tree, kind, bound, others=()) -> None:
     """The input contract both kernels share, checked on every device so
     that the CPU tests hold the callers to it too."""
+    if bound is not None:
+        if bound.dtype != torch.int32 or bound.ndim != 1 or not bound.is_contiguous():
+            raise ValueError("flash_decode: bound must be a contiguous 1-D int32 tensor")
+        others = (*others, bound)
     tensors = [q, k, v, kv_pos, q_pos, *others, *(tree or ())]
     if q.device.type not in ("cpu", "cuda") or any(t.device != q.device for t in tensors):
         raise ValueError("flash_decode: all tensors must be on one CPU or CUDA device")
@@ -146,8 +155,8 @@ def check_aligned(what: str, *tensors) -> None:
                              f"(strides {t.stride()}, {t.dtype})")
 
 
-def _check(q, k, v, kv_pos, q_pos, tree, kind) -> None:
-    _check_common(q, k, v, kv_pos, q_pos, tree, kind)
+def _check(q, k, v, kv_pos, q_pos, tree, kind, bound) -> None:
+    _check_common(q, k, v, kv_pos, q_pos, tree, kind, bound)
     B, KV, R, hd = q.shape
     S = k.shape[2]
     if k.shape != (B, KV, S, hd) or v.shape != k.shape or S < 1:
@@ -156,9 +165,9 @@ def _check(q, k, v, kv_pos, q_pos, tree, kind) -> None:
         raise ValueError("flash_decode: kv_pos must be (B, S) and q_pos (B, R)")
 
 
-def _check_paged(q, k_pages, v_pages, table, kv_pos, q_pos, tree, kind, live) -> int:
-    """The paged kernel's contract; returns the live length (default S)."""
-    _check_common(q, k_pages, v_pages, kv_pos, q_pos, tree, kind, (table,))
+def _check_paged(q, k_pages, v_pages, table, kv_pos, q_pos, tree, kind, bound) -> None:
+    """The paged kernel's contract."""
+    _check_common(q, k_pages, v_pages, kv_pos, q_pos, tree, kind, bound, (table,))
     B, KV, R, hd = q.shape
     NP, P = k_pages.shape[:2]
     if k_pages.shape != (NP, P, KV, hd) or v_pages.shape != k_pages.shape or NP < 1:
@@ -172,10 +181,6 @@ def _check_paged(q, k_pages, v_pages, table, kv_pos, q_pos, tree, kind, live) ->
     if kv_pos.shape != (B, S) or q_pos.shape != (B, R):
         raise ValueError(f"flash_decode_paged: kv_pos must be (B, n_pp * P) = {(B, S)} and "
                          "q_pos (B, R)")
-    live = S if live is None else int(live)
-    if not 1 <= live <= S:
-        raise ValueError(f"flash_decode_paged: live {live} outside [1, {S}]")
-    return live
 
 
 def rows_per_cta(R: int) -> int:
@@ -184,18 +189,16 @@ def rows_per_cta(R: int) -> int:
     return 16 if R <= 16 else 32
 
 
-def _split_plan(device, B: int, KV: int, R: int, live: int, S: int):
-    """(n_split, split_len): split ``live`` slots into whole key tiles so
-    that the grid fills the card's two resident CTAs per SM in one wave
-    (a second, partial wave would leave SMs idle at the tail), then cover
-    all S slots with splits of that length (the extra slots of a paged
-    table are masked for every row)."""
+def _split_plan(device, B: int, KV: int, R: int, S: int):
+    """(n_grid, cap) for the kernels' own plan (``live_plan`` in the
+    source): the live length's key tiles go to max(1, min(tiles, cap))
+    splits, cap being the split count whose grid fills the card's two
+    resident CTAs per SM in one wave (a second, partial wave would leave SMs
+    idle at the tail); n_grid, the grid's split dimension, is the most
+    splits any live length up to S asks for."""
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    base = B * KV * -(-R // rows_per_cta(R))
-    n_tiles = -(-live // KEY_TILE)
-    n_split = max(1, min(n_tiles, 2 * n_sm // base))
-    split_len = -(-n_tiles // n_split) * KEY_TILE
-    return -(-S // split_len), split_len
+    cap = 2 * n_sm // (B * KV * -(-R // rows_per_cta(R)))
+    return max(1, min(-(-S // KEY_TILE), cap)), cap
 
 
 def _partials(q, n_split):
@@ -205,8 +208,9 @@ def _partials(q, n_split):
             torch.empty((n_split, B, KV, R), **f32))
 
 
-def _combine(lib, q, parts, n_split, tree, stream):
-    """The second pass: combine the splits (and merge ``tree`` if given)."""
+def _combine(lib, q, parts, S, cap, bound, tree, stream):
+    """The second pass: combine the splits that ran (and merge ``tree`` if
+    given)."""
     B, KV, R, hd = q.shape
     f32 = dict(device=q.device, dtype=torch.float32)
     out = torch.empty((B, KV, R, hd), **f32)
@@ -217,39 +221,45 @@ def _combine(lib, q, parts, n_split, tree, stream):
     else:
         d_args, o_args = tuple(P(t) for t in tree), (nul, nul)
     acc_p, m_p, l_p = parts
-    _build.check(lib.fd_combine(P(acc_p), P(m_p), P(l_p), n_split, B * KV * R, hd, *d_args,
-                                P(out), *o_args, stream), "flash_decode combine")
+    _build.check(lib.fd_combine(P(acc_p), P(m_p), P(l_p), B * KV * R, hd, S, cap,
+                                *_bound_args(bound), *d_args, P(out), *o_args, stream),
+                 "flash_decode combine")
     return out if tree is not None else (out, out_m, out_l)
 
 
-def _dense(q, k, v, kv_pos, q_pos, tree, kind, window, sink, scale):
+def _bound_args(bound):
+    return (ctypes.c_void_p(None), 0) if bound is None else (_build.ptr(bound), bound.numel())
+
+
+def _dense(q, k, v, kv_pos, q_pos, tree, kind, window, sink, scale, bound):
     global launches
     B, KV, R, hd = q.shape
     S = k.shape[2]
     scale = hd ** -0.5 if scale is None else scale
-    n_split, split_len = _split_plan(q.device, B, KV, R, S, S)
-    parts = _partials(q, n_split)
+    n_grid, cap = _split_plan(q.device, B, KV, R, S)
+    parts = _partials(q, n_grid)
     lib = _build.load("flash_decode", _SIGNATURES)
     stream = _build.stream_ptr(q.device)
     P = _build.ptr
     sb, sg, ss, _ = k.stride()
     _build.check(lib.fd_split(
         _DTYPES[q.dtype], P(q), P(k), P(v), P(kv_pos), P(q_pos), *(P(t) for t in parts),
-        B, KV, R, S, hd, sb, sg, ss, KINDS[kind], window, sink, scale, n_split, split_len,
-        stream), "flash_decode split")
-    out = _combine(lib, q, parts, n_split, tree, stream)
+        B, KV, R, S, hd, sb, sg, ss, KINDS[kind], window, sink, scale, n_grid, cap,
+        *_bound_args(bound), stream), "flash_decode split")
+    out = _combine(lib, q, parts, S, cap, bound, tree, stream)
     launches += 1
     return out
 
 
-def _paged(q, k_pages, v_pages, table, kv_pos, q_pos, tree, kind, window, sink, scale, live):
+def _paged(q, k_pages, v_pages, table, kv_pos, q_pos, tree, kind, window, sink, scale, bound):
     global paged_launches
     B, KV, R, hd = q.shape
     NP, P_sz = k_pages.shape[:2]
     n_pp = table.shape[1]
+    S = n_pp * P_sz
     scale = hd ** -0.5 if scale is None else scale
-    n_split, split_len = _split_plan(q.device, B, KV, R, live, n_pp * P_sz)
-    parts = _partials(q, n_split)
+    n_grid, cap = _split_plan(q.device, B, KV, R, S)
+    parts = _partials(q, n_grid)
     lib = _build.load("flash_decode", _SIGNATURES)
     stream = _build.stream_ptr(q.device)
     P = _build.ptr
@@ -257,7 +267,7 @@ def _paged(q, k_pages, v_pages, table, kv_pos, q_pos, tree, kind, window, sink, 
     _build.check(lib.fd_paged_split(
         _DTYPES[q.dtype], P(q), P(k_pages), P(v_pages), P(table), P(kv_pos), P(q_pos),
         *(P(t) for t in parts), B, KV, R, n_pp, P_sz, NP, hd, sp, sr, sg, KINDS[kind], window,
-        sink, scale, n_split, split_len, stream), "flash_decode paged split")
-    out = _combine(lib, q, parts, n_split, tree, stream)
+        sink, scale, n_grid, cap, *_bound_args(bound), stream), "flash_decode paged split")
+    out = _combine(lib, q, parts, S, cap, bound, tree, stream)
     paged_launches += 1
     return out

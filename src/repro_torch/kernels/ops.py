@@ -49,8 +49,11 @@ def verify_attention(
     kind: str = "causal",
     window: int = 0,
     sink: int = 0,
+    bound: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Returns (B, T, H, hd) float32."""
+    """Returns (B, T, H, hd) float32. ``bound`` (B,) int32, the committed
+    lengths: the kernel scans the cache up to their maximum, read on the
+    device (``kernels/flash_decode.py``); None scans all S slots."""
     T, hd = q.shape[1], q.shape[3]
     KV = k_cache.shape[2]
     # the caches are read through transposed views, never copied
@@ -61,7 +64,7 @@ def verify_attention(
                                   tree_mask.contiguous(), scale=scale)
     out = flash_decode_merge(qr, k_cache.transpose(1, 2), v_cache.transpose(1, 2),
                              kv_pos.contiguous(), qp_rows, tree, kind=kind, window=window,
-                             sink=sink, scale=scale)
+                             sink=sink, scale=scale, bound=bound)
     return _unrows(out, T)
 
 
@@ -79,11 +82,11 @@ def paged_verify_attention(
     kind: str = "causal",
     window: int = 0,
     sink: int = 0,
-    live: Optional[int] = None,
+    bound: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Block-paged twin of ``verify_attention``: the same tree partials and
-    merge, the cache partials from the paged kernel. ``live`` (default: the
-    table's span) is the live length the kernel splits by. Returns
+    merge, the cache partials from the paged kernel, scanning the table's
+    span up to ``bound``'s maximum as ``verify_attention`` does. Returns
     (B, T, H, hd) float32."""
     T, hd = q.shape[1], q.shape[3]
     qr = _rows(q, k_pages.shape[2])
@@ -93,7 +96,7 @@ def paged_verify_attention(
                                   tree_mask.contiguous(), scale=scale)
     out = flash_decode_paged_merge(qr, k_pages, v_pages, page_table.contiguous(),
                                    kv_pos.contiguous(), qp_rows, tree, kind=kind,
-                                   window=window, sink=sink, scale=scale, live=live)
+                                   window=window, sink=sink, scale=scale, bound=bound)
     return _unrows(out, T)
 
 

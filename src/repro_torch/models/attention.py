@@ -85,8 +85,11 @@ def decode_attention(
     tree mask gives intra-draft visibility (None means chain). Both passes
     and their merge go through ``kernels.ops.verify_attention``: the
     flash-decode and tree-attention kernels on the card, their plain
-    versions on the CPU. Context-parallel partials (``seq_axes``) and
-    carried staged KV (``k_staged`` ...) are later slices of the port.
+    versions on the CPU. A linear cache is scanned up to the longest
+    committed prefix, ``max(cache_pos)``, which the kernel reads on the
+    device; a ring is scanned whole. Context-parallel partials
+    (``seq_axes``) and carried staged KV (``k_staged`` ...) are later slices
+    of the port.
     """
     if seq_axes:
         raise NotImplementedError("decode_attention: seq_axes (context-parallel "
@@ -94,10 +97,10 @@ def decode_attention(
     if any(a is not None for a in (k_staged, v_staged, staged_pos, staged_mask)):
         raise NotImplementedError("decode_attention: carried staged KV (k_staged/"
                                   "v_staged/staged_pos/staged_mask) is not ported yet")
-    kv_pos, q_pos, vis = _positions(q, k_cache.shape[1], cache_pos, q_pos, tree_mask, ring,
-                                    kind, window, sink)
+    kv_pos, q_pos, vis, bound = _positions(q, k_cache.shape[1], cache_pos, q_pos, tree_mask,
+                                           ring, kind, window, sink)
     out = verify_attention(q, k_cache, v_cache, kv_pos, q_pos, k_new, v_new, vis, kind=kind,
-                           window=window, sink=sink)
+                           window=window, sink=sink, bound=None if ring else bound)
     return out.to(q.dtype)
 
 
@@ -115,26 +118,26 @@ def paged_decode_attention(
     kind: str = "causal",
     window: int = 0,
     sink: int = 0,
-    live: Optional[int] = None,
 ) -> torch.Tensor:
     """``decode_attention`` over a block-paged cache: slot s of row b is row
     s % P of pool page page_table[b, s // P], valid iff s < cache_pos[b].
     The pool is read through the table by the paged kernel, never gathered
     (the reference gathers a dense view with ``jnp.take``; the output is the
-    same). ``live`` is the live length the kernel splits by (see
-    ``kernels/flash_decode.py``). Returns (B, T, H, hd) in q's dtype."""
+    same), up to the longest committed prefix as in ``decode_attention``.
+    Returns (B, T, H, hd) in q's dtype."""
     S = page_table.shape[1] * k_pages.shape[1]
-    kv_pos, q_pos, vis = _positions(q, S, cache_pos, q_pos, tree_mask, False, kind, window,
-                                    sink)
+    kv_pos, q_pos, vis, bound = _positions(q, S, cache_pos, q_pos, tree_mask, False, kind,
+                                           window, sink)
     out = paged_verify_attention(q, k_pages, v_pages, page_table, kv_pos, q_pos, k_new, v_new,
-                                 vis, kind=kind, window=window, sink=sink, live=live)
+                                 vis, kind=kind, window=window, sink=sink, bound=bound)
     return out.to(q.dtype)
 
 
 def _positions(q, S_c: int, cache_pos, q_pos, tree_mask, ring: bool, kind, window, sink):
-    """(kv_pos (B, S_c), q_pos (B, T), vis (B, T, T)): int32/bool, contiguous.
-    kv_pos is each cache slot's position (-1 invalid); vis is the staged
-    tokens' positional validity and'ed with the tree mask."""
+    """(kv_pos (B, S_c), q_pos (B, T), vis (B, T, T), cache_pos (B,)):
+    int32/bool, contiguous. kv_pos is each cache slot's position (-1
+    invalid); vis is the staged tokens' positional validity and'ed with the
+    tree mask."""
     B, T = q.shape[:2]
     dev = q.device
     cache_pos = torch.as_tensor(cache_pos, dtype=torch.int32, device=dev).broadcast_to((B,))
@@ -153,4 +156,5 @@ def _positions(q, S_c: int, cache_pos, q_pos, tree_mask, ring: bool, kind, windo
     vis = visible(q_pos, q_pos, kind, window, sink)      # (B, T, T) positional validity
     if tree_mask is not None:
         vis = vis & (tree_mask if tree_mask.ndim == 3 else tree_mask[None])
-    return kv_pos.to(torch.int32).contiguous(), q_pos.contiguous(), vis.contiguous()
+    return (kv_pos.to(torch.int32).contiguous(), q_pos.contiguous(), vis.contiguous(),
+            cache_pos.contiguous())

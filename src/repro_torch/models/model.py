@@ -18,10 +18,16 @@ Cache semantics: stage-then-commit. ``decode_step`` never writes the cache;
 it returns logits plus per-layer staged K/V, and ``commit_cache`` writes
 the accepted path afterwards. Unlike the reference, whose arrays are
 immutable, ``prefill``, ``write_slot`` and ``commit_cache`` update the
-cache tensors in place (a 32-layer vicuna-7b cache is gigabytes) and return
-the cache dict with its new ``pos``. Paged caches are written by
+cache tensors, ``pos`` included, in place (a 32-layer vicuna-7b cache is
+gigabytes, and a captured CUDA graph reads the tensors it was captured
+with) and return the same cache dict. Paged caches are written by
 ``write_slot`` (admission: a dense B=1 prefill cache scattered through the
 slot's table row) and ``commit_cache``, never by ``prefill``.
+
+``decode_step`` and ``commit_cache`` read no device value on the host: the
+attention kernels read the live prefix (``max(pos)``) on the device, and
+the commit is a scatter of fixed shape. A serving round made of them can
+be captured as one CUDA graph.
 
 DSIA layer gating: every entry point takes ``gates``, a (num_layers,) 0/1
 vector; a gated-off layer adds nothing to the residual stream. The engine's
@@ -248,21 +254,15 @@ def _attn_layer(
         o = attn_lib.blockwise_attention(q, k, v, q_pos, q_pos, kind=kind, window=window,
                                          sink=sink)
     elif "k_pages" in layer_cache:
-        # the table holds the live pages only (see _run_stack); the paged
-        # kernel reads the pool through it in place
+        # the paged kernel reads the pool through the table in place
         o = attn_lib.paged_decode_attention(
             q, layer_cache["k_pages"], layer_cache["v_pages"], layer_cache["_table"],
             layer_cache["_pos"], k, v, q_pos, tree_mask=tree_mask, kind=kind, window=window,
-            sink=sink, live=layer_cache["_live"],
+            sink=sink,
         )
     else:
         k_c, v_c = layer_cache["k"], layer_cache["v"]
         ring = spec.attn is AttentionKind.SLIDING and k_c.shape[1] <= window
-        if not ring:
-            # read only the live prefix: slots at or past pos are invalid for
-            # every row (kv_pos = -1), and every query row sees at least
-            # itself, so they add exactly zero to its softmax
-            k_c, v_c = k_c[:, : layer_cache["_live"]], v_c[:, : layer_cache["_live"]]
         o = attn_lib.decode_attention(
             q, k_c, v_c, layer_cache["_pos"], k, v, q_pos,
             tree_mask=tree_mask, kind=kind, window=window, sink=sink, ring=ring,
@@ -305,13 +305,7 @@ def _run_stack(
     g_host = _host_gates(gates, cfg.num_layers)
     if layer_ids is not None and (len(segs) != 1 or len(segs[0].unit) != 1):
         raise ValueError("layer_ids requires a homogeneous layer stack")
-    # longest committed prefix over the batch (one host read per call)
-    live = max(int(cache["pos"].max()), 1) if mode == "decode" else 0
     table = cache.get("page_table")
-    if table is not None and mode == "decode":
-        # a paged cache reads the pages that hold the live prefix
-        page_size = cache["segments"][0][0]["k_pages"].shape[2]
-        table = table[:, : -(-live // page_size)].contiguous()
     staged_segments = []
     for si, seg in enumerate(segs):
         p_seg, c_seg = params["segments"][si], cache["segments"][si]
@@ -322,7 +316,7 @@ def _run_stack(
             for u, spec in enumerate(seg.unit):
                 p_l = tree_map(lambda a, r=r: a[r], p_seg[u])          # views
                 lc = {n: a[r] for n, a in c_seg[u].items()}
-                lc.update(_pos=cache["pos"], _live=live, _table=table)
+                lc.update(_pos=cache["pos"], _table=table)
                 gate = g_host[seg.start + r * U + u]
                 delta, st = _attn_layer(cfg, p_l, spec, h, q_pos, mode, lc, tree_mask,
                                         attn_override)
@@ -392,7 +386,7 @@ def _write_prefill(cfg: ModelConfig, cache: Cache, staged, S: int) -> None:
                     last = S - 1
                     slots = torch.arange(S_c, device=src.device)
                     c[name].copy_(src[:, :, last - torch.remainder(last - slots, S_c)])
-    cache["pos"] = torch.full_like(cache["pos"], S)
+    cache["pos"].fill_(S)
 
 
 def decode_step(
@@ -443,16 +437,16 @@ def commit_cache(
     path_idx,                          # (T,) or (B, T) indices into the staged T dim
     n_accept,                          # scalar or (B,) accepted count (<= T)
 ) -> Cache:
-    """Write the accepted draft path into the cache (in place) and advance pos.
+    """Write the accepted draft path into the cache and advance pos, in
+    place; returns ``cache``.
 
     The reference scatters with ``mode="drop"`` and a unique out-of-bounds
-    destination per rejected row. Torch's ``index_put_`` has no drop mode
-    (out-of-bounds indices raise on the CPU and are undefined on CUDA), so
-    only the live rows — accepted and in bounds — are gathered and written:
-    rejected rows and the rest of the cache are left untouched. On a paged
-    cache a row is live only if its page is allocated: a -1 page is never
+    destination per rejected row. Torch has no drop mode, so this is a
+    scatter of fixed shape (no host read): every (slot, step) entry writes
+    one row (``_scatter_rows``). An entry is live if it is accepted and in
+    bounds and, on a paged cache, its page is allocated: a -1 page is never
     written through (clamped, it would land on page 0, which another slot
-    may own).
+    may own). Rejected rows and the rest of the cache keep their values.
     """
     _check_stack(cfg)
     base = cache["pos"]
@@ -463,45 +457,64 @@ def commit_cache(
     T = path_idx.shape[1]
     n_acc = torch.as_tensor(n_accept, dtype=torch.int32, device=dev).broadcast_to((B,))
     step = torch.arange(T, dtype=torch.int32, device=dev)
-    live = step[None] < n_acc[:, None]                       # (B, T)
+    accepted = step[None] < n_acc[:, None]                   # (B, T)
     dest = (base[:, None] + step[None]).long()
+    b_i = torch.arange(B, device=dev)[:, None].expand(B, T)
     for si, seg in enumerate(layout(cfg)):
         for u, spec in enumerate(seg.unit):
             c, st = cache["segments"][si][u], staged[si][u]
             if "k_pages" in c:
-                b_i, t_i, pages, rows = _page_rows(cache["page_table"], c["k_pages"].shape[2],
-                                                   dest, live)
-                src = path_idx[b_i, t_i]
-                for name in ("k", "v"):
-                    pool = c[name + "_pages"]
-                    pool[:, pages, rows] = st[name][:, b_i, src].to(pool.dtype)
-                continue
-            S_c = c["k"].shape[2]
-            ring = S_c <= cfg.sliding_window and spec.attn is AttentionKind.SLIDING
-            d = torch.remainder(dest, S_c) if ring else dest
-            b_i, t_i = (live & (d < S_c)).nonzero(as_tuple=True)
-            rows, src = d[b_i, t_i], path_idx[b_i, t_i]
-            for name in ("k", "v"):
-                c[name][:, b_i, rows] = st[name][:, b_i, src].to(c[name].dtype)
-    out = dict(cache)
-    out["pos"] = base + n_acc
-    return out
+                rows, ok = _page_rows(cache["page_table"], c["k_pages"].shape[2], b_i, dest)
+                ok &= accepted
+                names = ("k_pages", "v_pages")
+            else:
+                S_c = c["k"].shape[2]
+                ring = S_c <= cfg.sliding_window and spec.attn is AttentionKind.SLIDING
+                d = torch.remainder(dest, S_c)
+                rows, ok = b_i * S_c + d, accepted & (ring | (dest < S_c))
+                names = ("k", "v")
+            for name in names:
+                src = st[name[0]][:, b_i, path_idx]               # (R, B, T, KV, hd)
+                _scatter_rows(c[name], rows.reshape(-1), ok.reshape(-1), src.flatten(1, 2))
+    base += n_acc
+    return cache
 
 
-def _page_rows(table: torch.Tensor, page_size: int, dest: torch.Tensor, live: torch.Tensor):
-    """Where positions ``dest`` (B, T) of each slot live in a paged pool:
-    (b_i, t_i, page, row) over the entries that are ``live`` and whose
-    page is allocated — the only ones a write may touch."""
+def _page_rows(table: torch.Tensor, page_size: int, b_i: torch.Tensor, dest: torch.Tensor):
+    """Where positions ``dest`` of slots ``b_i`` live in a paged pool: the
+    flat row ``page * P + dest % P`` of the pool's (NP * P) rows, and
+    whether the position's page is allocated (the only rows a write may
+    touch)."""
     n_pp = table.shape[1]
     logical = torch.div(dest, page_size, rounding_mode="floor")
-    page = torch.gather(table, 1, logical.clamp(0, n_pp - 1))
-    b_i, t_i = (live & (logical < n_pp) & (page >= 0)).nonzero(as_tuple=True)
-    return b_i, t_i, page[b_i, t_i].long(), torch.remainder(dest, page_size)[b_i, t_i]
+    page = table[b_i, logical.clamp(0, n_pp - 1)].long()
+    ok = (logical < n_pp) & (page >= 0)
+    return page * page_size + torch.remainder(dest, page_size), ok
+
+
+def _scatter_rows(buf: torch.Tensor, rows: torch.Tensor, ok: torch.Tensor,
+                  src: torch.Tensor) -> None:
+    """Write ``src[:, i]`` to row ``rows[i]`` of ``buf`` (R, B or NP, S or P,
+    KV, hd), in place, for the entries where ``ok`` holds, with one
+    scatter of fixed shape. The other entries write the anchor: the first
+    live entry's row and value or, with no live entry, row 0 and its own
+    value. Duplicate writes of one value leave no order to matter (the
+    order of a scatter's duplicate writes is undefined on the card), and
+    live rows are distinct."""
+    flat = buf.view(buf.shape[0], -1, *buf.shape[3:])            # (R, rows, KV, hd)
+    first = ok.to(torch.uint8).argmax().view(1)                # 0 with no live entry
+    any_ok = ok.any()
+    anchor = torch.where(any_ok, rows.index_select(0, first), 0)
+    anchor_val = torch.where(any_ok, src.index_select(1, first).to(buf.dtype),
+                             flat.index_select(1, anchor))
+    flat.index_copy_(1, torch.where(ok, rows, anchor),
+                     torch.where(ok[None, :, None, None], src.to(buf.dtype), anchor_val))
 
 
 def write_slot(cfg: ModelConfig, cache: Cache, c1: Cache, slot: int) -> Cache:
     """Write a freshly prefilled dense B=1 cache ``c1`` into batch slot
-    ``slot`` of ``cache`` (in place) and set the slot's ``pos``.
+    ``slot`` of ``cache`` and set the slot's ``pos``, in place; returns
+    ``cache``.
 
     ``c1`` may be shorter than the batched cache (admission sizes it to the
     prompt's bucket): its rows land at the front of the slot, and rows past
@@ -516,13 +529,11 @@ def write_slot(cfg: ModelConfig, cache: Cache, c1: Cache, slot: int) -> Cache:
             dst, src = cache["segments"][si][u], c1["segments"][si][u]
             S_src = src["k"].shape[2]
             if "k_pages" in dst:
-                rows = torch.arange(S_src, device=dev)[None]
-                _, t_i, pages, offs = _page_rows(cache["page_table"][slot][None],
-                                                 dst["k_pages"].shape[2], rows,
-                                                 torch.ones_like(rows, dtype=torch.bool))
+                t = torch.arange(S_src, device=dev)
+                rows, ok = _page_rows(cache["page_table"], dst["k_pages"].shape[2],
+                                      torch.full_like(t, slot), t)
                 for name in ("k", "v"):
-                    pool = dst[name + "_pages"]
-                    pool[:, pages, offs] = src[name][:, 0, t_i].to(pool.dtype)
+                    _scatter_rows(dst[name + "_pages"], rows, ok, src[name][:, 0])
                 continue
             if S_src > dst["k"].shape[2]:
                 raise NotImplementedError(
@@ -530,7 +541,5 @@ def write_slot(cfg: ModelConfig, cache: Cache, c1: Cache, slot: int) -> Cache:
                     f"{dst['k'].shape[2]} (ring slots cannot take longer buckets)")
             for name in ("k", "v"):
                 dst[name][:, slot, :S_src] = src[name][:, 0].to(dst[name].dtype)
-    out = dict(cache)
-    out["pos"] = cache["pos"].clone()
-    out["pos"][slot] = c1["pos"][0]
-    return out
+    cache["pos"][slot] = c1["pos"][0]
+    return cache

@@ -1,27 +1,41 @@
-"""Batched speculative serving with continuous batching, split rounds.
-
-The port of the reference's ``serving/server.py::BatchedSpecServer`` in its
-``round_mode="split"`` structure, greedy, with ``draft_kv="recompute"``:
-each round proposes on the host (prompt lookup, PLD) and on the card (one
-neural drafting pass over every slot), then runs one target verify over
-every slot that accepts and commits per slot. Two proposal modes:
+"""Batched speculative serving with continuous batching, greedy, with
+``draft_kv="recompute"``: the port of the reference's
+``serving/server.py::BatchedSpecServer``. Two proposal modes:
 
   - ``chain_fused`` — per-slot PLD chains filled up by a layer-sparse
     neural chain draft (``core.engine.chain_draft_scan``), verified by
     ``core.engine.verify_accept_commit``.
   - ``tree_fused`` — the paper's Dynamic Tree Cascade (§4.2) batched: every
-    slot's tree is seeded with its PLD chain (``core.tree.tree_seed_arrays``)
-    and grown by ``core.engine.tree_draft_scan`` under per-slot Eq. 5
-    budgets, then verified by ``core.engine.tree_verify_accept_commit``.
+    slot's tree is seeded with its PLD chain and grown by
+    ``core.engine.tree_draft_scan`` under per-slot Eq. 5 budgets, then
+    verified by ``core.engine.tree_verify_accept_commit`` (split rounds:
+    ``tree_verify_accept_commit_host``, which walks the tree on the host).
+
+Two round structures (``round_mode``; ``"auto"`` is ``"single"``, as in the
+reference):
+
+  - ``"single"`` — one round is ``core.engine.chain_round`` /
+    ``tree_round`` on carried device state (``dstate``: pending tokens,
+    live flags, the (B, max_len) context buffer PLD reads, and the per-slot
+    Eq. 4 estimators; the cost coefficient c is the draft's prior). The
+    round reads nothing on the host. On the card the server captures it
+    once, at build, as a CUDA graph, and ``step()`` replays the graph: one
+    launch per round. The draft runs in every round, masked by the budgets
+    (PyTorch 2.11's graphs have no conditional node for the reference's
+    skip). On the CPU the round runs eagerly.
+    Accepted tokens go to a device ring of ``sync_every`` rounds; the host
+    reads it (its one sync) every ``sync_every`` rounds, at admission and
+    at ``flush()``, so ``step()`` returns the tokens drained so far.
+  - ``"split"`` — host PLD, one neural drafting pass and one target verify
+    per round, with a host read after each, and budgets from the host
+    trackers (``AcceptanceTracker``; ``CostTracker`` on the wall clock).
 
 Greedy output is token-identical to autoregressive decoding: drafts never
 write the cache, and only the target's own greedy continuation is
-committed. Per-slot budgets come from the host trackers: an Eq. 4 EMA of
-the slot's first NEURAL draft token's acceptance (``AcceptanceTracker``,
-reset at admission) and the measured draft-to-verify cost ratio
-(``CostTracker``, wall clock). Admission prefills a dense B=1 cache at the
-prompt's power-of-two bucket and writes it into the slot
-(``models.model.write_slot``).
+committed. Admission prefills a dense B=1 cache at the prompt's
+power-of-two bucket and writes it into the slot (``models.model.write_slot``).
+Every carried tensor (cache, ``pos``, page table, ``dstate``) is updated in
+place, since a graph reads the tensors it was captured with.
 
 ``paged=True`` keeps the KV cache in one shared pool of ``page_size``-token
 pages per layer, addressed through a per-slot page table; pages are handed
@@ -30,13 +44,14 @@ at ``release``, both host-side. Attention reads the pool through the table
 with the paged flash-decode kernel, so paged streams equal dense streams.
 
 Not ported yet (they raise ``NotImplementedError``; ROADMAP queue A):
-single-dispatch rounds (``round_mode="single"``), carried draft KV
-(``draft_kv="carry"``), sampled serving (``sampling``), the ``legacy`` and
-``cascade_fused`` modes, chunked prefill (``prefill_chunk``) and mesh
-serving (``mesh``).
+carried draft KV (``draft_kv="carry"``), sampled serving (``sampling``),
+the ``legacy`` and ``cascade_fused`` modes, chunked prefill
+(``prefill_chunk``), mesh serving (``mesh``), and single rounds over a
+non-homogeneous stack (mask exec reads the layer gates on the host).
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Dict, List, Optional
 
@@ -45,23 +60,26 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.config.base import ModelConfig
-from repro_torch.core.acceptance import AcceptanceTracker
+from repro_torch.core.acceptance import AcceptanceTracker, ema_init
 from repro_torch.core.dsia import PLD_SPEC, DraftSpec
 from repro_torch.core.engine import (
     _check_draft_kv,
     chain_draft_scan,
+    chain_round,
     tree_draft_scan,
-    tree_verify_accept_commit,
+    tree_round,
+    tree_verify_accept_commit_host,
     verify_accept_commit,
 )
 from repro_torch.core.latency import CostTracker, best_chain_length, best_tree_expansions
 from repro_torch.core.pld import PromptLookup
 from repro_torch.core.tree import bucket_for, tree_seed_arrays
+from repro_torch.kernels import launch_counts
 from repro_torch.models import model as M
 
 PROPOSAL_MODES = ("chain_fused", "legacy", "tree_fused", "cascade_fused")
 ROUND_MODES = ("auto", "single", "split")
-_SYNC_EVERY = 1     # split rounds drain every round (the reference's default)
+_RING_FACTS = ("n_acc", "drafted", "pld_have", "budget", "ran")   # ring columns after acc
 
 
 def _prefill_bucket(n: int) -> int:
@@ -94,7 +112,8 @@ class BatchedSpecServer:
         tree_top_p: float = 0.3,       # TOP-P sibling filter (P_tree)
         tree_bucket: Optional[int] = None,   # padded tree size (default: fit)
         draft_kv: str = "auto",        # auto | recompute
-        round_mode: str = "auto",      # auto | split
+        round_mode: str = "auto",      # auto (= single) | single | split
+        sync_every: Optional[int] = None,   # single: drain every N rounds (default 1)
         sampling=None,                 # not ported: greedy only
         paged: bool = False,           # block-paged KV cache
         page_size: int = 64,           # tokens per KV page
@@ -111,8 +130,8 @@ class BatchedSpecServer:
             raise _not_ported(f"mode={mode!r}")
         if round_mode not in ROUND_MODES:
             raise ValueError(f"unknown round_mode {round_mode!r}; pick one of {ROUND_MODES}")
-        if round_mode == "single":
-            raise _not_ported("round_mode='single' (one dispatch per round)")
+        self.round_mode = "single" if round_mode == "auto" else round_mode
+        self.sync_every = max(int(sync_every or 1), 1)
         draft_kv = "recompute" if draft_kv == "auto" else draft_kv
         _check_draft_kv(draft_kv, "BatchedSpecServer")
         if sampling is not None:
@@ -152,6 +171,9 @@ class BatchedSpecServer:
                 self._layer_ids = [int(i) for i in np.flatnonzero(gates > 0)]
             else:
                 self._gates = torch.as_tensor(gates, device=self.device)
+                if self.round_mode == "single":
+                    raise _not_ported("round_mode='single' over a non-homogeneous stack "
+                                      "(mask exec reads the layer gates on the host)")
 
         self.pld = PromptLookup(max_draft=draft_k)
         self.acceptance = AcceptanceTracker()
@@ -175,14 +197,62 @@ class BatchedSpecServer:
         self.live = np.zeros(max_batch, bool)
         self._pld_have = np.zeros(max_batch, np.int32)   # PLD prefix per round
         self.stats = {"target_calls": 0, "draft_dispatches": 0, "tokens": 0, "steps": 0,
-                      "host_syncs": 0}
+                      "host_syncs": 0, "round_dispatches": 0, "device_wait": 0.0,
+                      "draft_rounds": 0, "graph_replays": 0}
+
+        # carried device state of the single round: pending/live, the PLD
+        # context buffer and the per-slot Eq. 4 estimator, at the draft's
+        # cold-start prior; c is the draft's prior cost (no wall clock)
+        dev = self.device
+        prior0 = float(draft_spec.prior_alpha) if draft_spec else 0.5
+        alpha, hist, hist_n, hist_ptr = ema_init(max_batch, prior=prior0, device=dev)
+        self.dstate = {"pending": torch.zeros((max_batch,), dtype=torch.int32, device=dev),
+                       "live": torch.zeros((max_batch,), dtype=torch.bool, device=dev),
+                       "ctx": torch.zeros((max_batch, max_len), dtype=torch.int32, device=dev),
+                       "alpha": alpha, "hist": hist, "hist_n": hist_n, "hist_ptr": hist_ptr}
+        self._prior_alpha = prior0
+        c0 = float(draft_spec.prior_c) if draft_spec else 0.5
+        self._c_dev = torch.tensor(max(c0, 1e-3), dtype=torch.float32, device=dev)
+        # undrained rounds' facts, one row per round: accepted tokens, then
+        # the _RING_FACTS columns; _ring_at is the next row, on the device
+        width = (self.tree_bucket or draft_k + 1) + len(_RING_FACTS)
+        self._ring = torch.zeros((self.sync_every, max_batch, width), dtype=torch.int32,
+                                 device=dev)
+        self._ring_at = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self._inflight = 0
+        self._out_buf: Dict[int, List[int]] = {}
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        # kernel launches in one replay, and the launches all replays made
+        self.replay_launches: Dict[str, int] = {}
+        self.graph_launches: Dict[str, int] = {}
+        self.capture_s = 0.0
+        self.graph_pool_bytes = 0
+        self._round_fn = None
+        if self.round_mode == "single":
+            kw = dict(use_draft=draft_spec is not None, adaptive=adaptive, min_obs=min_obs,
+                      t_min=float(t_min), layer_ids=self._layer_ids, draft_kv=draft_kv,
+                      max_ngram=self.pld.max_ngram, min_ngram=self.pld.min_ngram)
+            if mode == "chain_fused":
+                self._round_fn = functools.partial(chain_round, cfg, draft_k=draft_k, **kw)
+            else:
+                self._round_fn = functools.partial(
+                    tree_round, cfg, draft_k=draft_k, expansions=tree_expansions,
+                    top_k=tree_top_k, top_p=tree_top_p, bucket=self.tree_bucket,
+                    pld_alpha=float(PLD_SPEC.prior_alpha), **kw)
+            if dev.type == "cuda":
+                self._capture()
 
     # ------------------------------------------------------------ admission
     def add_request(self, slot: int, prompt: np.ndarray,
                     max_new_tokens: Optional[int] = None) -> None:
         """Prefill one prompt into a batch slot. On a paged build,
-        ``max_new_tokens`` bounds the slot's pages to prompt + budget + one
-        round's overshoot instead of ``max_len``; dense builds ignore it."""
+        ``max_new_tokens`` bounds the slot's pages to prompt + budget + the
+        overshoot of the rounds in flight instead of ``max_len``; dense
+        builds ignore it. Single rounds in flight are drained first, and
+        tokens the slot's previous request left undrawn are dropped: call
+        ``flush()`` before re-binding a slot to collect them."""
+        self._drain()
+        self._out_buf.pop(slot, None)
         prompt = np.asarray(prompt, np.int32)
         table_row = None
         if self.paged:
@@ -199,6 +269,17 @@ class BatchedSpecServer:
         if self.paged:
             self.cache["page_table"][slot] = torch.as_tensor(table_row, device=self.device)
         self.cache = M.write_slot(self.cfg, self.cache, c1, slot)
+        # the slot's row of the carried state, in place: the pending token,
+        # the context buffer and a fresh estimator at the draft's prior
+        ds = self.dstate
+        ds["pending"][slot] = last[0].argmax()
+        ds["live"][slot] = True
+        row = np.zeros(self.max_len, np.int32)
+        row[: len(prompt)] = prompt
+        ds["ctx"][slot] = torch.as_tensor(row, device=self.device)
+        ds["alpha"][slot] = self._prior_alpha
+        for name in ("hist", "hist_n", "hist_ptr"):
+            ds[name][slot] = 0
         self.pending[slot] = int(last[0].argmax())
         self.contexts[slot] = [int(t) for t in prompt]
         self.live[slot] = True
@@ -212,7 +293,7 @@ class BatchedSpecServer:
         """Commit overshoot past ``max_new_tokens``: the rounds in flight
         when the finish is observed keep committing."""
         per_round = self.tree_bucket or (self.k + 1)
-        return (_SYNC_EVERY + 1) * per_round
+        return (self.sync_every + 1) * per_round
 
     def _alloc_pages(self, slot: int, n_tokens: int) -> np.ndarray:
         """Reserve pool pages covering ``n_tokens`` for a slot; returns the
@@ -239,8 +320,10 @@ class BatchedSpecServer:
         """Mark a slot free (its request finished or was cancelled). Its
         ``pos`` drops to 0 and, on a paged build, its pages go back to the
         pool and its table row to -1, so that the live prefix every later
-        call scans (``max(pos)`` over the batch) forgets the request."""
+        call scans (``max(pos)`` over the batch) forgets the request. All in
+        place and in stream order: rounds in flight are not waited for."""
         self.live[slot] = False
+        self.dstate["live"][slot] = False
         self.cache["pos"][slot] = 0
         if self.paged:
             self._free_slot_pages(slot)
@@ -251,9 +334,16 @@ class BatchedSpecServer:
 
     # ----------------------------------------------------- adaptive budgets
     def _slot_limit(self, slot: int) -> int:
-        """Neural chain draft budget for a slot this round (PLD is never capped)."""
+        """Neural chain draft budget for a slot this round (PLD is never
+        capped). Single rounds compute it on the device; this is then an
+        inspection mirror of that computation over ``dstate``."""
         if self.draft_spec is None:
             return 0
+        if self.round_mode == "single":
+            if not self.adaptive or int(self.dstate["hist_n"][slot]) < self.min_obs:
+                return self.k
+            return best_chain_length(float(self.dstate["alpha"][slot]), float(self._c_dev),
+                                     self.k, self.t_min)
         key = self._slot_key(slot)
         if not self.adaptive or self.acceptance.counts(key) < self.min_obs:
             return self.k
@@ -261,9 +351,15 @@ class BatchedSpecServer:
         return best_chain_length(self.acceptance.alpha(key), max(c, 1e-3), self.k, self.t_min)
 
     def _slot_tree_budget(self, slot: int) -> int:
-        """Tree expansion budget for a slot this round (Eq. 5 objective)."""
+        """Tree expansion budget for a slot this round (Eq. 5 objective);
+        in single mode an inspection mirror of the device's, as above."""
         if self.draft_spec is None:
             return 0
+        if self.round_mode == "single":
+            if not self.adaptive or int(self.dstate["hist_n"][slot]) < self.min_obs:
+                return self.tree_expansions
+            return best_tree_expansions(float(self.dstate["alpha"][slot]), float(self._c_dev),
+                                        self.tree_expansions, self.t_min)
         key = self._slot_key(slot)
         if not self.adaptive or self.acceptance.counts(key) < self.min_obs:
             return self.tree_expansions
@@ -323,7 +419,10 @@ class BatchedSpecServer:
 
     def step(self) -> Dict[int, List[int]]:
         """One speculative round for the whole batch; returns the accepted
-        tokens per live slot."""
+        tokens per live slot (single rounds: the tokens drained so far,
+        possibly from earlier rounds, possibly none between drains)."""
+        if self.round_mode == "single":
+            return self._step_single()
         if self.mode == "tree_fused":
             return self._step_tree()
         chains, have = self._propose()
@@ -394,7 +493,7 @@ class BatchedSpecServer:
             self.costs.observe("tree_draft", dt, tokens=expansions)
 
         t0 = time.perf_counter()
-        self.cache, path, n_acc, bonus = tree_verify_accept_commit(
+        self.cache, path, n_acc, bonus = tree_verify_accept_commit_host(
             self.cfg, self.params, self.cache, d_tokens, d_parents, d_depth, d_mask, d_count,
             self._dev(self.live, torch.bool))
         dt = time.perf_counter() - t0
@@ -425,8 +524,89 @@ class BatchedSpecServer:
         self.stats["steps"] += 1
         return out_toks
 
+    # ------------------------------------------------------ single rounds
+    def _round(self) -> None:
+        """One single round on the carried state, every write in place: the
+        cache (``commit_cache``), ``dstate``, and the round's row of the
+        output ring. Reads nothing on the host; the graph replays this."""
+        new, out = self._round_fn(self.params, self.cache, self.dstate, self._c_dev)
+        for name, value in new.items():
+            self.dstate[name].copy_(value)
+        facts = torch.stack([out[k].to(torch.int32).expand(self.B) for k in _RING_FACTS], dim=1)
+        row = torch.cat([out["acc"].to(torch.int32), facts], dim=1)
+        self._ring.index_copy_(0, self._ring_at, row[None])
+        self._ring_at += 1              # the host drains before the ring is full
+
+    def _capture(self) -> None:
+        """Capture one round as a CUDA graph, at build, with every slot dead.
+        A dead round changes nothing but ``ctx[b, 0]`` of dead rows, which
+        admission overwrites. Warm-up rounds on a side stream first load
+        the kernels and PyTorch's lazy state; a capture that fails raises."""
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                self._round()
+                self._ring_at.zero_()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()        # as the capture does first: its pool is the growth
+        reserved, before = torch.cuda.memory_reserved(dev), launch_counts()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._round()
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t0
+        self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.replay_launches = {k: v - before[k] for k, v in launch_counts().items()}
+        self.graph_launches = {k: 0 for k in self.replay_launches}
+        self._graph = graph
+
+    def _step_single(self) -> Dict[int, List[int]]:
+        if self._graph is not None:
+            self._graph.replay()
+            self.stats["graph_replays"] += 1
+            for k, v in self.replay_launches.items():
+                self.graph_launches[k] += v
+        else:
+            self._round()
+        self._inflight += 1
+        self.stats["steps"] += 1
+        self.stats["round_dispatches"] += 1
+        self.stats["target_calls"] += 1
+        if self._inflight >= self.sync_every:
+            return self.flush()
+        out, self._out_buf = self._out_buf, {}     # drained out of band (admission)
+        return out
+
+    def _drain(self) -> None:
+        """Read the ring of the rounds in flight (one host sync) and fold
+        their accepted tokens into the output buffer, in round order."""
+        if not self._inflight:
+            return
+        t0 = time.perf_counter()
+        rows = self._ring[: self._inflight].cpu().numpy()
+        self.stats["host_syncs"] += 1
+        self.stats["device_wait"] += time.perf_counter() - t0
+        self._inflight = 0
+        self._ring_at.zero_()
+        w = rows.shape[2] - len(_RING_FACTS)
+        for r in rows:
+            facts = dict(zip(_RING_FACTS, r[:, w:].T))
+            self.stats["draft_rounds"] += int(facts["ran"][0])
+            for b in range(self.B):
+                nb = int(facts["n_acc"][b])
+                if nb:
+                    self._out_buf.setdefault(b, []).extend(int(t) for t in r[b, :nb])
+                    self.stats["tokens"] += nb
+
     def flush(self) -> Dict[int, List[int]]:
-        """Tokens buffered by in-flight rounds, per slot. Split rounds return
-        their tokens from ``step`` and leave nothing in flight, so this is
-        empty; it exists for the reference's calling convention."""
-        return {}
+        """Drain the rounds in flight and return the buffered tokens per
+        slot. Split rounds return their tokens from ``step`` and leave
+        nothing in flight; for them this is empty."""
+        self._drain()
+        out, self._out_buf = self._out_buf, {}
+        return out
+

@@ -9,9 +9,17 @@ collected on the card's machine, which has none:
 Tolerances: the attention kernels compute with TF32 tensor-core products
 (3xTF32 for float32 operands), within 1e-4 of the plain versions in float32
 and bfloat16; the paged kernel is bitwise equal to the dense kernel on the
-gathered view; the W8A8 kernel adds exact int32 partial sums and scales in
-the plain version's order, so it is bitwise equal (tolerance 0).
+gathered view, and a launch that reads its live length from the committed
+lengths over the whole cache is bitwise equal to a launch over the cache
+cut to that length on the host; the W8A8 kernel adds exact int32 partial
+sums and scales in the plain version's order, so it is bitwise equal
+(tolerance 0). The single-dispatch serving round, at vicuna-7b width and
+reduced depth: its CUDA graph replays bitwise what eager rounds compute,
+an eager round makes no host sync, and with every budget at 0 the draft,
+which runs masked in every replay (PyTorch 2.11's graphs have no
+conditional node), changes nothing.
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -24,7 +32,14 @@ from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import int8_matmul as i8  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import tree_attention as ta  # noqa: E402
-from torch_inputs import attention_inputs, close, int8_inputs, paged_inputs, tensors  # noqa: E402
+from torch_inputs import (  # noqa: E402
+    attention_inputs,
+    bounded_inputs,
+    close,
+    int8_inputs,
+    paged_inputs,
+    tensors,
+)
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -126,6 +141,141 @@ def test_paged_kernel_tile_edges_on_card(dtype, P, rep, T):
     paged = fd.flash_decode_paged_merge(q, kp, vp, table, kv_pos, q_pos, tree)
     assert torch.equal(paged, fd.flash_decode_merge(q, k, v, kv_pos, q_pos, tree))
     close(paged.cpu(), ref.merge_partials(want, tree).cpu(), ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,n_pp,pos", [
+    (1, 32, 32, (160,)),                # the single-stream verify: 160 live slots of 2048
+    (4, 16, 16, (232, 168, 104, 40)),   # the server's tree verify over a 1024-slot cache
+    (4, 5, 16, (232, 168, 104, 40)),    # its chain verify
+    (2, 32, 4, (1, 0)),                 # a one-slot prefix beside an empty slot
+])
+def test_device_bound_equals_host_cut_on_card(dtype, B, T, n_pp, pos):
+    """Dense and paged launches over the whole cache that read their live
+    length from ``bound`` equal, bit for bit, a dense launch over the cache
+    cut on the host to L = max(1, max(pos)): partials and merged output."""
+    dev = _card()
+    x = bounded_inputs(B, 32, T, 64, n_pp, pos)
+    q, kp, vp, kn, vn = _paged(x, ("q", "k_pages", "v_pages", "k_new", "v_new"), dev,
+                               getattr(torch, dtype))
+    table, kv_pos, q_pos, tmask = _paged(x, ("table", "kv_pos", "q_pos", "tmask"), dev)
+    bound = torch.tensor(pos, dtype=torch.int32, device=dev)
+    L = max(max(pos), 1)
+    k, v = (ref.paged_gather(p, table).transpose(1, 2) for p in (kp, vp))
+    cut = (k[:, :, :L], v[:, :, :L], kv_pos[:, :L].contiguous(), q_pos)
+    tree = ref.tree_attention_partial(q, kn, vn, tmask)
+    want = fd.flash_decode_partial(q, *cut)
+    want_m = fd.flash_decode_merge(q, *cut, tree)
+    for got, got_m in (
+            (fd.flash_decode_partial(q, k, v, kv_pos, q_pos, bound=bound),
+             fd.flash_decode_merge(q, k, v, kv_pos, q_pos, tree, bound=bound)),
+            (fd.flash_decode_paged_partial(q, kp, vp, table, kv_pos, q_pos, bound=bound),
+             fd.flash_decode_paged_merge(q, kp, vp, table, kv_pos, q_pos, tree, bound=bound))):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert torch.equal(got_m, want_m)
+    close(want_m.cpu(), ref.ref_verify_attention(q, k, v, kv_pos, q_pos, kn, vn, tmask).cpu(),
+          ATOL)
+
+
+# ------------------------------------------------------------- serving rounds
+ROUND_LAYERS = 4
+
+
+@functools.lru_cache(maxsize=None)
+def _round_model():
+    """vicuna-7b at full width (head dim 128, the kernels' only one) and
+    ROUND_LAYERS layers, float32, random weights from seed 0."""
+    from repro_torch.config import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("vicuna-7b"), num_layers=ROUND_LAYERS, dtype="float32")
+    return cfg, init_params(cfg, 0)
+
+
+def _round_server(mode, paged, draft=True, **kw):
+    """A single-mode server on the card (its round captured as a CUDA graph
+    at build) with four prompts admitted. The drafter keeps every layer at
+    a cheap cost prior, so that its drafts are accepted and it keeps
+    drafting; ``draft=False`` serves with PLD alone."""
+    from repro_torch.core.dsia import DraftSpec
+    from repro_torch.serving import BatchedSpecServer
+
+    cfg, params = _round_model()
+    spec = DraftSpec("self_draft", gates=(1,) * ROUND_LAYERS, prior_alpha=0.6, prior_c=0.2)
+    args = dict(max_batch=4, max_len=512, draft_k=4, tree_expansions=5, adaptive=True,
+                min_obs=1, round_mode="single")
+    args.update(kw)
+    srv = BatchedSpecServer(cfg, params, mode=mode, draft_spec=spec if draft else None,
+                            paged=paged, page_size=64, **args)
+    rng = np.random.default_rng(1)
+    for b, n in enumerate((40, 100, 7, 64)):
+        srv.add_request(b, rng.integers(0, cfg.vocab_size, size=n).astype(np.int32))
+    return srv
+
+
+def _cache_leaves(srv):
+    from repro_torch.models.model import tree_map
+
+    leaves = []
+    tree_map(leaves.append, srv.cache)
+    return leaves
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("mode", ["tree_fused", "chain_fused"])
+def test_graph_replay_equals_eager_rounds_on_card(mode, paged):
+    """N replays of the captured round leave the tokens, pos, ctx and every
+    cache leaf bitwise equal to N eager rounds of a twin server."""
+    _card()
+    graph, eager = _round_server(mode, paged), _round_server(mode, paged)
+    assert graph._graph is not None
+    eager._graph = None                         # step() runs the round eagerly
+    for r in range(6):
+        assert graph.step() == eager.step(), f"round {r}"
+    assert graph.flush() == eager.flush()
+    assert graph.stats["draft_rounds"] == eager.stats["draft_rounds"] > 0
+    for name in graph.dstate:
+        assert torch.equal(graph.dstate[name], eager.dstate[name]), name
+    for a, b in zip(_cache_leaves(graph), _cache_leaves(eager)):
+        assert torch.equal(a, b)
+    assert graph.replay_launches["tree_attention"] > 0
+    assert graph.graph_launches == {k: 6 * v for k, v in graph.replay_launches.items()}
+
+
+def test_eager_round_makes_no_host_sync_on_card():
+    _card()
+    srv = _round_server("tree_fused", True, sync_every=2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        srv._round()
+        srv._round()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    srv._inflight = 2
+    out = srv.flush()
+    assert srv.stats["draft_rounds"] == 2 and all(len(t) >= 2 for t in out.values())
+
+
+def test_draft_with_every_budget_covered_changes_nothing_on_card():
+    """The reference skips the draft where no budget needs it; the captured
+    round runs it masked instead. With every budget at 0 (warmed-up
+    estimators at alpha 0) a replay reports that no budget needed the
+    draft, and its tokens, state and cache equal those of a twin server
+    whose rounds have no drafter at all (PLD only)."""
+    _card()
+    srv, plain = _round_server("tree_fused", False), _round_server("tree_fused", False,
+                                                                      draft=False)
+    for _ in range(3):
+        srv.dstate["hist_n"].fill_(5)           # warmed up: budgets follow alpha
+        srv.dstate["alpha"].fill_(0.0)
+        assert [srv._slot_tree_budget(b) for b in range(4)] == [0] * 4
+        assert srv.step() == plain.step()
+    assert srv.stats["draft_rounds"] == 0
+    for name in ("pending", "ctx"):
+        assert torch.equal(srv.dstate[name], plain.dstate[name]), name
+    for a, b in zip(_cache_leaves(srv), _cache_leaves(plain)):
+        assert torch.equal(a, b)
 
 
 # ------------------------------------------------------------- W8A8

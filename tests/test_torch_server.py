@@ -49,7 +49,7 @@ N_AR = 32
 
 def _kwargs(paged, **kw):
     out = dict(max_batch=2, max_len=128, draft_k=4, tree_expansions=3, adaptive=True,
-               min_obs=1)
+               min_obs=1, round_mode="split")
     if paged:
         out.update(paged=True, page_size=16)
     out.update(kw)
@@ -119,7 +119,7 @@ def test_server_streams_equal_ar(ar_streams, mode, paged):
 def test_paged_tree_rounds_match_reference():
     kw = _kwargs(True, adaptive=False)
     ref = _pin_costs(JServer(J_CFG, J_PARAMS, mode="tree_fused", draft_spec=J_SPEC,
-                             round_mode="split", draft_kv="recompute", **kw))
+                             draft_kv="recompute", **kw))
     port = _pin_costs(BatchedSpecServer(CFG, PARAMS, mode="tree_fused", draft_spec=SPEC,
                                         device="cpu", **kw))
     j_gen, j_rounds = _run(ref)
@@ -151,29 +151,38 @@ def test_release_and_readmission_on_reused_pages(ar_streams):
 
 def test_release_shrinks_the_scanned_table(monkeypatch):
     """A released slot drops out of the live prefix: after the long request
-    goes, every call hands the paged kernel only the short slot's pages."""
-    from repro_torch.models import attention
-
-    widths = []
-    real = attention.paged_verify_attention
-
-    def spy(q, k_pages, v_pages, page_table, *a, **k):
-        widths.append(page_table.shape[1])
-        return real(q, k_pages, v_pages, page_table, *a, **k)
-
-    monkeypatch.setattr(attention, "paged_verify_attention", spy)
+    goes, every call bounds the paged kernel's scan (the maximum of the
+    ``bound`` it reads on the device) by the short slot's length. The
+    kernel always gets the whole table."""
+    scans = _spy_scans(monkeypatch)
     long_prompt = np.tile(PROMPTS[1], 4)[:70]
     srv = _server("chain_fused", paged=True)
     srv.add_request(0, PROMPTS[0])
     srv.add_request(1, long_prompt)
     srv.step()
-    assert set(widths) == {-(-len(long_prompt) // 16)}
+    assert set(scans) == {len(long_prompt)}
     srv.release(1)
     assert int(srv.cache["pos"][1]) == 0 and bool((srv.cache["page_table"][1] == -1).all())
-    widths.clear()
-    srv.step()
+    scans.clear()
     short = int(srv.cache["pos"][0])
-    assert widths and max(widths) <= -(-short // 16) < -(-len(long_prompt) // 16)
+    srv.step()
+    assert scans and set(scans) == {short} and short < len(long_prompt)
+
+
+def _spy_scans(monkeypatch) -> list:
+    """Record the scan bound, max(bound), of every paged verify call."""
+    from repro_torch.models import attention
+
+    scans = []
+    real = attention.paged_verify_attention
+
+    def spy(q, k_pages, v_pages, page_table, *a, bound, **k):
+        assert page_table.shape[1] == 128 // 16          # the whole table, always
+        scans.append(int(bound.max()))
+        return real(q, k_pages, v_pages, page_table, *a, bound=bound, **k)
+
+    monkeypatch.setattr(attention, "paged_verify_attention", spy)
+    return scans
 
 
 def test_page_pool_budget_and_exhaustion():
@@ -189,7 +198,6 @@ def test_page_pool_budget_and_exhaustion():
 
 
 UNPORTED = {
-    "round_mode single": dict(round_mode="single"),
     "draft_kv carry": dict(draft_kv="carry"),
     "sampling": dict(sampling=object()),
     "mode legacy": dict(mode="legacy"),

@@ -69,3 +69,28 @@ def tensors(*arrays):
 def close(got, want, atol):
     np.testing.assert_allclose(np.asarray(got, np.float64), np.asarray(want, np.float64),
                                atol=atol, rtol=0)
+
+
+def bounded_inputs(B, KV, T, P, n_pp, pos, hd=128, seed=0):
+    """Verify inputs over a cache longer than its live prefix: a block-paged
+    pool of scrambled pages (NP, P, KV, hd) and its table (B, n_pp), the
+    last slot's table ending in -1 entries past its committed length;
+    kv_pos (B, n_pp * P) from the per-slot committed lengths ``pos``; T
+    staged rows per slot after them (R = T), the first row of slot 0 fully
+    masked (q_pos = -1); the staged K/V and a tree mask with a branch."""
+    rng = np.random.default_rng(seed)
+    S, NP = n_pp * P, B * n_pp + 1
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    table = rng.permutation(NP)[: B * n_pp].reshape(B, n_pp).astype(np.int32)
+    table[-1, -(-pos[-1] // P):] = -1
+    pos = np.asarray(pos)[:, None]
+    slots = np.arange(S)[None].repeat(B, 0)
+    kv_pos = np.where(slots < pos, slots, -1).astype(np.int32)
+    q_pos = (pos + np.arange(T)).astype(np.int32)
+    q_pos[0, 0] = -1
+    tm = np.tril(np.ones((T, T), bool))
+    if T >= 4:
+        tm[3, 2] = False
+    return dict(q=f(B, KV, T, hd), k_pages=f(NP, P, KV, hd), v_pages=f(NP, P, KV, hd),
+                table=table, kv_pos=kv_pos, q_pos=q_pos, k_new=f(B, KV, T, hd),
+                v_new=f(B, KV, T, hd), tmask=np.broadcast_to(tm, (B, T, T)).copy())
