@@ -13,18 +13,26 @@ kernel on the gathered view) and times kernel, plain version, a library
 call and the bound, in float32 and bfloat16; the attention kernels and
 their library calls both by CUDA events and by replaying a captured CUDA
 graph; the W8A8 kernel bitwise at every row count of the decode path
-and timed at M = 4, 16, 32, 64 in both MLP shapes. Phases 3-5 drive the
+and timed at M = 4, 16, 32, 64 in both MLP shapes; the tree kernel also
+with a carried key segment at the draft's carry shapes, and the set_cond
+kernel of a conditional graph node against the same segments run eagerly
+with a host read. Phases 3-5 drive the
 single-stream CAS-Spec path at vicuna-7b width with random weights: float32
 AR vs DyTC token identity, the same in bfloat16, and decode_step through
 the W8A8 kernel, with one quantized_matmul timed in its parts. Phase 6 drives
 the batched server (tree_fused and chain_fused, dense and paged caches,
 four slots) at the same width in float32 in split rounds, phase 7 in
-single-dispatch rounds (one CUDA-graph replay per round), and both hold
-every stream to AR; phase 7 also profiles a steady window of rounds.
-The last line is the JSON device record; the line before it lists the
-kernels, with the launches of phases 3, 5, 6 and 7 (graph replays
-counted by the server). Exits non-zero, with no result, when any phase fails or when no
-CUDA device (or no repro_torch beside this script) is present.
+single-dispatch rounds (one launch of a CUDA graph per round, the draft
+and chunked prefill behind conditional nodes), and both hold every stream
+to AR; phase 7 times the rounds that ran the draft apart from those that
+skipped it, serves with carried and recomputed draft KV and with chunked
+prefill of a prompt admitted mid-stream, profiles one launch of each kind
+and a steady window of rounds. Each phase prints its seconds. The last
+line is the JSON device record; the line before it lists the kernels, with
+the launches of phases 3, 5, 6 and 7 (graph launches counted by the
+server, a gated segment's only in the rounds that ran it). Exits non-zero,
+with no result, when any phase fails or when no CUDA device (or no
+repro_torch beside this script) is present.
 """
 from __future__ import annotations
 
@@ -630,11 +638,136 @@ def phase_kernels(torch, results: dict) -> None:
                     lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=tmask[:, None]),
                     flush, bound, by)
                 print(f"[phase 2] tree_attention   {name:8s} " + _timing_text(timing[name], "sdpa"))
+    worst = max(worst, _carried_tree_kernel(torch, gen, flush, timing))
     results["tree_attention"] = dict(max_abs_err=worst, **timing["float32"])
+
+    # --- set_cond: the conditional node of the captured round
+    results["set_cond"] = _set_cond_kernel(torch, flush)
 
     # --- W8A8 (#3)
     results["int8_matmul"] = _w8a8_kernel(torch, gen, flush_buf)
     del flush_buf
+
+
+def _carried_tree_kernel(torch, gen, flush, timing: dict) -> float:
+    """The tree kernel with a carried key segment (``draft_kv="carry"``) at
+    the draft's shapes: 4 slots of 32 heads, a tree step's 2 new nodes over
+    the 16-node bucket's carried rows and a chain step's 1 token over its
+    5, strided views of the (B, N, KV, hd) buffers, a row that sees no
+    carried key; against the plain version, and timed at the tree step
+    beside SDPA over [carried ++ new] with the explicit mask. Returns the
+    worst error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tree_attention as ta
+
+    F = torch.nn.functional
+    B, KV, hd, tol, worst = 4, 32, 128, TOL["attention"], 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for T, N_s in ((2, 16), (1, 5)):
+            mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)  # noqa: E731
+            q = mk(B, KV, T, hd)
+            kt, vt = (mk(B, T, KV, hd).transpose(1, 2) for _ in range(2))
+            ks, vs = (mk(B, N_s, KV, hd).transpose(1, 2) for _ in range(2))
+            tmask = torch.eye(T, dtype=torch.bool, device="cuda")[None].expand(B, T, T).contiguous()
+            smask = torch.rand(B, T, N_s, generator=gen, device="cuda") < 0.6
+            smask[0, 0] = False
+            seg2 = dict(k_staged=ks, v_staged=vs, staged_mask=smask)
+            got = ta.tree_attention_partial(q, kt, vt, tmask, **seg2)
+            want = ref.tree_attention_partial(q, kt, vt, tmask, **seg2)
+            torch.cuda.synchronize()
+            out_g, out_w = got[0] / got[2][..., None], want[0] / want[2][..., None]
+            e, e_m = _err(out_g, out_w), _err(got[1], want[1])
+            e_l = float(((got[2] - want[2]).abs() / want[2]).max())
+            name = f"{str(dtype)[6:]} carry T={T} N_s={N_s}"
+            print(f"[phase 2] tree_attention   {name}: out err abs={e:.3e} rel={_rel(out_g, out_w):.3e} "
+                  f"m err={e_m:.3e} l rel err={e_l:.3e}")
+            if not (e <= tol and e_m <= tol and e_l <= tol):
+                raise AssertionError(f"tree_attention with a carried segment disagrees ({name})")
+            worst = max(worst, e)
+            if T == 2:
+                kc, vc = torch.cat([ks, kt], dim=2).contiguous(), torch.cat([vs, vt], dim=2).contiguous()
+                am = torch.cat([smask, tmask], dim=-1)[:, None]
+                nbytes = _nbytes(q, kt, vt, ks, vs, tmask, smask) + 4 * q.numel() + 8 * q.numel() // hd
+                bound, by = _bound_ms(nbytes, 4 * B * KV * T * (N_s + T) * hd, str(dtype)[6:])
+                key = f"{str(dtype)[6:]}_carry"
+                timing[key] = _timings(
+                    lambda: ta.tree_attention_partial(q, kt, vt, tmask, **seg2),
+                    lambda: ref.tree_attention_partial(q, kt, vt, tmask, **seg2),
+                    lambda: F.scaled_dot_product_attention(q, kc, vc, attn_mask=am), flush, bound, by)
+                print(f"[phase 2] tree_attention   {name} " + _timing_text(timing[key], "sdpa"))
+    return worst
+
+
+def _set_cond_kernel(torch, flush) -> dict:
+    """set_cond behind an IF node: three captured segments (a predicate, a
+    gated body that updates a buffer in place, a tail that reads it)
+    assembled by ``kernels.graph_cond.CondGraph``, against the plain version
+    (``ref.cond_segments``: the same segments eagerly, the IF decided by a
+    host read), bitwise over predicates that flip; timed with the predicate
+    false and true. The bound is the one-byte read of the predicate."""
+    from repro_torch.kernels import graph_cond, ref
+
+    def state():
+        return {"flag": torch.zeros((), dtype=torch.int32, device="cuda"),
+                "x": torch.ones(64, 1024, device="cuda"), "y": torch.zeros(64, device="cuda")}
+
+    def segments(st, mid):
+        def head():
+            mid["pred"] = st["flag"] > 0
+
+        def body():
+            st["x"].mul_(0.5).add_(1.0)
+
+        def tail():
+            st["y"].copy_(st["x"].sum(dim=-1))
+        return head, body, tail
+
+    g_st, g_mid, p_st, p_mid = state(), {}, state(), {}
+    g_segs = segments(g_st, g_mid)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in g_segs:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graphs, pool = [], None
+    for fn in g_segs:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, pool=pool):
+            fn()
+        pool = graph.pool() if pool is None else pool
+        graphs.append(graph)
+    g_st["x"].fill_(1.0)
+    cond = graph_cond.CondGraph([("child", graphs[0]), ("if", g_mid["pred"], graphs[1]),
+                                 ("child", graphs[2])], "cuda")
+    head, body, tail = segments(p_st, p_mid)
+    plain = lambda: ref.cond_segments([("child", head), ("if", lambda: p_mid["pred"], body),  # noqa: E731
+                                       ("child", tail)])
+    err = 0.0
+    for flag in (1, 0, 1, 1, 0, 0, 1):
+        g_st["flag"].fill_(flag)
+        p_st["flag"].fill_(flag)
+        cond.launch()
+        plain()
+        torch.cuda.synchronize()
+        err = max(err, _err(g_st["x"], p_st["x"]), _err(g_st["y"], p_st["y"]))
+        if not (torch.equal(g_st["x"], p_st["x"]) and torch.equal(g_st["y"], p_st["y"])):
+            raise AssertionError(f"set_cond: the conditional graph differs from the plain version "
+                                 f"(predicate {flag})")
+    bound, by = _bound_ms(1, 0, "float32")
+    times = {}
+    for flag in (0, 1):
+        g_st["flag"].fill_(flag)
+        p_st["flag"].fill_(flag)
+        times[flag] = (_time_ms(cond.launch, flush), _time_ms(plain, flush))
+    print(f"[phase 2] set_cond (an IF node over a 64x1024 in-place update): bitwise equal to the plain "
+          f"version over 7 launches | launch ms, predicate false {times[0][0]:.4f} (plain "
+          f"{times[0][1]:.4f}), true {times[1][0]:.4f} (plain {times[1][1]:.4f}); bound "
+          f"{bound:.2e} ms ({by})")
+    cond.close()
+    return dict(max_abs_err=err, ms=times[0][0], plain_ms=times[0][1], bound_ms=bound, bound_by=by,
+                library_ms=None, launches=0)
 
 
 # ------------------------------------------------------------------ phases 3-5
@@ -653,12 +786,13 @@ def _prompts(vocab: int):
 
 def _counters():
     """Kernel name -> (module, the module integer its wrapper counts in)."""
-    from repro_torch.kernels import flash_decode, int8_matmul, tree_attention
+    from repro_torch.kernels import flash_decode, graph_cond, int8_matmul, tree_attention
 
     return {"flash_decode": (flash_decode, "launches"),
             "flash_decode_paged": (flash_decode, "paged_launches"),
             "tree_attention": (tree_attention, "launches"),
-            "int8_matmul": (int8_matmul, "launches")}
+            "int8_matmul": (int8_matmul, "launches"),
+            "set_cond": (graph_cond, "launches")}
 
 
 def _reset_counts() -> None:
@@ -863,26 +997,42 @@ SERVER = dict(max_batch=4, max_len=1024, draft_k=4, tree_expansions=5, adaptive=
 PAGE = 64
 
 
-def _serve(torch, srv, prompts, ar_streams, readmit=()):
-    """Admit ``prompts`` into slots 0.., step until every slot holds
-    GEN_TOKENS tokens (a finished slot is released; the slots in
-    ``readmit`` are admitted once more with the same prompt, onto the pages
-    they gave back, in reverse order), and hold every stream to its AR
-    stream. Returns a record of the run. Kernel launches are the wrappers'
-    counts plus, in single mode, those of the server's graph replays."""
+def _serve(torch, srv, prompts, ar_streams, readmit=(), late=()):
+    """Admit ``prompts`` into slots 0.. (those in ``late`` after two
+    rounds, mid-stream), step until every slot holds GEN_TOKENS tokens (a
+    finished slot is released; the slots in ``readmit`` are admitted once
+    more with the same prompt, onto the pages they gave back, in reverse
+    order), and hold every stream to its AR stream. Returns a record of
+    the run, with the mean wall time of the steps whose round prefilled a
+    chunk, of those that ran the draft and no chunk, and of those that ran
+    neither (read from the drained round, so only where each step drains). Kernel
+    launches are the wrappers' counts plus, in single mode, those of the
+    server's graph launches."""
     paged_kw = dict(max_new_tokens=GEN_TOKENS) if srv.paged else {}
+    pending = list(late)
     for b, p in enumerate(prompts):
-        srv.add_request(b, p, **paged_kw)
+        if b not in pending:
+            srv.add_request(b, p, **paged_kw)
     todo = list(readmit)
-    gen = {b: [] for b in range(len(prompts))}
+    gen = {b: [] for b in range(len(prompts)) if b not in pending}
     done = []                                      # (prompt index, stream)
     torch.cuda.synchronize()
     _reset_counts()
     steps0, graph0 = dict(srv.stats), dict(srv.graph_launches)
-    slot_rounds, t0 = 0, time.perf_counter()
-    while gen:
+    slot_rounds, step_ms, step_kind, t0 = 0, [], [], time.perf_counter()
+    while gen or pending:
+        if pending and srv.stats["steps"] - steps0["steps"] == 2:
+            for b in pending:
+                srv.add_request(b, prompts[b], **paged_kw)
+                gen[b] = []
+            pending = []
         slot_rounds += len(gen)
-        for b, toks in srv.step().items():
+        d0, p0, t = srv.stats["draft_rounds"], srv.stats["prefill_rounds"], time.perf_counter()
+        out = srv.step()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        step_kind.append("prefilled" if srv.stats["prefill_rounds"] > p0
+                         else "ran" if srv.stats["draft_rounds"] > d0 else "skipped")
+        for b, toks in out.items():
             gen[b].extend(toks)
         for b in [b for b, g in gen.items() if len(g) >= GEN_TOKENS]:
             done.append((b, gen.pop(b)))
@@ -901,12 +1051,18 @@ def _serve(torch, srv, prompts, ar_streams, readmit=()):
         if stream[:GEN_TOKENS] != ar_streams[i][:GEN_TOKENS]:
             raise AssertionError(f"prompt {i}: the server's stream left AR:\n"
                                  f"AR     {ar_streams[i][:GEN_TOKENS]}\nserver {stream[:GEN_TOKENS]}")
+    def mean_ms(kind):
+        ms = [m for m, k in zip(step_ms, step_kind) if k == kind]
+        return (sum(ms) / len(ms) if ms else float("nan")), len(ms)
+
     return dict(requests=len(done), rounds=st["steps"], target_calls=st["target_calls"],
                 draft_dispatches=st["draft_dispatches"], draft_rounds=st["draft_rounds"],
-                graph_replays=st["graph_replays"], host_syncs=st["host_syncs"], tokens=st["tokens"],
+                prefill_rounds=st["prefill_rounds"], graph_replays=st["graph_replays"],
+                host_syncs=st["host_syncs"], tokens=st["tokens"],
                 tokens_per_slot_round=st["tokens"] / slot_rounds, wall_s=wall,
                 ms_per_round=wall / st["steps"] * 1e3, launches=counts,
-                launches_per_round={k: v / st["steps"] for k, v in counts.items()})
+                launches_per_round={k: v / st["steps"] for k, v in counts.items()},
+                **{f"ms_{kind}": mean_ms(kind) for kind in ("prefilled", "ran", "skipped")})
 
 
 def _check_launches(name: str, counts: dict, is_paged: bool) -> None:
@@ -1045,41 +1201,94 @@ def _profile_rounds(torch, srv, prompts, phase: int, n_rounds: int = 8) -> None:
         raise AssertionError("the profiler recorded no device time in the server's rounds")
 
 
+def _profile_launches(torch, srv, prompts, n_max: int = 30) -> None:
+    """Profile single rounds one at a time (four slots admitted) until one
+    that ran the draft and one that skipped it are seen, and print each
+    one's device activities and device time: a skipped launch runs none of
+    the draft's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for b, p in enumerate(prompts):
+        srv.add_request(b, p)
+    seen = {}
+    for _ in range(n_max):
+        d0 = srv.stats["draft_rounds"]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            srv.step()
+            torch.cuda.synchronize()
+        kind = "ran the draft" if srv.stats["draft_rounds"] > d0 else "skipped the draft"
+        if kind in seen:
+            continue
+        evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        groups: dict = {}
+        for e in evs:
+            g = _kernel_group(e.key)
+            groups[g] = groups.get(g, 0) + e.count
+        seen[kind] = (sum(e.count for e in evs), sum(e.self_device_time_total for e in evs) / 1e3,
+                      groups)
+        if len(seen) == 2:
+            break
+    for kind, (n, ms, groups) in seen.items():
+        print(f"[phase 7] one launch that {kind}: {n} device activities, device time {ms:.2f} ms; "
+              "by group: " + ", ".join(f"{g} {c}" for g, c in sorted(groups.items())))
+    if len(seen) != 2 or seen["skipped the draft"][0] >= seen["ran the draft"][0]:
+        raise AssertionError(f"phase 7: no pair of launches that ran and skipped the draft, or the "
+                             f"skipped one ran as many kernels: {seen}")
+
+
 def phase_single(torch, served: dict, results: dict) -> None:
     """The batched server of phase 6 in single-dispatch rounds: each round
-    one replay of a CUDA graph captured at build, the draft run masked in
-    every round (PyTorch 2.11's graphs have no conditional node to skip
-    it). The same four runs as phase 6 at sync_every=1, tree_fused dense at
-    sync_every=4, and tree_fused dense with PLD alone, whose rounds have no
-    draft at all (the masked draft's cost); every stream equals AR. Then
-    one profiled window of single rounds."""
+    one launch of a graph assembled at build from the round's captured
+    segments, the draft behind a conditional node on the round's own
+    predicate (``kernels/graph_cond.py``). The same four runs as phase 6 at
+    sync_every=1 (the draft's KV carried, the default), tree_fused dense
+    with recomputed draft KV, at sync_every=4, and with PLD alone (no
+    drafter at all), and chain_fused paged with chunked prefill (64 tokens
+    a round, behind a conditional node of its own) of the 200-token prompt
+    admitted mid-stream; every stream equals AR. Rounds that ran the draft
+    and rounds that skipped it are timed apart; the skipped rounds of
+    tree_fused dense must cost within 1.25x of a PLD-only round. Then one
+    launch of each kind profiled, and a steady window of rounds."""
     prompts, ar_streams = served["prompts"], served["ar_streams"]
-    runs = _runs(prompts)
-    runs.append(("tree_fused dense, sync_every=4", "tree_fused", False, dict(sync_every=4), ()))
-    runs.append(("tree_fused dense, PLD only", "tree_fused", False, dict(draft=False), ()))
-    launches = {"flash_decode": 0, "tree_attention": 0, "flash_decode_paged": 0}
-    for name, mode, is_paged, kw, readmit in runs:
+    runs = [r + ((),) for r in _runs(prompts)]
+    runs += [("tree_fused dense, recompute", "tree_fused", False, dict(draft_kv="recompute"), (), ()),
+             ("tree_fused dense, sync_every=4", "tree_fused", False, dict(sync_every=4), (), ()),
+             ("tree_fused dense, PLD only", "tree_fused", False, dict(draft=False), (), ()),
+             ("chain_fused paged, prefill_chunk=64, 200-token prompt admitted mid-stream",
+              "chain_fused", True, dict(prefill_chunk=64), (), (3,))]
+    launches = {"flash_decode": 0, "tree_attention": 0, "flash_decode_paged": 0, "set_cond": 0}
+    recs = {}
+    for name, mode, is_paged, kw, readmit, late in runs:
         _reset_counts()
         srv = served["server"](mode, is_paged, round_mode="single", **kw)
         if srv._graph is None:
             raise AssertionError(f"{name}: no CUDA graph was captured")
-        rec = _serve(torch, srv, prompts, ar_streams, readmit)
+        rec = recs[name] = _serve(torch, srv, prompts, ar_streams, readmit, late)
         split = served["split_ms"].get(name, served["split_ms"].get(name.split(", ")[0]))
-        replays = sum(srv.replay_launches.values())
+        split = f" (split rounds, phase 6: {split:.2f})" if split else ""
+        seg = {k: sum(v.values()) for k, v in srv.segment_launches.items()}
+        kinds = ""
+        if srv.sync_every == 1:
+            kinds = "; " + ", ".join(f"{rec['ms_' + k][1]} {text} at {rec['ms_' + k][0]:.2f} ms"
+                                     for k, text in (("prefilled", "prefilled a chunk"),
+                                                     ("ran", "ran the draft"),
+                                                     ("skipped", "skipped it"))
+                                     if rec["ms_" + k][1])
         print(f"[phase 7] {name}: {rec['requests']} requests identical to AR | {rec['rounds']} rounds, "
               f"{rec['tokens_per_slot_round']:.2f} tokens per slot-round, {rec['wall_s']:.3f} s, "
-              f"{rec['ms_per_round']:.2f} ms per round (split rounds, phase 6: {split:.2f}), "
-              f"{rec['host_syncs'] / rec['rounds']:.2f} host syncs and "
-              f"{rec['graph_replays'] / rec['rounds']:.2f} graph replays per round, "
-              f"{rec['rounds'] - rec['draft_rounds']} of {rec['rounds']} rounds needed no draft "
-              f"(it ran masked) | capture {srv.capture_s * 1e3:.1f} ms, graph pool "
-              f"{srv.graph_pool_bytes / 2**20:.1f} MiB, {replays} kernel launches per replay "
-              "| launches per round: "
+              f"{rec['ms_per_round']:.2f} ms per round{split}{kinds}, "
+              f"{rec['prefill_rounds']} rounds prefilled | {rec['host_syncs'] / rec['rounds']:.2f} host "
+              f"syncs and {rec['graph_replays'] / rec['rounds']:.2f} graph launches per round | capture "
+              f"{srv.capture_s * 1e3:.1f} ms, graph pool {srv.graph_pool_bytes / 2**20:.1f} MiB, "
+              f"kernel launches per segment {seg} | launches per round: "
               + ", ".join(f"{k} {v:.2f}" for k, v in rec["launches_per_round"].items()))
         if (rec["host_syncs"] * srv.sync_every != rec["rounds"] or rec["draft_dispatches"]
                 or rec["graph_replays"] != rec["rounds"]):
             raise AssertionError(f"{name}: {rec['host_syncs']} host syncs and "
                                  f"{rec['graph_replays']} replays in {rec['rounds']} rounds")
+        if srv.prefill_chunk and rec["prefill_rounds"] < 4:
+            raise AssertionError(f"{name}: {rec['prefill_rounds']} prefill rounds")
         _check_launches(name, rec["launches"], is_paged)
         for k in launches:
             launches[k] += rec["launches"][k]
@@ -1087,6 +1296,14 @@ def phase_single(torch, served: dict, results: dict) -> None:
         torch.cuda.empty_cache()
     for k, v in launches.items():
         results[k]["launches"] += v
+    skipped = recs["tree_fused dense"]["ms_skipped"][0]
+    pld = recs["tree_fused dense, PLD only"]["ms_skipped"][0]
+    print(f"[phase 7] tree_fused dense rounds that skipped the draft: {skipped:.2f} ms, "
+          f"{skipped / pld:.3f}x a PLD-only round ({pld:.2f} ms)")
+    if not skipped <= 1.25 * pld:
+        raise AssertionError("phase 7: rounds that skip the draft cost more than 1.25x a PLD-only round")
+    _profile_launches(torch, served["server"]("tree_fused", False, round_mode="single"), prompts)
+    torch.cuda.empty_cache()
     srv = served["server"]("tree_fused", False, round_mode="single")
     _profile_rounds(torch, srv, prompts, 7)
     del srv
@@ -1107,24 +1324,33 @@ def main() -> int:
         return 2
 
     results: dict = {}
-    phase_env(torch)
-    phase_kernels(torch, results)
-    ar_streams = phase_main_path(torch, "float32", results, exact=True)
-    torch.cuda.empty_cache()
-    phase_main_path(torch, "bfloat16", results, exact=False)
-    torch.cuda.empty_cache()
-    phase_int8(torch, results)
-    torch.cuda.empty_cache()
-    served = phase_server(torch, ar_streams, results)
-    phase_single(torch, served, results)
+    t_all = time.perf_counter()
+
+    def timed(phase: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        print(f"[{phase}] done in {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed("phase 1", phase_env, torch)
+    timed("phase 2", phase_kernels, torch, results)
+    ar_streams = timed("phase 3", phase_main_path, torch, "float32", results, True)
+    timed("phase 4", phase_main_path, torch, "bfloat16", results, False)
+    timed("phase 5", phase_int8, torch, results)
+    served = timed("phase 6", phase_server, torch, ar_streams, results)
+    timed("phase 7", phase_single, torch, served, results)
     del served
     torch.cuda.empty_cache()
+    print(f"[chip_smoke] all phases in {time.perf_counter() - t_all:.1f} s")
     kernels = []
     for name, src, replaces in (
         ("flash_decode", "src/repro_torch/csrc/flash_decode.cu", "src/repro/kernels/flash_decode.py:171"),
         ("tree_attention", "src/repro_torch/csrc/tree_attention.cu", "src/repro/kernels/tree_attention.py:54"),
         ("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu", "src/repro/kernels/int8_matmul.py:55"),
         ("flash_decode_paged", "src/repro_torch/csrc/flash_decode.cu", "src/repro/kernels/flash_decode.py:98"),
+        # the counterpart of the reference's lax.cond skips, not of a Pallas kernel
+        ("set_cond", "src/repro_torch/csrc/graph_cond.cu", "src/repro/core/engine.py:1083"),
     ):
         r = results[name]
         kernels.append({

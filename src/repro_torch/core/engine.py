@@ -15,23 +15,33 @@ target model's verification staged KV is committed, so the cache is always
 exact — the losslessness invariant (see models.model).
 
 The batched functions are the reference's ``core/engine.py`` functions of
-the same names with ``draft_kv="recompute"``: every draft step re-decodes
-the whole padded (B, N) block against the read-only cache. The reference's
-``lax.scan`` over steps is a Python loop here (PyTorch runs eagerly), and
-its drop-mode scatters are one-hot ``torch.where`` updates (an index of N
-matches no column). A layer-sparse draft runs either through the gate
-vector (``gates``, mask exec) or, on a homogeneous stack, through
-``layer_ids`` (slice exec): the kept layers only, the same numbers.
+the same names. The reference's ``lax.scan`` over steps is a Python loop
+here (PyTorch runs eagerly), and its drop-mode scatters are one-hot
+``torch.where`` updates (an index of N matches no column) or, for the
+carried KV buffers, ``models.model._scatter_rows``. A layer-sparse draft
+runs either through the gate vector (``gates``, mask exec) or, on a
+homogeneous stack, through ``layer_ids`` (slice exec): the kept layers
+only, the same numbers. ``draft_kv`` picks how draft steps see each other:
+``"recompute"`` re-decodes the whole padded block every step; ``"carry"``
+decodes the block once, carries its staged KV and decodes only the
+appended tokens against [cache ++ carried rows] (the two are
+token-identical; the last step's decode, whose output no later step reads,
+is skipped).
 
 ``chain_round`` and ``tree_round`` are the reference's single-dispatch
-rounds, greedy, with ``draft_kv="recompute"``: PLD over a carried context
-buffer, the Eq. 5 budgets from the carried Eq. 4 state, the draft, the
-verify, the accepted-path walk, the cache and context commit and the EMA
-update, with fixed shapes and no host read, so that the server can
-capture one round as a CUDA graph. The reference skips the draft at run
-time (``lax.cond``) in rounds where no budget needs it. A CUDA graph of
-PyTorch 2.11 has no conditional node, so here the draft always runs,
-masked by the budgets: where none needs it, it writes nothing.
+rounds, greedy: PLD over a carried context buffer, the Eq. 5 budgets from
+the carried Eq. 4 state, the draft, the verify, the accepted-path walk,
+the cache and context commit and the EMA update, with fixed shapes and no
+host read. Each is the composition of three segments, ``*_prologue``,
+``*_draft`` and ``*_tail``: the reference skips the draft at run time
+(``lax.cond``) where no budget needs it, and the server captures the three
+as segment graphs with the draft behind a conditional node
+(``kernels/graph_cond.py``). The draft writes its results in place into
+the prologue's tensors, so the tail reads the same tensors whether or not
+it ran. Run eagerly here, the draft runs masked by the budgets: where none
+needs it, it writes nothing. ``prefill_chunk_stage`` is the reference's
+chunked prefill, which the server runs ahead of the prologue behind a
+conditional node of its own.
 """
 from __future__ import annotations
 
@@ -236,12 +246,10 @@ DRAFT_KV_MODES = ("recompute", "carry")
 
 
 def _check_draft_kv(draft_kv: str, who: str) -> None:
+    # the port's stacks are attention-only (models.model._check_stack), so
+    # both modes apply to every stack it builds
     if draft_kv not in DRAFT_KV_MODES:
-        raise ValueError(f"unknown draft_kv {draft_kv!r}; pick one of {DRAFT_KV_MODES}")
-    if draft_kv == "carry":
-        raise NotImplementedError(
-            f"{who}: draft_kv='carry' (carried staged draft KV) is not ported yet "
-            "(ROADMAP A.3/A.4); use draft_kv='recompute'")
+        raise ValueError(f"{who}: unknown draft_kv {draft_kv!r}; pick one of {DRAFT_KV_MODES}")
 
 
 def chain_draft_scan(
@@ -258,21 +266,51 @@ def chain_draft_scan(
     layer_ids: Optional[List[int]] = None,   # kept layers (slice exec)
     draft_kv: str = "recompute",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """k-step neural chain drafting. Step ``j`` re-decodes the (B, k+1) block
-    ``[pending, chain]`` under a causal mask and writes the draft's argmax at
-    position ``j`` into chain position ``j`` only where ``have <= j <
+    """k-step neural chain drafting. Step ``j`` writes the draft's argmax
+    at position ``j`` into chain position ``j`` only where ``have <= j <
     limit``: PLD tokens are never overwritten and slots past their budget
-    stop. Returns (chains, have) with ``have = max(have, min(limit, steps))``."""
+    stop. ``"recompute"`` re-decodes the (B, k+1) block ``[pending, chain]``
+    under a causal mask at every step; ``"carry"`` decodes it once, then
+    only the appended token of each step against [cache ++ the carried
+    rows 0..j]. Returns (chains, have) with ``have = max(have, min(limit,
+    steps))``."""
     _check_draft_kv(draft_kv, "chain_draft_scan")
     B, K = chains.shape
     toks = torch.cat([pending[:, None], chains], dim=1).to(torch.int32)
     mask = torch.tril(torch.ones((K + 1, K + 1), dtype=torch.bool, device=toks.device))
-    for j in range(steps):
-        logits, _ = M.decode_step(cfg, params, cache, toks, gates=gates, tree_mask=mask,
-                                  layer_ids=layer_ids)
-        nxt = logits[:, j].argmax(dim=-1).to(torch.int32)
-        fill = (have <= j) & (j < limit)
-        toks[:, j + 1] = torch.where(fill, nxt, toks[:, j + 1])
+    if draft_kv == "recompute":
+        for j in range(steps):
+            logits, _ = M.decode_step(cfg, params, cache, toks, gates=gates, tree_mask=mask,
+                                      layer_ids=layer_ids)
+            nxt = logits[:, j].argmax(dim=-1).to(torch.int32)
+            fill = (have <= j) & (j < limit)
+            toks[:, j + 1] = torch.where(fill, nxt, toks[:, j + 1])
+    else:
+        # one block decode fills the carried buffers and each column's argmax
+        base = cache["pos"]
+        col_ids = torch.arange(K + 1, dtype=torch.int32, device=toks.device)
+        logits, staged = M.decode_step(cfg, params, cache, toks, gates=gates, tree_mask=mask,
+                                       layer_ids=layer_ids)
+        nxt = logits.argmax(dim=-1).to(torch.int32)                 # (B, k+1)
+        staged_pos = base[:, None] + col_ids[None]
+        for j in range(steps):
+            fill = (have <= j) & (j < limit)
+            toks[:, j + 1] = torch.where(fill, nxt[:, j], toks[:, j + 1])
+            if j + 1 == steps:
+                break
+            # decode only the appended token: rows 0..j are final for every
+            # slot (PLD rows from the block decode, drafted rows re-staged by
+            # their own step), so causal visibility is exact
+            smask = (col_ids <= j)[None, None, :].expand(B, 1, K + 1)
+            logits1, st1 = M.decode_step(
+                cfg, params, cache, toks[:, j + 1: j + 2], gates=gates,
+                q_pos=(base + j + 1)[:, None], staged_kv=staged, staged_pos=staged_pos,
+                staged_mask=smask, layer_ids=layer_ids)
+            nxt[:, j + 1] = logits1[:, 0].argmax(dim=-1).to(torch.int32)
+            for seg, seg1 in zip(staged, st1):
+                for unit, unit1 in zip(seg, seg1):
+                    for n in ("k", "v"):
+                        unit[n][:, :, j + 1] = unit1[n][:, :, 0]
     have = torch.maximum(have, torch.clamp(limit, max=steps)).to(torch.int32)
     return toks[:, 1:], have
 
@@ -301,15 +339,23 @@ def tree_draft_scan(
 ):
     """DyTC tree growth over every slot at once (§4.2, Alg. 1 batched).
 
-    Each step decodes the padded node block, then per slot picks the active
-    node with the highest P_acc (the root is exempt from the stop rule
-    P_acc * alpha / c < t_min), consumes it, and appends the draft's
-    TOP-P-filtered ``top_k`` next tokens as children with P_acc
-    ``leaf_p * min(1, alpha * sqrt(p_i / p_top))``. A candidate equal to an
-    existing child of the leaf is not re-added; the existing node's P_acc is
-    raised to the neural score, and when it is the top-1 it becomes
-    ``first_neural``, the Eq. 4 observation point. Returns (tokens, parents,
-    depth, p_acc, mask, count, first_neural (B,) int32, -1 if none).
+    Each step per slot picks the active node with the highest P_acc (the
+    root is exempt from the stop rule P_acc * alpha / c < t_min), consumes
+    it, and appends the draft's TOP-P-filtered ``top_k`` next tokens as
+    children with P_acc ``leaf_p * min(1, alpha * sqrt(p_i / p_top))``. A
+    candidate equal to an existing child of the leaf is not re-added; the
+    existing node's P_acc is raised to the neural score, and when it is the
+    top-1 it becomes ``first_neural``, the Eq. 4 observation point.
+
+    The candidates come from the draft's logits at the leaf: ``"recompute"``
+    decodes the whole padded node block every step; ``"carry"`` decodes it
+    once, keeping its staged KV and a per-node top-k candidate table, and
+    then decodes only each step's <= ``top_k`` appended nodes against
+    [cache ++ carried rows] (ancestors through the leaf's closure row, each
+    node itself through the new block, siblings mutually invisible). A
+    node's logits depend only on its ancestors, which never change, so the
+    two give the same trees. Returns (tokens, parents, depth, p_acc, mask,
+    count, first_neural (B,) int32, -1 if none).
     """
     _check_draft_kv(draft_kv, "tree_draft_scan")
     B, N = tokens.shape
@@ -323,20 +369,32 @@ def tree_draft_scan(
     alpha = alpha.float()
     rate = alpha / torch.clamp_min(c.float(), 1e-6)
     base = cache["pos"][:, None]            # drafting never moves pos
+    carry = draft_kv == "carry"
+    if carry:
+        # seed decode: the carried buffers and every node's candidates
+        logits, staged = M.decode_step(cfg, params, cache, tokens, gates=gates, tree_mask=mask,
+                                       q_pos=base + depth, layer_ids=layer_ids)
+        cand_v, cand_i = torch.topk(torch.softmax(logits.float(), dim=-1), top_k, dim=-1)
+        eye = torch.eye(top_k, dtype=torch.bool, device=dev)
     for e in range(expansions):
-        logits, _ = M.decode_step(cfg, params, cache, tokens, gates=gates, tree_mask=mask,
-                                  q_pos=base + depth, layer_ids=layer_ids)
+        if not carry:
+            logits, _ = M.decode_step(cfg, params, cache, tokens, gates=gates, tree_mask=mask,
+                                      q_pos=base + depth, layer_ids=layer_ids)
         # select (Alg. 1 line 5) + stop rule; the node is consumed either way
         leaf = torch.where(active, p_acc, float("-inf")).argmax(dim=1)
         valid = active.any(dim=1) & (e < limit)
         leaf_p = p_acc[b_idx, leaf]
         grow = valid & ((leaf == 0) | (leaf_p * rate >= t_min))
         active = active & ~(valid[:, None] & (slot_j == leaf[:, None]))
-        probs = torch.softmax(logits[b_idx, leaf].float(), dim=-1)
-        top_vals, top_idx = torch.topk(probs, top_k, dim=-1)
+        if carry:
+            top_vals, top_idx = cand_v[b_idx, leaf], cand_i[b_idx, leaf]
+        else:
+            probs = torch.softmax(logits[b_idx, leaf].float(), dim=-1)
+            top_vals, top_idx = torch.topk(probs, top_k, dim=-1)
         # append the kept candidates contiguously at count
         parent_row = mask[b_idx, leaf]                       # (B, N)
         parent_depth = depth[b_idx, leaf]
+        idxs = []
         for r in range(top_k):
             tok_r = top_idx[:, r].to(torch.int32)
             dup_cand = (parents == leaf[:, None]) & (tokens == tok_r[:, None]) & (slot_j < count[:, None])
@@ -363,6 +421,30 @@ def tree_draft_scan(
                 first_neural = torch.where((first_neural < 0) & (outcome < N),
                                            outcome.to(torch.int32), first_neural)
             count = count + keep.to(torch.int32)
+            idxs.append(idx)
+        if carry and e + 1 < expansions:
+            # decode only the appended candidates (dropped ones too, at fixed
+            # shape; their writes are dropped) and file their KV and
+            # candidates at their node index
+            q_new = (base[:, 0] + parent_depth + 1)[:, None].expand(B, top_k)
+            logits_n, st_n = M.decode_step(
+                cfg, params, cache, top_idx.to(torch.int32), gates=gates, tree_mask=eye,
+                q_pos=q_new, staged_kv=staged, staged_pos=base + depth,
+                staged_mask=parent_row[:, None, :].expand(B, top_k, N), layer_ids=layer_ids)
+            cv_n, ci_n = torch.topk(torch.softmax(logits_n.float(), dim=-1), top_k, dim=-1)
+            idx_all = torch.stack(idxs, dim=1)                      # (B, top_k), N = dropped
+            # the reference's drop-mode scatter into the (R, B, N, KV, hd)
+            # buffers, at fixed shape: flat rows b * N + index where kept
+            rows = (b_idx[:, None] * N + idx_all.clamp(max=N - 1)).reshape(-1)
+            ok = (idx_all < N).reshape(-1)
+            for seg, seg_n in zip(staged, st_n):
+                for unit, unit_n in zip(seg, seg_n):
+                    for n in ("k", "v"):
+                        M._scatter_rows(unit[n], rows, ok, unit_n[n].flatten(1, 2))
+            for r in range(top_k):
+                at = (slot_j == idx_all[:, r: r + 1])[:, :, None]     # (B, N, 1)
+                cand_v = torch.where(at, cv_n[:, r][:, None, :], cand_v)
+                cand_i = torch.where(at, ci_n[:, r][:, None, :], cand_i)
     return tokens, parents, depth, p_acc, mask, count, first_neural
 
 
@@ -464,6 +546,64 @@ def _ema_step(state: dict, outcome: torch.Tensor, obs: torch.Tensor) -> dict:
     return {"alpha": alpha, "hist": hist, "hist_n": hist_n, "hist_ptr": hist_ptr}
 
 
+_TREE = ("tokens", "parents", "depth", "p_acc", "mask", "count", "first_neural")
+
+
+def chain_prologue(cache: dict, state: dict, c: torch.Tensor, *, draft_k: int, use_draft: bool,
+                   adaptive: bool, min_obs: int, t_min: float, max_ngram: int = 4,
+                   min_ngram: int = 1) -> dict:
+    """The head of ``chain_round``: device PLD and the Eq. 5 budgets.
+    Returns the round's intermediate tensors: ``n`` (pos before the
+    commit), ``ctx``, ``chains``, ``have``, ``pld_have``, ``limit`` and
+    ``ran`` () bool, whether a budget needs the draft (the reference's
+    skip predicate, ``any(limit > have)``)."""
+    live = state["live"]
+    n = cache["pos"].clone()                 # the commit advances pos in place
+    ctx, chains, have = _round_prologue(cache, state, draft_k, max_ngram, min_ngram)
+    limit = torch.zeros_like(have)
+    if use_draft:
+        if adaptive:
+            budget = best_chain_length_batched(state["alpha"], c, draft_k, t_min)
+            limit = torch.where(state["hist_n"] >= min_obs, budget, draft_k)
+        else:
+            limit = torch.full_like(have, draft_k)
+        limit = torch.where(live, limit, 0)
+    return {"n": n, "ctx": ctx, "chains": chains, "have": have, "pld_have": have.clone(),
+            "limit": limit, "ran": (limit > have).any()}
+
+
+def chain_draft(cfg: ModelConfig, params: dict, cache: dict, state: dict, mid: dict, *,
+                draft_k: int, layer_ids: Optional[List[int]] = None,
+                draft_kv: str = "recompute") -> None:
+    """The draft of ``chain_round``: the ``draft_k``-step chain scan,
+    written in place into ``mid["chains"]`` and ``mid["have"]``."""
+    chains, have = chain_draft_scan(cfg, draft_k, params, cache, state["pending"], mid["chains"],
+                                    mid["have"], mid["limit"], layer_ids=layer_ids,
+                                    draft_kv=draft_kv)
+    mid["chains"].copy_(chains)
+    mid["have"].copy_(have)
+
+
+def chain_tail(cfg: ModelConfig, params: dict, cache: dict, state: dict, mid: dict):
+    """The rest of ``chain_round``: verify, acceptance, cache and context
+    commit and the EMA update. Returns (new state, out) as ``chain_round``."""
+    live, pending = state["live"], state["pending"]
+    chains, have, pld_have = mid["chains"], mid["have"], mid["pld_have"]
+    cache, _, n_chain, new_pending = verify_accept_commit(cfg, params, cache, pending, chains,
+                                                          have, live)
+    n_acc = torch.where(live, n_chain + 1, 0)
+    acc_tok = torch.cat([pending[:, None], chains], dim=1)
+    new = {"ctx": _commit_ctx(mid["ctx"], mid["n"], acc_tok, n_acc),
+           "pending": torch.where(live, new_pending, pending).to(torch.int32)}
+    # Eq. 4 EMA over the neural drafter: the first neural position's outcome,
+    # only when the PLD prefix was fully accepted (parent-accepted rule)
+    obs = live & (have > pld_have) & (n_chain >= pld_have)
+    new.update(_ema_step(state, (n_chain > pld_have).float(), obs))
+    out = {"acc": acc_tok, "n_acc": n_acc, "drafted": torch.clamp(have - pld_have, min=0),
+           "pld_have": pld_have, "budget": mid["limit"], "ran": mid["ran"]}
+    return new, out
+
+
 def chain_round(
     cfg: ModelConfig,
     params: dict,
@@ -483,9 +623,9 @@ def chain_round(
 ):
     """One ``chain_fused`` serving round on carried state, greedy: device
     PLD, Eq. 5 per-slot budgets from the carried Eq. 4 state, the
-    ``draft_k``-step chain draft (masked by the budgets: it writes nothing
-    where PLD covers every budget), the verify, acceptance, cache and
-    context commit and the EMA update, with no host read.
+    ``draft_k``-step chain draft (run masked by the budgets: it writes
+    nothing where PLD covers every budget), the verify, acceptance, cache
+    and context commit and the EMA update, with no host read.
 
     ``state`` holds ``pending (B,) int32``, ``live (B,) bool``, ``ctx (B,
     max_len) int32`` and the Eq. 4 arrays ``alpha``, ``hist``, ``hist_n``,
@@ -495,35 +635,82 @@ def chain_round(
     ``pld_have``, ``budget`` (B,) and ``ran`` () bool, whether a budget
     needed the draft (the reference's skip predicate). The draft runs the
     layers ``layer_ids`` (slice exec; None: every layer); the gate vector
-    of mask exec is read on the host, so no round takes one."""
-    live, pending = state["live"], state["pending"]
-    n = cache["pos"].clone()                 # the commit advances pos in place
-    ctx, chains, have = _round_prologue(cache, state, draft_k, max_ngram, min_ngram)
-    pld_have = have.clone()
-    limit = torch.zeros_like(have)
-    ran = torch.zeros((), dtype=torch.bool, device=have.device)
+    of mask exec is read on the host, so no round takes one. The
+    composition of ``chain_prologue``, ``chain_draft`` and ``chain_tail``."""
+    mid = chain_prologue(cache, state, c, draft_k=draft_k, use_draft=use_draft,
+                         adaptive=adaptive, min_obs=min_obs, t_min=t_min, max_ngram=max_ngram,
+                         min_ngram=min_ngram)
     if use_draft:
+        chain_draft(cfg, params, cache, state, mid, draft_k=draft_k, layer_ids=layer_ids,
+                    draft_kv=draft_kv)
+    return chain_tail(cfg, params, cache, state, mid)
+
+
+def tree_prologue(cache: dict, state: dict, c: torch.Tensor, *, draft_k: int, expansions: int,
+                  bucket: int, pld_alpha: float, use_draft: bool, adaptive: bool, min_obs: int,
+                  t_min: float, max_ngram: int = 4, min_ngram: int = 1) -> dict:
+    """The head of ``tree_round``: device PLD, the tree seed and the
+    expansion budgets. Returns ``n``, ``ctx``, ``have`` (the PLD
+    lengths), the tree (``tokens``, ``parents``, ``depth``, ``p_acc``,
+    ``mask``, ``count``, ``first_neural``), ``limits`` and ``ran``
+    (``any(limits > 0)``, the reference's skip predicate)."""
+    pending, live = state["pending"], state["live"]
+    n = cache["pos"].clone()
+    B = live.shape[0]
+    ctx, chains, have = _round_prologue(cache, state, draft_k, max_ngram, min_ngram)
+    tree = tree_seed_device(pending, chains, have, bucket, pld_alpha)
+    first_neural = torch.full((B,), -1, dtype=torch.int32, device=live.device)
+    limits = torch.zeros_like(have)
+    if use_draft and expansions > 0:
         if adaptive:
-            budget = best_chain_length_batched(state["alpha"], c, draft_k, t_min)
-            limit = torch.where(state["hist_n"] >= min_obs, budget, draft_k)
+            budget = best_tree_expansions_batched(state["alpha"], c, expansions, t_min)
+            limits = torch.where(state["hist_n"] >= min_obs, budget, expansions)
         else:
-            limit = torch.full_like(have, draft_k)
-        limit = torch.where(live, limit, 0)
-        ran = (limit > have).any()
-        chains, have = chain_draft_scan(cfg, draft_k, params, cache, pending, chains, have,
-                                        limit, layer_ids=layer_ids, draft_kv=draft_kv)
-    cache, _, n_chain, new_pending = verify_accept_commit(cfg, params, cache, pending, chains,
-                                                          have, live)
-    n_acc = torch.where(live, n_chain + 1, 0)
-    acc_tok = torch.cat([pending[:, None], chains], dim=1)
-    new = {"ctx": _commit_ctx(ctx, n, acc_tok, n_acc),
-           "pending": torch.where(live, new_pending, pending).to(torch.int32)}
-    # Eq. 4 EMA over the neural drafter: the first neural position's outcome,
-    # only when the PLD prefix was fully accepted (parent-accepted rule)
-    obs = live & (have > pld_have) & (n_chain >= pld_have)
-    new.update(_ema_step(state, (n_chain > pld_have).float(), obs))
-    out = {"acc": acc_tok, "n_acc": n_acc, "drafted": torch.clamp(have - pld_have, min=0),
-           "pld_have": pld_have, "budget": limit, "ran": ran}
+            limits = torch.full_like(have, expansions)
+        limits = torch.where(live, limits, 0)
+    mid = dict(zip(_TREE, (*tree, first_neural)))
+    mid.update(n=n, ctx=ctx, have=have, limits=limits, ran=(limits > 0).any())
+    return mid
+
+
+def tree_draft(cfg: ModelConfig, params: dict, cache: dict, state: dict, mid: dict,
+               c: torch.Tensor, *, expansions: int, top_k: int, top_p: float, t_min: float,
+               layer_ids: Optional[List[int]] = None, draft_kv: str = "recompute") -> None:
+    """The draft of ``tree_round``: the ``expansions``-step tree growth,
+    written in place into the prologue's tree tensors."""
+    grown = tree_draft_scan(
+        cfg, expansions, top_k, params, cache, *(mid[k] for k in _TREE[:6]), mid["limits"],
+        state["alpha"], torch.clamp(c.float(), min=1e-3), t_min, top_p=top_p,
+        layer_ids=layer_ids, draft_kv=draft_kv)
+    for name, value in zip(_TREE, grown):
+        mid[name].copy_(value)
+
+
+def tree_tail(cfg: ModelConfig, params: dict, cache: dict, state: dict, mid: dict):
+    """The rest of ``tree_round``: verify, the accepted-path walk, cache and
+    context commit and the Eq. 4 update. Returns (new state, out)."""
+    live, pending = state["live"], state["pending"]
+    tokens, parents, depth, mask, count = (mid[k] for k in ("tokens", "parents", "depth", "mask",
+                                                            "count"))
+    first_neural, have = mid["first_neural"], mid["have"]
+    B, N = tokens.shape
+    cache, path, n_acc, bonus = tree_verify_accept_commit(cfg, params, cache, tokens, parents,
+                                                          depth, mask, count, live)
+    acc_tok = torch.gather(tokens, 1, path.long())
+    new = {"ctx": _commit_ctx(mid["ctx"], mid["n"], acc_tok, n_acc),
+           "pending": torch.where(live, bonus, pending).to(torch.int32)}
+    # Eq. 4 EMA at the slot's first neural node (parent-accepted rule)
+    t_ids = torch.arange(N, device=tokens.device)
+    on_path = torch.where(t_ids[None, :] < n_acc[:, None], path, N).long()
+    acc_mask = torch.zeros((B, N + 1), dtype=torch.bool, device=tokens.device)
+    acc_mask = acc_mask.scatter(1, on_path, True)[:, :N]      # duplicates all write True
+    fn_c = torch.clamp(first_neural, 0, N - 1).long()[:, None]
+    fn_parent = torch.gather(parents, 1, fn_c)[:, 0]
+    parent_ok = torch.gather(acc_mask, 1, torch.clamp(fn_parent, 0, N - 1).long()[:, None])[:, 0]
+    obs = live & (first_neural >= 0) & (fn_parent >= 0) & parent_ok
+    new.update(_ema_step(state, torch.gather(acc_mask, 1, fn_c)[:, 0].float(), obs))
+    out = {"acc": acc_tok, "n_acc": n_acc, "drafted": torch.clamp(count - have - 1, min=0),
+           "pld_have": have, "budget": mid["limits"], "ran": mid["ran"]}
     return new, out
 
 
@@ -550,49 +737,51 @@ def tree_round(
     min_ngram: int = 1,
 ):
     """One ``tree_fused`` (DyTC, §4.2) serving round on carried state,
-    greedy: device PLD, tree seeding, the ``expansions``-step growth
-    (masked by the budgets: it adds no node where every budget is 0), the
+    greedy: device PLD, tree seeding, the ``expansions``-step growth (run
+    masked by the budgets: it adds no node where every budget is 0), the
     verify, the accepted-path walk, the cache and context commit and the
     Eq. 4 update, with no host read. Same ``state`` and returns as
     ``chain_round``; ``out["acc"]`` holds the accepted path's tokens (B,
-    bucket)."""
-    live, pending = state["live"], state["pending"]
-    n = cache["pos"].clone()
-    B = live.shape[0]
-    ctx, chains, have = _round_prologue(cache, state, draft_k, max_ngram, min_ngram)
-    tree = tree_seed_device(pending, chains, have, bucket, pld_alpha)
-    first_neural = torch.full((B,), -1, dtype=torch.int32, device=live.device)
-    limits = torch.zeros_like(have)
-    ran = torch.zeros((), dtype=torch.bool, device=have.device)
+    bucket). The composition of ``tree_prologue``, ``tree_draft`` and
+    ``tree_tail``."""
+    mid = tree_prologue(cache, state, c, draft_k=draft_k, expansions=expansions, bucket=bucket,
+                        pld_alpha=pld_alpha, use_draft=use_draft, adaptive=adaptive,
+                        min_obs=min_obs, t_min=t_min, max_ngram=max_ngram, min_ngram=min_ngram)
     if use_draft and expansions > 0:
-        if adaptive:
-            budget = best_tree_expansions_batched(state["alpha"], c, expansions, t_min)
-            limits = torch.where(state["hist_n"] >= min_obs, budget, expansions)
-        else:
-            limits = torch.full_like(have, expansions)
-        limits = torch.where(live, limits, 0)
-        ran = (limits > 0).any()
-        *tree, first_neural = tree_draft_scan(
-            cfg, expansions, top_k, params, cache, *tree, limits, state["alpha"],
-            torch.clamp(c.float(), min=1e-3), t_min, top_p=top_p, layer_ids=layer_ids,
-            draft_kv=draft_kv)
-    tokens, parents, depth, _, mask, count = tree
-    cache, path, n_acc, bonus = tree_verify_accept_commit(cfg, params, cache, tokens, parents,
-                                                          depth, mask, count, live)
-    acc_tok = torch.gather(tokens, 1, path.long())
-    new = {"ctx": _commit_ctx(ctx, n, acc_tok, n_acc),
-           "pending": torch.where(live, bonus, pending).to(torch.int32)}
-    # Eq. 4 EMA at the slot's first neural node (parent-accepted rule)
-    N = tokens.shape[1]
-    t_ids = torch.arange(N, device=tokens.device)
-    on_path = torch.where(t_ids[None, :] < n_acc[:, None], path, N).long()
-    acc_mask = torch.zeros((B, N + 1), dtype=torch.bool, device=tokens.device)
-    acc_mask = acc_mask.scatter(1, on_path, True)[:, :N]      # duplicates all write True
-    fn_c = torch.clamp(first_neural, 0, N - 1).long()[:, None]
-    fn_parent = torch.gather(parents, 1, fn_c)[:, 0]
-    parent_ok = torch.gather(acc_mask, 1, torch.clamp(fn_parent, 0, N - 1).long()[:, None])[:, 0]
-    obs = live & (first_neural >= 0) & (fn_parent >= 0) & parent_ok
-    new.update(_ema_step(state, torch.gather(acc_mask, 1, fn_c)[:, 0].float(), obs))
-    out = {"acc": acc_tok, "n_acc": n_acc, "drafted": torch.clamp(count - have - 1, min=0),
-           "pld_have": have, "budget": limits, "ran": ran}
-    return new, out
+        tree_draft(cfg, params, cache, state, mid, c, expansions=expansions, top_k=top_k,
+                   top_p=top_p, t_min=t_min, layer_ids=layer_ids, draft_kv=draft_kv)
+    return tree_tail(cfg, params, cache, state, mid)
+
+
+def prefill_chunk_stage(cfg: ModelConfig, params: dict, cache: dict, state: dict, *,
+                        chunk: int) -> None:
+    """Chunked prefill inside the serving round, greedy, in place: the
+    reference's ``prefill_chunk_stage``. Every slot still prefilling
+    (``state["pf_done"] < state["pf_len"]``; its prompt sits in the carried
+    ``ctx``) consumes up to ``chunk`` prompt tokens through one
+    ``decode_step`` and a commit (a prompt needs no verification), which
+    advances ``pos`` and ``pf_done`` together. A slot that finishes its
+    prompt gets its first token, the argmax of the last prompt position's
+    logits, as ``pending`` and joins this round's decode; a slot still
+    prefilling gets ``ctx[pos]``, the prompt token already there, so the
+    round prologue's pending write leaves the prompt as it is. Slots that
+    prefill nothing commit nothing and keep their ``pending``: with no slot
+    prefilling the stage changes nothing (the server runs it behind a
+    conditional node on ``any(pf_done < pf_len)``)."""
+    ctx, pf_done, pf_len = state["ctx"], state["pf_done"], state["pf_len"]
+    B, L = ctx.shape
+    active = pf_done < pf_len
+    n_new = torch.where(active, torch.clamp(pf_len - pf_done, max=chunk), 0).to(torch.int32)
+    offs = pf_done[:, None] + torch.arange(chunk, dtype=torch.int32, device=ctx.device)[None]
+    toks = ctx.gather(1, offs.clamp(0, L - 1).long())
+    logits, staged = M.decode_step(cfg, params, cache, toks, q_pos=offs)
+    path = torch.arange(chunk, device=ctx.device)[None].expand(B, chunk)
+    M.commit_cache(cfg, cache, staged, path, n_new)
+    done_now = active & (pf_done + n_new >= pf_len)
+    last_i = torch.clamp(n_new - 1, 0, chunk - 1).long()
+    last = logits[torch.arange(B, device=ctx.device), last_i]            # (B, V)
+    pend = torch.where(done_now, last.argmax(dim=-1).to(torch.int32), state["pending"])
+    new_done = pf_done + n_new
+    safe = ctx.gather(1, torch.clamp(cache["pos"], 0, L - 1).long()[:, None])[:, 0]
+    state["pending"].copy_(torch.where(new_done < pf_len, safe, pend))
+    pf_done.copy_(new_done)

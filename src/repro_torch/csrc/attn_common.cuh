@@ -53,6 +53,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace attn {
 
 constexpr float NEG_INF = -1e30f;
@@ -113,6 +115,16 @@ struct DenseSlots {
   __device__ __forceinline__ long long operator()(int s) const { return s * stride; }
 };
 
+// A slot functor maps slot s to the element offset of its K row from `k`,
+// and the same offset from `v` is its V row. One that reads slots from
+// several pairs of buffers (the carried and the new staged rows of one
+// tree-attention call) declares `SHIFT_V = true` and gives `v_shift(s)`, the
+// V row's offset from `v` minus its K row's offset from `k`.
+template <class S, class = void>
+struct shifts_v : std::false_type {};
+template <class S>
+struct shifts_v<S, std::void_t<decltype(S::SHIFT_V)>> : std::integral_constant<bool, S::SHIFT_V> {};
+
 // Shared-memory geometry of one (T, HD, MT) instantiation. K/V rows are
 // padded by 16 bytes and split Q rows by 4 * QW words, so that the fragment
 // reads (8 rows x 4 column pairs, or 4 row pairs x 8 columns) hit
@@ -171,12 +183,16 @@ __device__ __forceinline__ void rows_partials(
     T* vd = kd + KT * PITCH;
     const int s_lane = s_begin + j * KT + lane;
     const long long off_lane = s_lane < s_end ? slot(s_lane) : 0;
+    long long dv_lane = 0;
+    if constexpr (shifts_v<Slots>::value) dv_lane = s_lane < s_end ? slot.v_shift(s_lane) : 0;
     for (int i = tid; i < KT * CPR; i += THREADS) {   // the same trip count in every lane
       const int r = i / CPR, c = i % CPR, s = s_begin + j * KT + r;
       const bool ok = s < s_end;
       const long long off = __shfl_sync(0xffffffffu, off_lane, r) + c * EPC;
+      long long v_off = off;
+      if constexpr (shifts_v<Slots>::value) v_off += __shfl_sync(0xffffffffu, dv_lane, r);
       cp16(kd + r * PITCH + c * EPC, k + off, ok);
-      cp16(vd + r * PITCH + c * EPC, v + off, ok);
+      cp16(vd + r * PITCH + c * EPC, v + v_off, ok);
     }
   };
   cp_commit();

@@ -36,6 +36,18 @@ def _unrows(out: torch.Tensor, T: int) -> torch.Tensor:
     return out.reshape(B, KV, rep, T, hd).permute(0, 3, 1, 2, 4).reshape(B, T, KV * rep, hd)
 
 
+def _staged_partials(qr, k_new, v_new, tree_mask, k_staged, v_staged, staged_vis, scale):
+    """The tree kernel's partials over [carried ++ new] staged rows (the
+    carried segment only when ``k_staged`` is given), read through
+    transposed views."""
+    seg2 = {}
+    if k_staged is not None:
+        seg2 = dict(k_staged=k_staged.transpose(1, 2), v_staged=v_staged.transpose(1, 2),
+                    staged_mask=staged_vis.contiguous())
+    return tree_attention_partial(qr, k_new.transpose(1, 2), v_new.transpose(1, 2),
+                                  tree_mask.contiguous(), scale=scale, **seg2)
+
+
 def verify_attention(
     q: torch.Tensor,         # (B, T, H, hd) staged queries
     k_cache: torch.Tensor,   # (B, S, KV, hd)
@@ -50,18 +62,22 @@ def verify_attention(
     window: int = 0,
     sink: int = 0,
     bound: Optional[torch.Tensor] = None,
+    k_staged: Optional[torch.Tensor] = None,    # (B, N_s, KV, hd) carried draft KV
+    v_staged: Optional[torch.Tensor] = None,
+    staged_vis: Optional[torch.Tensor] = None,  # (B, T, N_s) bool (incl. positional validity)
 ) -> torch.Tensor:
     """Returns (B, T, H, hd) float32. ``bound`` (B,) int32, the committed
     lengths: the kernel scans the cache up to their maximum, read on the
-    device (``kernels/flash_decode.py``); None scans all S slots."""
+    device (``kernels/flash_decode.py``); None scans all S slots. With
+    ``k_staged``, the carried rows join the staged tokens in the tree
+    kernel's one launch (one softmax over [cache ++ carried ++ staged])."""
     T, hd = q.shape[1], q.shape[3]
     KV = k_cache.shape[2]
     # the caches are read through transposed views, never copied
     qr = _rows(q, KV)
     qp_rows = q_pos.repeat(1, qr.shape[2] // T)                # (B, rep*T)
     scale = hd ** -0.5
-    tree = tree_attention_partial(qr, k_new.transpose(1, 2), v_new.transpose(1, 2),
-                                  tree_mask.contiguous(), scale=scale)
+    tree = _staged_partials(qr, k_new, v_new, tree_mask, k_staged, v_staged, staged_vis, scale)
     out = flash_decode_merge(qr, k_cache.transpose(1, 2), v_cache.transpose(1, 2),
                              kv_pos.contiguous(), qp_rows, tree, kind=kind, window=window,
                              sink=sink, scale=scale, bound=bound)
@@ -83,17 +99,19 @@ def paged_verify_attention(
     window: int = 0,
     sink: int = 0,
     bound: Optional[torch.Tensor] = None,
+    k_staged: Optional[torch.Tensor] = None,
+    v_staged: Optional[torch.Tensor] = None,
+    staged_vis: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Block-paged twin of ``verify_attention``: the same tree partials and
-    merge, the cache partials from the paged kernel, scanning the table's
-    span up to ``bound``'s maximum as ``verify_attention`` does. Returns
-    (B, T, H, hd) float32."""
+    """Block-paged twin of ``verify_attention``: the same tree partials
+    (carried segment included) and merge, the cache partials from the paged
+    kernel, scanning the table's span up to ``bound``'s maximum as
+    ``verify_attention`` does. Returns (B, T, H, hd) float32."""
     T, hd = q.shape[1], q.shape[3]
     qr = _rows(q, k_pages.shape[2])
     qp_rows = q_pos.repeat(1, qr.shape[2] // T)
     scale = hd ** -0.5
-    tree = tree_attention_partial(qr, k_new.transpose(1, 2), v_new.transpose(1, 2),
-                                  tree_mask.contiguous(), scale=scale)
+    tree = _staged_partials(qr, k_new, v_new, tree_mask, k_staged, v_staged, staged_vis, scale)
     out = flash_decode_paged_merge(qr, k_pages, v_pages, page_table.contiguous(),
                                    kv_pos.contiguous(), qp_rows, tree, kind=kind,
                                    window=window, sink=sink, scale=scale, bound=bound)

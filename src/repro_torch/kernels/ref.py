@@ -82,17 +82,24 @@ def flash_decode_paged_partial(
                                 scale=scale)
 
 
-def tree_attention_partial(q, k_new, v_new, mask, *, scale: float | None = None) -> Partials:
+def tree_attention_partial(q, k_new, v_new, mask, *, k_staged=None, v_staged=None,
+                           staged_mask=None, scale: float | None = None) -> Partials:
     """Plain version of kernels/tree_attention.py::tree_attention_partial:
-    row r*T + t sees the staged tokens node t's mask row allows."""
+    row r*T + t sees the staged tokens node t's mask row allows, and, with a
+    carried segment (k_staged (B,KV,N_s,hd), staged_mask (B,T,N_s)), the
+    carried rows its staged_mask row allows: one softmax over [carried ++
+    new]."""
     R, hd = q.shape[2], q.shape[3]
     T = k_new.shape[2]
     scale = hd ** -0.5 if scale is None else scale
-    s = (q.float() * scale) @ k_new.float().transpose(-1, -2)         # (B,KV,R,T)
     row_node = torch.arange(R, device=q.device) % T
-    vis = mask[:, row_node, :]                                        # (B,R,T)
+    k, v, vis = k_new, v_new, mask[:, row_node, :]                    # vis (B,R,T)
+    if k_staged is not None:
+        k, v = torch.cat([k_staged, k], dim=2), torch.cat([v_staged, v], dim=2)
+        vis = torch.cat([staged_mask[:, row_node, :], vis], dim=-1)
+    s = (q.float() * scale) @ k.float().transpose(-1, -2)             # (B,KV,R,N_s+T)
     s = torch.where(vis[:, None], s, torch.full_like(s, NEG_INF))
-    return _partials(s, v_new.float())
+    return _partials(s, v.float())
 
 
 def merge_partials(cache: Partials, tree: Partials) -> torch.Tensor:
@@ -108,32 +115,53 @@ def merge_partials(cache: Partials, tree: Partials) -> torch.Tensor:
 
 def ref_verify_attention(
     q, k_cache, v_cache, kv_pos, q_pos, k_new, v_new, tree_mask, *,
-    kind: str = "causal", window: int = 0, sink: int = 0,
+    kind: str = "causal", window: int = 0, sink: int = 0, k_staged=None, v_staged=None,
+    staged_mask=None,
 ) -> torch.Tensor:
-    """Full softmax over [cache ++ staged]; returns (B, KV, R, hd) float32."""
+    """Full softmax over [cache ++ carried ++ staged] (the carried segment
+    only with ``k_staged``); returns (B, KV, R, hd) float32."""
     R, hd = q.shape[2], q.shape[3]
     T = k_new.shape[2]
+    row_node = torch.arange(R, device=q.device) % T
     qf = q.float() * hd ** -0.5
     s_c = qf @ k_cache.float().transpose(-1, -2)
     s_c = torch.where(visible(q_pos, kv_pos, kind, window, sink)[:, None], s_c,
                       torch.full_like(s_c, NEG_INF))
-    s_d = qf @ k_new.float().transpose(-1, -2)
-    vis = tree_mask[:, torch.arange(R, device=q.device) % T, :]
+    k, v, vis = k_new, v_new, tree_mask[:, row_node, :]
+    if k_staged is not None:
+        k, v = torch.cat([k_staged, k], dim=2), torch.cat([v_staged, v], dim=2)
+        vis = torch.cat([staged_mask[:, row_node, :], vis], dim=-1)
+    s_d = qf @ k.float().transpose(-1, -2)
     s_d = torch.where(vis[:, None], s_d, torch.full_like(s_d, NEG_INF))
     p = torch.softmax(torch.cat([s_c, s_d], dim=-1), dim=-1)
-    return p @ torch.cat([v_cache, v_new], dim=2).float()
+    return p @ torch.cat([v_cache, v], dim=2).float()
 
 
 def ref_paged_verify_attention(
     q, k_pages, v_pages, page_table, kv_pos, q_pos, k_new, v_new, tree_mask, *,
-    kind: str = "causal", window: int = 0, sink: int = 0,
+    kind: str = "causal", window: int = 0, sink: int = 0, **staged,
 ) -> torch.Tensor:
     """Paged oracle, after the reference's ``ref_paged_verify_attention``:
-    gather the pool to the dense view, then the dense oracle."""
+    gather the pool to the dense view, then the dense oracle (``staged``:
+    its carried-segment arguments)."""
     k = paged_gather(k_pages, page_table).transpose(1, 2)
     v = paged_gather(v_pages, page_table).transpose(1, 2)
     return ref_verify_attention(q, k, v, kv_pos, q_pos, k_new, v_new, tree_mask, kind=kind,
-                                window=window, sink=sink)
+                                window=window, sink=sink, **staged)
+
+
+def cond_segments(steps) -> None:
+    """Plain version of kernels/graph_cond.py::CondGraph: the segments run
+    in order, eagerly; an ("if", pred, fn) step runs ``fn`` when ``pred``
+    (a tensor, or a function returning the tensor an earlier segment made),
+    read on the host when the step is reached, is non-zero."""
+    for step in steps:
+        if step[0] == "if":
+            pred = step[1]() if callable(step[1]) else step[1]
+            if bool(pred):
+                step[2]()
+        else:
+            step[1]()
 
 
 def ref_int8_matmul(x_q, w_q, x_scale, w_scale) -> torch.Tensor:

@@ -87,20 +87,23 @@ def decode_attention(
     flash-decode and tree-attention kernels on the card, their plain
     versions on the CPU. A linear cache is scanned up to the longest
     committed prefix, ``max(cache_pos)``, which the kernel reads on the
-    device; a ring is scanned whole. Context-parallel partials
-    (``seq_axes``) and carried staged KV (``k_staged`` ...) are later slices
-    of the port.
+    device; a ring is scanned whole.
+
+    Carried staged KV (``draft_kv="carry"``): ``k_staged``/``v_staged``
+    (B, N_s, KV, hd) are the draft rows of earlier steps, at positions
+    ``staged_pos`` (B, N_s), visible to query t where ``staged_mask`` (B,
+    T, N_s) and the mask kind allow; they join the T new keys in the tree
+    kernel's launch. Context-parallel partials (``seq_axes``) are a later
+    slice of the port.
     """
     if seq_axes:
         raise NotImplementedError("decode_attention: seq_axes (context-parallel "
                                   "split-KV) is not ported yet")
-    if any(a is not None for a in (k_staged, v_staged, staged_pos, staged_mask)):
-        raise NotImplementedError("decode_attention: carried staged KV (k_staged/"
-                                  "v_staged/staged_pos/staged_mask) is not ported yet")
     kv_pos, q_pos, vis, bound = _positions(q, k_cache.shape[1], cache_pos, q_pos, tree_mask,
                                            ring, kind, window, sink)
+    staged = _staged(q_pos, k_staged, v_staged, staged_pos, staged_mask, kind, window, sink)
     out = verify_attention(q, k_cache, v_cache, kv_pos, q_pos, k_new, v_new, vis, kind=kind,
-                           window=window, sink=sink, bound=None if ring else bound)
+                           window=window, sink=sink, bound=None if ring else bound, **staged)
     return out.to(q.dtype)
 
 
@@ -118,19 +121,38 @@ def paged_decode_attention(
     kind: str = "causal",
     window: int = 0,
     sink: int = 0,
+    k_staged=None,
+    v_staged=None,
+    staged_pos=None,
+    staged_mask=None,
 ) -> torch.Tensor:
     """``decode_attention`` over a block-paged cache: slot s of row b is row
     s % P of pool page page_table[b, s // P], valid iff s < cache_pos[b].
     The pool is read through the table by the paged kernel, never gathered
     (the reference gathers a dense view with ``jnp.take``; the output is the
-    same), up to the longest committed prefix as in ``decode_attention``.
-    Returns (B, T, H, hd) in q's dtype."""
+    same), up to the longest committed prefix as in ``decode_attention``;
+    carried staged KV as there. Returns (B, T, H, hd) in q's dtype."""
     S = page_table.shape[1] * k_pages.shape[1]
     kv_pos, q_pos, vis, bound = _positions(q, S, cache_pos, q_pos, tree_mask, False, kind,
                                            window, sink)
+    staged = _staged(q_pos, k_staged, v_staged, staged_pos, staged_mask, kind, window, sink)
     out = paged_verify_attention(q, k_pages, v_pages, page_table, kv_pos, q_pos, k_new, v_new,
-                                 vis, kind=kind, window=window, sink=sink, bound=bound)
+                                 vis, kind=kind, window=window, sink=sink, bound=bound, **staged)
     return out.to(q.dtype)
+
+
+def _staged(q_pos, k_staged, v_staged, staged_pos, staged_mask, kind, window, sink) -> dict:
+    """The carried segment's arguments of ``kernels.ops.verify_attention``:
+    the rows and their (B, T, N_s) visibility, the mask kind's positional
+    test and'ed with ``staged_mask`` (the reference's carried pass); {}
+    without carried rows."""
+    given = [a is not None for a in (k_staged, v_staged, staged_pos, staged_mask)]
+    if not any(given):
+        return {}
+    if not all(given):
+        raise ValueError("k_staged requires v_staged, staged_pos and staged_mask")
+    svis = visible(q_pos, staged_pos.to(torch.int32), kind, window, sink) & staged_mask
+    return dict(k_staged=k_staged, v_staged=v_staged, staged_vis=svis)
 
 
 def _positions(q, S_c: int, cache_pos, q_pos, tree_mask, ring: bool, kind, window, sink):

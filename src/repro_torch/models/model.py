@@ -34,8 +34,12 @@ vector; a gated-off layer adds nothing to the residual stream. The engine's
 ``slice`` execution passes ``layer_ids`` instead: only those layers of a
 homogeneous stack run, over views of the target's params and cache.
 
+Carried staged KV (``decode_step(staged_kv=...)``, the engine's
+``draft_kv="carry"``): the T new tokens attend over [committed cache ++
+carried rows ++ themselves]; the returned staged rows are the new ones.
+
 Off the port so far (they raise): MoE and SSM blocks, codebook and image
-inputs, context-parallel ``seq_axes`` and carried staged KV.
+inputs and context-parallel ``seq_axes``.
 """
 from __future__ import annotations
 
@@ -229,6 +233,9 @@ def _attn_layer(
     layer_cache: Optional[dict],
     tree_mask: Optional[torch.Tensor],
     attn_override: Optional[dict],
+    staged_buf: Optional[dict] = None,       # {"k", "v"} (B, N_s, KV, hd) carried rows
+    staged_pos: Optional[torch.Tensor] = None,
+    staged_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, dict]:
     """Returns (residual delta before the gate, staged {"k", "v"})."""
     B, T, d = h.shape
@@ -250,6 +257,10 @@ def _attn_layer(
         window = attn_override["window"]
         sink = attn_override.get("sink", 0)
 
+    carried = {}
+    if staged_buf is not None:
+        carried = dict(k_staged=staged_buf["k"], v_staged=staged_buf["v"],
+                       staged_pos=staged_pos, staged_mask=staged_mask)
     if mode == "prefill":
         o = attn_lib.blockwise_attention(q, k, v, q_pos, q_pos, kind=kind, window=window,
                                          sink=sink)
@@ -258,14 +269,14 @@ def _attn_layer(
         o = attn_lib.paged_decode_attention(
             q, layer_cache["k_pages"], layer_cache["v_pages"], layer_cache["_table"],
             layer_cache["_pos"], k, v, q_pos, tree_mask=tree_mask, kind=kind, window=window,
-            sink=sink,
+            sink=sink, **carried,
         )
     else:
         k_c, v_c = layer_cache["k"], layer_cache["v"]
         ring = spec.attn is AttentionKind.SLIDING and k_c.shape[1] <= window
         o = attn_lib.decode_attention(
             q, k_c, v_c, layer_cache["_pos"], k, v, q_pos,
-            tree_mask=tree_mask, kind=kind, window=window, sink=sink, ring=ring,
+            tree_mask=tree_mask, kind=kind, window=window, sink=sink, ring=ring, **carried,
         )
     out = o.reshape(B, T, H * hd) @ a["wo"].reshape(H * hd, d)
     return out, {"k": k, "v": v}
@@ -298,8 +309,13 @@ def _run_stack(
     attn_override: Optional[dict] = None,
     quantize: Optional[str] = None,
     layer_ids: Optional[Sequence[int]] = None,
+    staged_kv=None,
+    staged_pos: Optional[torch.Tensor] = None,
+    staged_mask: Optional[torch.Tensor] = None,
 ):
-    """Returns (hidden, staged segments: [[{"k","v"}: (R_run, B, T, KV, hd)]])."""
+    """Returns (hidden, staged segments: [[{"k","v"}: (R_run, B, T, KV, hd)]]).
+    ``staged_kv`` has the structure of a previous call's staged segments
+    (one entry per layer run, in run order)."""
     _check_stack(cfg)
     segs = layout(cfg)
     g_host = _host_gates(gates, cfg.num_layers)
@@ -312,14 +328,17 @@ def _run_stack(
         U = len(seg.unit)
         staged = [{"k": [], "v": []} for _ in seg.unit]
         repeats = range(seg.repeats) if layer_ids is None else layer_ids
-        for r in repeats:
+        for i, r in enumerate(repeats):
             for u, spec in enumerate(seg.unit):
                 p_l = tree_map(lambda a, r=r: a[r], p_seg[u])          # views
                 lc = {n: a[r] for n, a in c_seg[u].items()}
                 lc.update(_pos=cache["pos"], _table=table)
                 gate = g_host[seg.start + r * U + u]
+                buf = None
+                if staged_kv is not None:
+                    buf = {n: staged_kv[si][u][n][i] for n in ("k", "v")}
                 delta, st = _attn_layer(cfg, p_l, spec, h, q_pos, mode, lc, tree_mask,
-                                        attn_override)
+                                        attn_override, buf, staged_pos, staged_mask)
                 h = h + _gated(delta, gate)
                 if spec.has_mlp:
                     x = rms_norm(h, p_l["norm2"], cfg.norm_eps)
@@ -402,21 +421,25 @@ def decode_step(
     quantize: Optional[str] = None,             # "int8": W8A8 MLP matmuls (DSIA)
     layer_ids: Optional[Sequence[int]] = None,  # slice exec: run only these layers
     seq_axes=None,
-    staged_kv=None,
-    staged_pos=None,
-    staged_mask=None,
+    staged_kv=None,                   # carried draft KV, a previous call's staged
+    staged_pos=None,                  # (B, N_s) positions of the carried rows
+    staged_mask=None,                 # (B, T, N_s) bool: which carried rows each token sees
 ) -> Tuple[torch.Tensor, Any]:
     """Stage-only decode of T tokens against a frozen cache.
 
     Returns (logits (B, T, V) float32, staged) — commit with ``commit_cache``.
     ``quantize="int8"`` runs the dense-MLP matmuls through the W8A8 kernel.
-    Context-parallel ``seq_axes`` and the carried-draft-KV arguments
-    (``staged_kv``/``staged_pos``/``staged_mask``) are later slices.
+    With ``staged_kv`` (the structure a previous call returned as staged,
+    per layer (R_run, B, N_s, KV, hd); its layers in the same run order),
+    the T tokens also attend over the carried rows (the reference's
+    incremental drafting); the returned staged holds the new rows only.
+    Context-parallel ``seq_axes`` is a later slice.
     """
     if seq_axes:
         raise NotImplementedError("decode_step: seq_axes is not ported yet")
-    if any(a is not None for a in (staged_kv, staged_pos, staged_mask)):
-        raise NotImplementedError("decode_step: carried staged KV is not ported yet")
+    given = [a is not None for a in (staged_kv, staged_pos, staged_mask)]
+    if any(given) and not all(given):
+        raise ValueError("decode_step: staged_kv requires staged_pos and staged_mask")
     tokens = torch.as_tensor(tokens, device=cache["pos"].device)
     h = _embed(params, tokens)
     B, T = tokens.shape[:2]
@@ -426,7 +449,8 @@ def decode_step(
         q_pos = q_pos[None].expand(B, T)
     h, staged = _run_stack(cfg, params, h, mode="decode", cache=cache, gates=gates,
                            q_pos=q_pos, tree_mask=tree_mask, attn_override=attn_override,
-                           quantize=quantize, layer_ids=layer_ids)
+                           quantize=quantize, layer_ids=layer_ids, staged_kv=staged_kv,
+                           staged_pos=staged_pos, staged_mask=staged_mask)
     return _head(cfg, params, h), staged
 
 

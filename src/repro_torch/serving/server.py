@@ -1,6 +1,6 @@
-"""Batched speculative serving with continuous batching, greedy, with
-``draft_kv="recompute"``: the port of the reference's
-``serving/server.py::BatchedSpecServer``. Two proposal modes:
+"""Batched speculative serving with continuous batching, greedy: the port of
+the reference's ``serving/server.py::BatchedSpecServer``. Two proposal
+modes:
 
   - ``chain_fused`` — per-slot PLD chains filled up by a layer-sparse
     neural chain draft (``core.engine.chain_draft_scan``), verified by
@@ -19,10 +19,13 @@ reference):
     live flags, the (B, max_len) context buffer PLD reads, and the per-slot
     Eq. 4 estimators; the cost coefficient c is the draft's prior). The
     round reads nothing on the host. On the card the server captures it
-    once, at build, as a CUDA graph, and ``step()`` replays the graph: one
-    launch per round. The draft runs in every round, masked by the budgets
-    (PyTorch 2.11's graphs have no conditional node for the reference's
-    skip). On the CPU the round runs eagerly.
+    once, at build, as segment graphs (prologue, draft, tail; chunked
+    prefill ahead of them) and assembles one CUDA graph in which the draft
+    sits behind a conditional node on the round's own predicate, as the
+    reference's ``lax.cond`` (``kernels/graph_cond.py``); ``step()``
+    launches it: one launch per round, and a round whose budgets need no
+    draft runs none of the draft's kernels. On the CPU the round runs
+    eagerly, the draft masked by the budgets (it writes nothing there).
     Accepted tokens go to a device ring of ``sync_every`` rounds; the host
     reads it (its one sync) every ``sync_every`` rounds, at admission and
     at ``flush()``, so ``step()`` returns the tokens drained so far.
@@ -43,11 +46,18 @@ out at admission (``max_new_tokens`` bounds the reservation) and returned
 at ``release``, both host-side. Attention reads the pool through the table
 with the paged flash-decode kernel, so paged streams equal dense streams.
 
+``draft_kv="auto"`` resolves to ``"carry"``, as the reference's does on
+attention-only stacks (the only stacks the port builds): the draft scans
+decode the block once and then only the appended tokens against carried
+staged KV. ``prefill_chunk > 0`` (paged, single rounds) makes admission
+enqueue-only: each round consumes up to ``prefill_chunk`` prompt tokens per
+prefilling slot (``core.engine.prefill_chunk_stage``, behind a conditional
+node of its own), and slots still prefilling are dead for the decode half.
+
 Not ported yet (they raise ``NotImplementedError``; ROADMAP queue A):
-carried draft KV (``draft_kv="carry"``), sampled serving (``sampling``),
-the ``legacy`` and ``cascade_fused`` modes, chunked prefill
-(``prefill_chunk``), mesh serving (``mesh``), and single rounds over a
-non-homogeneous stack (mask exec reads the layer gates on the host).
+sampled serving (``sampling``), the ``legacy`` and ``cascade_fused`` modes,
+mesh serving (``mesh``), and single rounds over a non-homogeneous stack
+(mask exec reads the layer gates on the host).
 """
 from __future__ import annotations
 
@@ -64,10 +74,15 @@ from repro_torch.core.acceptance import AcceptanceTracker, ema_init
 from repro_torch.core.dsia import PLD_SPEC, DraftSpec
 from repro_torch.core.engine import (
     _check_draft_kv,
+    chain_draft,
     chain_draft_scan,
-    chain_round,
+    chain_prologue,
+    chain_tail,
+    prefill_chunk_stage,
+    tree_draft,
     tree_draft_scan,
-    tree_round,
+    tree_prologue,
+    tree_tail,
     tree_verify_accept_commit_host,
     verify_accept_commit,
 )
@@ -75,11 +90,13 @@ from repro_torch.core.latency import CostTracker, best_chain_length, best_tree_e
 from repro_torch.core.pld import PromptLookup
 from repro_torch.core.tree import bucket_for, tree_seed_arrays
 from repro_torch.kernels import launch_counts
+from repro_torch.kernels.graph_cond import CondGraph
 from repro_torch.models import model as M
 
 PROPOSAL_MODES = ("chain_fused", "legacy", "tree_fused", "cascade_fused")
 ROUND_MODES = ("auto", "single", "split")
-_RING_FACTS = ("n_acc", "drafted", "pld_have", "budget", "ran")   # ring columns after acc
+# ring columns after acc: per slot, then the round's two predicates
+_RING_FACTS = ("n_acc", "drafted", "pld_have", "budget", "ran", "prefilled")
 
 
 def _prefill_bucket(n: int) -> int:
@@ -111,14 +128,14 @@ class BatchedSpecServer:
         tree_top_k: int = 2,           # sibling candidates per expansion
         tree_top_p: float = 0.3,       # TOP-P sibling filter (P_tree)
         tree_bucket: Optional[int] = None,   # padded tree size (default: fit)
-        draft_kv: str = "auto",        # auto | recompute
+        draft_kv: str = "auto",        # auto (= carry) | carry | recompute
         round_mode: str = "auto",      # auto (= single) | single | split
         sync_every: Optional[int] = None,   # single: drain every N rounds (default 1)
         sampling=None,                 # not ported: greedy only
         paged: bool = False,           # block-paged KV cache
         page_size: int = 64,           # tokens per KV page
         num_pages: Optional[int] = None,    # pool size (default: full per-slot)
-        prefill_chunk: int = 0,        # not ported
+        prefill_chunk: int = 0,        # >0: in-round chunked prefill (paged, single)
         mesh=None,                     # not ported
         *,
         device="cuda",
@@ -132,12 +149,19 @@ class BatchedSpecServer:
             raise ValueError(f"unknown round_mode {round_mode!r}; pick one of {ROUND_MODES}")
         self.round_mode = "single" if round_mode == "auto" else round_mode
         self.sync_every = max(int(sync_every or 1), 1)
-        draft_kv = "recompute" if draft_kv == "auto" else draft_kv
+        # carry: the reference's auto choice on attention-only stacks, the only
+        # stacks the port builds (models.model._check_stack)
+        draft_kv = "carry" if draft_kv == "auto" else draft_kv
         _check_draft_kv(draft_kv, "BatchedSpecServer")
         if sampling is not None:
             raise _not_ported("sampled serving (sampling=...)")
-        if prefill_chunk:
-            raise _not_ported("chunked prefill (prefill_chunk>0)")
+        self.prefill_chunk = int(prefill_chunk or 0)
+        if self.prefill_chunk and not paged:
+            raise ValueError("prefill_chunk requires paged=True: chunked prompts commit "
+                             "through the page table")
+        if self.prefill_chunk and self.round_mode != "single":
+            raise ValueError("prefill_chunk rides the single round: build with "
+                             "round_mode='single'")
         if mesh is not None:
             raise _not_ported("mesh serving (mesh=...)")
         if draft_spec is not None and draft_spec.unsupported_by_gates_only():
@@ -198,7 +222,7 @@ class BatchedSpecServer:
         self._pld_have = np.zeros(max_batch, np.int32)   # PLD prefix per round
         self.stats = {"target_calls": 0, "draft_dispatches": 0, "tokens": 0, "steps": 0,
                       "host_syncs": 0, "round_dispatches": 0, "device_wait": 0.0,
-                      "draft_rounds": 0, "graph_replays": 0}
+                      "draft_rounds": 0, "prefill_rounds": 0, "graph_replays": 0}
 
         # carried device state of the single round: pending/live, the PLD
         # context buffer and the per-slot Eq. 4 estimator, at the draft's
@@ -210,6 +234,11 @@ class BatchedSpecServer:
                        "live": torch.zeros((max_batch,), dtype=torch.bool, device=dev),
                        "ctx": torch.zeros((max_batch, max_len), dtype=torch.int32, device=dev),
                        "alpha": alpha, "hist": hist, "hist_n": hist_n, "hist_ptr": hist_ptr}
+        if self.prefill_chunk:
+            # prompt tokens committed so far and prompt length, per slot; a
+            # slot with pf_done < pf_len is still prefilling
+            self.dstate.update(pf_done=torch.zeros((max_batch,), dtype=torch.int32, device=dev),
+                               pf_len=torch.zeros((max_batch,), dtype=torch.int32, device=dev))
         self._prior_alpha = prior0
         c0 = float(draft_spec.prior_c) if draft_spec else 0.5
         self._c_dev = torch.tensor(max(c0, 1e-3), dtype=torch.float32, device=dev)
@@ -221,24 +250,38 @@ class BatchedSpecServer:
         self._ring_at = torch.zeros((1,), dtype=torch.int64, device=dev)
         self._inflight = 0
         self._out_buf: Dict[int, List[int]] = {}
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
-        # kernel launches in one replay, and the launches all replays made
+        self._false = torch.zeros((), dtype=torch.bool, device=dev)
+        self._graph: Optional[CondGraph] = None
+        self._graph_mid: dict = {}
+        # kernel launches of each captured segment, of the segments every
+        # launch runs, and all that the graph's launches ran (the gated
+        # segments' counted at the drain, for the rounds whose predicate held)
+        self.segment_launches: Dict[str, Dict[str, int]] = {}
         self.replay_launches: Dict[str, int] = {}
         self.graph_launches: Dict[str, int] = {}
         self.capture_s = 0.0
         self.graph_pool_bytes = 0
-        self._round_fn = None
+        self._prologue_fn = self._draft_fn = self._tail_fn = None
         if self.round_mode == "single":
-            kw = dict(use_draft=draft_spec is not None, adaptive=adaptive, min_obs=min_obs,
-                      t_min=float(t_min), layer_ids=self._layer_ids, draft_kv=draft_kv,
+            use_draft = draft_spec is not None
+            kw = dict(use_draft=use_draft, adaptive=adaptive, min_obs=min_obs, t_min=float(t_min),
                       max_ngram=self.pld.max_ngram, min_ngram=self.pld.min_ngram)
+            draft_kw = dict(layer_ids=self._layer_ids, draft_kv=draft_kv)
             if mode == "chain_fused":
-                self._round_fn = functools.partial(chain_round, cfg, draft_k=draft_k, **kw)
+                self._prologue_fn = functools.partial(chain_prologue, draft_k=draft_k, **kw)
+                if use_draft:
+                    self._draft_fn = functools.partial(chain_draft, cfg, draft_k=draft_k,
+                                                       **draft_kw)
+                self._tail_fn = functools.partial(chain_tail, cfg)
             else:
-                self._round_fn = functools.partial(
-                    tree_round, cfg, draft_k=draft_k, expansions=tree_expansions,
-                    top_k=tree_top_k, top_p=tree_top_p, bucket=self.tree_bucket,
-                    pld_alpha=float(PLD_SPEC.prior_alpha), **kw)
+                self._prologue_fn = functools.partial(
+                    tree_prologue, draft_k=draft_k, expansions=tree_expansions,
+                    bucket=self.tree_bucket, pld_alpha=float(PLD_SPEC.prior_alpha), **kw)
+                if use_draft and tree_expansions > 0:
+                    self._draft_fn = functools.partial(
+                        tree_draft, cfg, c=self._c_dev, expansions=tree_expansions,
+                        top_k=tree_top_k, top_p=tree_top_p, t_min=float(t_min), **draft_kw)
+                self._tail_fn = functools.partial(tree_tail, cfg)
             if dev.type == "cuda":
                 self._capture()
 
@@ -248,9 +291,11 @@ class BatchedSpecServer:
         """Prefill one prompt into a batch slot. On a paged build,
         ``max_new_tokens`` bounds the slot's pages to prompt + budget + the
         overshoot of the rounds in flight instead of ``max_len``; dense
-        builds ignore it. Single rounds in flight are drained first, and
-        tokens the slot's previous request left undrawn are dropped: call
-        ``flush()`` before re-binding a slot to collect them."""
+        builds ignore it. On a ``prefill_chunk`` build admission only
+        enqueues the prompt: the next rounds prefill it in chunks. Single
+        rounds in flight are drained first, and tokens the slot's previous
+        request left undrawn are dropped: call ``flush()`` before re-binding
+        a slot to collect them."""
         self._drain()
         self._out_buf.pop(slot, None)
         prompt = np.asarray(prompt, np.int32)
@@ -259,6 +304,17 @@ class BatchedSpecServer:
             alloc = (self.max_len if max_new_tokens is None
                      else min(self.max_len, len(prompt) + int(max_new_tokens) + self._alloc_slack()))
             table_row = self._alloc_pages(slot, alloc)
+            self.cache["page_table"][slot] = torch.as_tensor(table_row, device=self.device)
+        if self.prefill_chunk:
+            # enqueue only: pos 0, the prompt parked in ctx, pf_* armed. The
+            # prompt's first token is a safe pending: the round prologue
+            # writes pending at ctx[pos], which leaves the prompt as it is
+            self.cache["pos"][slot] = 0
+            self._bind_slot(slot, prompt, int(prompt[0]))
+            self.dstate["pf_done"][slot] = 0
+            self.dstate["pf_len"][slot] = len(prompt)
+            self.pending[slot] = int(prompt[-1])     # unknown until the prompt is prefilled
+            return
         # prefill at the prompt's power-of-two bucket, not max_len: positions
         # past the prompt stay invisible through kv_pos masking
         bucket = min(_prefill_bucket(len(prompt)), self.max_len)
@@ -266,13 +322,17 @@ class BatchedSpecServer:
                           device=self.device)
         last, c1 = M.prefill(self.cfg, self.params,
                              {"tokens": torch.as_tensor(prompt[None], device=self.device)}, c1)
-        if self.paged:
-            self.cache["page_table"][slot] = torch.as_tensor(table_row, device=self.device)
         self.cache = M.write_slot(self.cfg, self.cache, c1, slot)
-        # the slot's row of the carried state, in place: the pending token,
-        # the context buffer and a fresh estimator at the draft's prior
+        first = last[0].argmax()
+        self._bind_slot(slot, prompt, first)
+        self.pending[slot] = int(first)
+
+    def _bind_slot(self, slot: int, prompt: np.ndarray, pending) -> None:
+        """The slot's row of the carried state, in place: its pending token,
+        its context buffer and a fresh estimator at the draft's prior; and
+        the host mirrors."""
         ds = self.dstate
-        ds["pending"][slot] = last[0].argmax()
+        ds["pending"][slot] = pending
         ds["live"][slot] = True
         row = np.zeros(self.max_len, np.int32)
         row[: len(prompt)] = prompt
@@ -280,7 +340,6 @@ class BatchedSpecServer:
         ds["alpha"][slot] = self._prior_alpha
         for name in ("hist", "hist_n", "hist_ptr"):
             ds[name][slot] = 0
-        self.pending[slot] = int(last[0].argmax())
         self.contexts[slot] = [int(t) for t in prompt]
         self.live[slot] = True
         # the slot's estimator restarts from the draft's cold-start prior:
@@ -325,6 +384,9 @@ class BatchedSpecServer:
         self.live[slot] = False
         self.dstate["live"][slot] = False
         self.cache["pos"][slot] = 0
+        if self.prefill_chunk:       # a request cancelled mid-prefill stops prefilling
+            self.dstate["pf_done"][slot] = 0
+            self.dstate["pf_len"][slot] = 0
         if self.paged:
             self._free_slot_pages(slot)
             self.cache["page_table"][slot] = -1
@@ -525,23 +587,73 @@ class BatchedSpecServer:
         return out_toks
 
     # ------------------------------------------------------ single rounds
-    def _round(self) -> None:
-        """One single round on the carried state, every write in place: the
-        cache (``commit_cache``), ``dstate``, and the round's row of the
-        output ring. Reads nothing on the host; the graph replays this."""
-        new, out = self._round_fn(self.params, self.cache, self.dstate, self._c_dev)
+    def _plan(self):
+        """The single round's segments, in order: (name, function of the
+        round's intermediate tensors ``mid``, predicate). A segment with a
+        predicate (the name of a () bool in ``mid``) runs only when it
+        holds: behind a conditional node of the captured graph, the
+        reference's ``lax.cond``. An eager round runs it masked, where it
+        changes nothing when the predicate is false."""
+        plan = []
+        if self.prefill_chunk:
+            plan += [("prefill_pred", self._seg_prefill_pred, None),
+                     ("prefill", self._seg_prefill, "pf_any")]
+        plan.append(("prologue", self._seg_prologue, None))
+        if self._draft_fn is not None:
+            plan.append(("draft", self._seg_draft, "ran"))
+        plan.append(("tail", self._seg_tail, None))
+        return plan
+
+    def _state(self, mid: dict) -> dict:
+        """The carried state as the decode half sees it: slots still
+        prefilling are dead there (their own ``live`` stays)."""
+        return dict(self.dstate, live=mid["live"]) if "live" in mid else self.dstate
+
+    def _seg_prefill_pred(self, mid: dict) -> None:
+        mid["pf_any"] = (self.dstate["pf_done"] < self.dstate["pf_len"]).any()
+
+    def _seg_prefill(self, mid: dict) -> None:
+        prefill_chunk_stage(self.cfg, self.params, self.cache, self.dstate,
+                            chunk=self.prefill_chunk)
+
+    def _seg_prologue(self, mid: dict) -> None:
+        if self.prefill_chunk:
+            ds = self.dstate
+            mid["live"] = ds["live"] & (ds["pf_done"] >= ds["pf_len"])
+        mid.update(self._prologue_fn(self.cache, self._state(mid), self._c_dev))
+
+    def _seg_draft(self, mid: dict) -> None:
+        self._draft_fn(self.params, self.cache, self._state(mid), mid)
+
+    def _seg_tail(self, mid: dict) -> None:
+        """Verify and commit, every write in place: the cache
+        (``commit_cache``), ``dstate`` and the round's row of the output
+        ring."""
+        new, out = self._tail_fn(self.params, self.cache, self._state(mid), mid)
         for name, value in new.items():
             self.dstate[name].copy_(value)
+        out["prefilled"] = mid.get("pf_any", self._false)
         facts = torch.stack([out[k].to(torch.int32).expand(self.B) for k in _RING_FACTS], dim=1)
         row = torch.cat([out["acc"].to(torch.int32), facts], dim=1)
         self._ring.index_copy_(0, self._ring_at, row[None])
         self._ring_at += 1              # the host drains before the ring is full
 
+    def _round(self) -> None:
+        """One single round, eagerly, every segment (gated ones masked);
+        reads nothing on the host."""
+        mid: dict = {}
+        for _, fn, _ in self._plan():
+            fn(mid)
+
     def _capture(self) -> None:
-        """Capture one round as a CUDA graph, at build, with every slot dead.
-        A dead round changes nothing but ``ctx[b, 0]`` of dead rows, which
-        admission overwrites. Warm-up rounds on a side stream first load
-        the kernels and PyTorch's lazy state; a capture that fails raises."""
+        """Capture the round at build, with every slot dead, as one graph
+        per segment (``CUDAGraph(keep_graph=True)``, one memory pool, in
+        the order they run), and assemble them into one graph with each
+        gated segment behind an IF node (``kernels.graph_cond``). A dead
+        round changes nothing but ``ctx[b, 0]`` of dead rows, which
+        admission overwrites. Warm-up rounds on a side stream first load the
+        kernels and PyTorch's lazy state; a capture or an assembly that
+        fails raises."""
         dev = self.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -552,21 +664,29 @@ class BatchedSpecServer:
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()        # as the capture does first: its pool is the growth
-        reserved, before = torch.cuda.memory_reserved(dev), launch_counts()
+        reserved = torch.cuda.memory_reserved(dev)
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._round()
+        mid, steps, pool = self._graph_mid, [], None
+        for name, fn, pred in self._plan():
+            before = launch_counts()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(graph, pool=pool):
+                fn(mid)
+            pool = graph.pool() if pool is None else pool
+            self.segment_launches[name] = {k: v - before[k] for k, v in launch_counts().items()}
+            steps.append(("child", graph) if pred is None else ("if", mid[pred], graph))
+        self._graph = CondGraph(steps, dev)
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
         self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.replay_launches = {k: v - before[k] for k, v in launch_counts().items()}
+        self.replay_launches = {k: sum(self.segment_launches[name][k]
+                                       for name, _, pred in self._plan() if pred is None)
+                                for k in launch_counts()}
         self.graph_launches = {k: 0 for k in self.replay_launches}
-        self._graph = graph
 
     def _step_single(self) -> Dict[int, List[int]]:
         if self._graph is not None:
-            self._graph.replay()
+            self._graph.launch()
             self.stats["graph_replays"] += 1
             for k, v in self.replay_launches.items():
                 self.graph_launches[k] += v
@@ -595,7 +715,13 @@ class BatchedSpecServer:
         w = rows.shape[2] - len(_RING_FACTS)
         for r in rows:
             facts = dict(zip(_RING_FACTS, r[:, w:].T))
-            self.stats["draft_rounds"] += int(facts["ran"][0])
+            for stat, fact, seg in (("draft_rounds", "ran", "draft"),
+                                    ("prefill_rounds", "prefilled", "prefill")):
+                ran = int(facts[fact][0])
+                self.stats[stat] += ran
+                if ran and self._graph is not None:    # the gated segment ran in the replay
+                    for k, v in self.segment_launches[seg].items():
+                        self.graph_launches[k] += v
             for b in range(self.B):
                 nb = int(facts["n_acc"][b])
                 if nb:

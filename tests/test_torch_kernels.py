@@ -26,6 +26,7 @@ from repro.kernels.int8_matmul import quantize_cols as j_qcols  # noqa: E402
 from repro.kernels.int8_matmul import quantize_rows as j_qrows  # noqa: E402
 from repro.kernels.tree_attention import tree_attention_partial as j_tree_partial  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
+from repro_torch.kernels import graph_cond  # noqa: E402
 from repro_torch.kernels import int8_matmul as i8  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import tree_attention as ta  # noqa: E402
@@ -183,3 +184,37 @@ def test_int8_matmul_refuses_what_the_kernel_cannot_take():
                        torch.ones(1, 1), ok[3])
     with pytest.raises(TypeError):
         i8.int8_matmul(ok[0].float(), *ok[1:])
+
+
+def test_tree_attention_refuses_a_malformed_carried_segment():
+    q, k, v, kv_pos, q_pos, kn, vn, tmask = _t(*_inputs(1, 2, 1, 4, 8, 32, pos=5))
+    ks = vs = torch.zeros(1, 2, 6, 32)
+    smask = torch.ones(1, 4, 6, dtype=torch.bool)
+    ta.tree_attention_partial(q, kn, vn, tmask, k_staged=ks, v_staged=vs, staged_mask=smask)
+    with pytest.raises(ValueError, match="together"):
+        ta.tree_attention_partial(q, kn, vn, tmask, k_staged=ks, v_staged=vs)
+    with pytest.raises(ValueError, match="do not match"):
+        ta.tree_attention_partial(q, kn, vn, tmask, k_staged=ks, v_staged=vs,
+                                  staged_mask=smask[:, :, :5].contiguous())
+    with pytest.raises(TypeError):
+        ta.tree_attention_partial(q, kn, vn, tmask, k_staged=ks.double(), v_staged=vs.double(),
+                                  staged_mask=smask)
+
+
+def test_cond_segments_run_a_gated_segment_only_when_its_predicate_holds():
+    """The plain version of a conditional graph reads each predicate when
+    its step is reached; the assembly takes one-element bool or int32 CUDA
+    predicates only (the graphs run on the card)."""
+    x, mid = torch.zeros(3), {}
+    steps = [("child", lambda: mid.update(p=x.sum() > 0)),
+             ("if", lambda: mid["p"], lambda: x.add_(1)),
+             ("child", lambda: x.mul_(2))]
+    ref.cond_segments(steps)
+    assert x.tolist() == [0, 0, 0]
+    x.fill_(1)
+    ref.cond_segments(steps)
+    assert x.tolist() == [4, 4, 4]
+    for bad in ([("if", torch.tensor(True), None)], [("if", torch.ones(2, dtype=torch.bool), None)],
+                [("else", None)]):
+        with pytest.raises(ValueError):
+            graph_cond.CondGraph(bad, "cpu")

@@ -166,28 +166,14 @@ def test_commit_cache_partial_accept_leaves_rejected_rows():
         np.testing.assert_array_equal(g[:, 0, 10:13], staged[n][:, 0, [0, 2, 5]])
 
 
-def _paged_cache():
-    return M.init_cache(CFG, 1, 16, paged=True, page_size=16, device="cpu")
-
-
 OFF_SLICE = {
     "decode_attention seq_axes": lambda: attn.decode_attention(
         *[torch.zeros(s) for s in ((1, 8, 4, 64), (1, 16, 4, 64), (1, 16, 4, 64))], 0,
         *[torch.zeros(s) for s in ((1, 8, 4, 64), (1, 8, 4, 64))], torch.arange(8),
         seq_axes=("data",)),
-    "decode_attention k_staged": lambda: attn.decode_attention(
-        *[torch.zeros(s) for s in ((1, 8, 4, 64), (1, 16, 4, 64), (1, 16, 4, 64))], 0,
-        *[torch.zeros(s) for s in ((1, 8, 4, 64), (1, 8, 4, 64))], torch.arange(8),
-        k_staged=torch.zeros(1, 4, 4, 64)),
-    "decode_step staged_kv": lambda: M.decode_step(
-        CFG, PARAMS, M.init_cache(CFG, 1, 16, device="cpu"), torch.zeros(1, 8, dtype=torch.int32),
-        staged_kv=[]),
     "decode_step seq_axes": lambda: M.decode_step(
         CFG, PARAMS, M.init_cache(CFG, 1, 16, device="cpu"), torch.zeros(1, 8, dtype=torch.int32),
         seq_axes=("data",)),
-    # a paged cache refuses carried staged KV as the dense one does
-    "decode_step paged": lambda: M.decode_step(
-        CFG, PARAMS, _paged_cache(), torch.zeros(1, 8, dtype=torch.int32), staged_kv=[]),
     "init_params mamba": lambda: M.init_params(
         dataclasses.replace(CFG, attention_pattern="none"), device="cpu"),
     "init_cache hybrid": lambda: M.init_cache(

@@ -13,11 +13,13 @@ gathered view, and a launch that reads its live length from the committed
 lengths over the whole cache is bitwise equal to a launch over the cache
 cut to that length on the host; the W8A8 kernel adds exact int32 partial
 sums and scales in the plain version's order, so it is bitwise equal
-(tolerance 0). The single-dispatch serving round, at vicuna-7b width and
-reduced depth: its CUDA graph replays bitwise what eager rounds compute,
-an eager round makes no host sync, and with every budget at 0 the draft,
-which runs masked in every replay (PyTorch 2.11's graphs have no
-conditional node), changes nothing.
+(tolerance 0); the tree kernel with a carried segment is within 1e-4 of
+its plain version. The single-dispatch serving round, at vicuna-7b width
+and reduced depth, captured as segment graphs with the draft (and chunked
+prefill) behind conditional nodes: its replays equal eager rounds bitwise
+with carried or recomputed draft KV and with chunked prefill, an eager
+round makes no host sync, and a replay whose budgets need no draft runs
+none of the draft's kernels and equals a PLD-only twin bitwise.
 """
 import dataclasses
 import functools
@@ -224,22 +226,54 @@ def _cache_leaves(srv):
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
 @pytest.mark.parametrize("mode", ["tree_fused", "chain_fused"])
 def test_graph_replay_equals_eager_rounds_on_card(mode, paged):
-    """N replays of the captured round leave the tokens, pos, ctx and every
-    cache leaf bitwise equal to N eager rounds of a twin server."""
+    """N launches of the assembled round (carried draft KV, the default)
+    leave the tokens, pos, ctx and every cache leaf bitwise equal to N
+    eager rounds of a twin server; the draft's kernels are counted for the
+    rounds that ran it."""
     _card()
     graph, eager = _round_server(mode, paged), _round_server(mode, paged)
-    assert graph._graph is not None
+    assert graph.draft_kv == "carry" and graph._graph is not None
+    _assert_replays_equal_eager(graph, eager, 6)
+    assert graph.stats["draft_rounds"] > 0
+    assert graph.segment_launches["draft"]["tree_attention"] > 0
+    assert graph.graph_launches == {
+        k: 6 * v + graph.stats["draft_rounds"] * graph.segment_launches["draft"][k]
+        for k, v in graph.replay_launches.items()}
+
+
+def _assert_replays_equal_eager(graph, eager, rounds):
     eager._graph = None                         # step() runs the round eagerly
-    for r in range(6):
+    for r in range(rounds):
         assert graph.step() == eager.step(), f"round {r}"
     assert graph.flush() == eager.flush()
-    assert graph.stats["draft_rounds"] == eager.stats["draft_rounds"] > 0
+    for stat in ("draft_rounds", "prefill_rounds", "tokens"):
+        assert graph.stats[stat] == eager.stats[stat], stat
     for name in graph.dstate:
         assert torch.equal(graph.dstate[name], eager.dstate[name]), name
     for a, b in zip(_cache_leaves(graph), _cache_leaves(eager)):
         assert torch.equal(a, b)
-    assert graph.replay_launches["tree_attention"] > 0
-    assert graph.graph_launches == {k: 6 * v for k, v in graph.replay_launches.items()}
+
+
+def test_recompute_replay_equals_eager_rounds_on_card():
+    _card()
+    graph, eager = (_round_server("tree_fused", False, draft_kv="recompute") for _ in range(2))
+    _assert_replays_equal_eager(graph, eager, 4)
+    assert graph.stats["draft_rounds"] > 0
+
+
+def test_chunked_prefill_replay_equals_eager_rounds_on_card():
+    """A paged server with prefill_chunk=64 (the 100-token prompt takes two
+    rounds): replays equal eager rounds bitwise, and the prefill segment's
+    kernels are counted for the rounds that ran it."""
+    _card()
+    graph, eager = (_round_server("chain_fused", True, prefill_chunk=64) for _ in range(2))
+    assert [name for name, _, _ in graph._plan()][:2] == ["prefill_pred", "prefill"]
+    _assert_replays_equal_eager(graph, eager, 6)
+    assert graph.stats["prefill_rounds"] == 2
+    assert graph.graph_launches["flash_decode_paged"] == (
+        6 * graph.replay_launches["flash_decode_paged"]
+        + 2 * graph.segment_launches["prefill"]["flash_decode_paged"]
+        + graph.stats["draft_rounds"] * graph.segment_launches["draft"]["flash_decode_paged"])
 
 
 def test_eager_round_makes_no_host_sync_on_card():
@@ -257,25 +291,82 @@ def test_eager_round_makes_no_host_sync_on_card():
     assert srv.stats["draft_rounds"] == 2 and all(len(t) >= 2 for t in out.values())
 
 
+def _device_kernels(fn) -> int:
+    """Device activities (kernels, copies, memsets) the profiler records
+    while ``fn`` runs, synchronised."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def test_draft_with_every_budget_covered_changes_nothing_on_card():
-    """The reference skips the draft where no budget needs it; the captured
-    round runs it masked instead. With every budget at 0 (warmed-up
-    estimators at alpha 0) a replay reports that no budget needed the
-    draft, and its tokens, state and cache equal those of a twin server
+    """The reference skips the draft where no budget needs it, and so does
+    the assembled round. With every budget at 0 (warmed-up estimators at
+    alpha 0) a replay reports that no budget needed the draft, runs none of
+    the draft's kernels (no more device activities than the PLD-only twin's
+    replay, the set_cond kernel and the budget arithmetic of the drafter's
+    prologue), and its tokens, state and cache equal those of a twin server
     whose rounds have no drafter at all (PLD only)."""
+    from repro_torch.core import engine
+
     _card()
     srv, plain = _round_server("tree_fused", False), _round_server("tree_fused", False,
                                                                       draft=False)
+    counts, out = [], {}
     for _ in range(3):
         srv.dstate["hist_n"].fill_(5)           # warmed up: budgets follow alpha
         srv.dstate["alpha"].fill_(0.0)
         assert [srv._slot_tree_budget(b) for b in range(4)] == [0] * 4
-        assert srv.step() == plain.step()
+        counts.append(tuple(_device_kernels(lambda s=s: out.update({s: s.step()}))
+                            for s in (srv, plain)))
+        assert out[srv] == out[plain]
     assert srv.stats["draft_rounds"] == 0
     for name in ("pending", "ctx"):
         assert torch.equal(srv.dstate[name], plain.dstate[name]), name
     for a, b in zip(_cache_leaves(srv), _cache_leaves(plain)):
         assert torch.equal(a, b)
+    # the budget arithmetic the drafter's prologue adds, eagerly
+    kw = dict(draft_k=srv.k, expansions=srv.tree_expansions, bucket=srv.tree_bucket,
+              pld_alpha=0.3, adaptive=True, min_obs=srv.min_obs, t_min=srv.t_min)
+    budget = [_device_kernels(lambda u=u: engine.tree_prologue(
+        srv.cache, dict(srv.dstate), srv._c_dev, use_draft=u, **kw)) for u in (True, False)]
+    for skipped, pld_only in counts:
+        assert skipped <= pld_only + 1 + budget[0] - budget[1], (skipped, pld_only, budget)
+    # a replay that drafts runs the draft's kernels
+    srv.dstate["hist_n"].fill_(0)
+    drafting = _device_kernels(srv.step)
+    assert drafting > counts[0][0] + 100, (drafting, counts[0][0])
+
+
+def test_two_segment_tree_kernel_matches_plain_on_card():
+    """The tree kernel over [carried ++ new] keys at the draft's carry
+    shapes (4 slots, 32 heads: a tree step's 2 new nodes over a 16-node
+    bucket, a chain step's 1 token over 5 rows), strided views of the
+    (B, N, KV, hd) buffers, with a row that sees no carried key."""
+    dev = _card()
+    rng = np.random.default_rng(9)
+    for dtype in (torch.float32, torch.bfloat16):
+        for T, N_s in ((2, 16), (1, 5), (5, 32)):
+            B, KV, hd = 4, 32, 128
+            f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)  # noqa: E731
+            q = f(B, KV, T, hd)
+            kn, vn = (f(B, T, KV, hd).transpose(1, 2) for _ in range(2))
+            ks, vs = (f(B, N_s, KV, hd).transpose(1, 2) for _ in range(2))
+            tmask = torch.eye(T, dtype=torch.bool, device=dev)[None].expand(B, T, T).contiguous()
+            smask = torch.from_numpy(rng.random((B, T, N_s)) < 0.5).to(dev)
+            smask[0, 0] = False
+            seg2 = dict(k_staged=ks, v_staged=vs, staged_mask=smask)
+            got = ta.tree_attention_partial(q, kn, vn, tmask, **seg2)
+            want = ref.tree_attention_partial(q, kn, vn, tmask, **seg2)
+            torch.cuda.synchronize()
+            close((got[0] / got[2][..., None]).cpu(), (want[0] / want[2][..., None]).cpu(), ATOL)
+            close(got[1].cpu(), want[1].cpu(), ATOL)
+            close((got[2] / want[2]).cpu(), np.ones(tuple(want[2].shape)), ATOL)
 
 
 # ------------------------------------------------------------- W8A8

@@ -198,11 +198,9 @@ def test_page_pool_budget_and_exhaustion():
 
 
 UNPORTED = {
-    "draft_kv carry": dict(draft_kv="carry"),
     "sampling": dict(sampling=object()),
     "mode legacy": dict(mode="legacy"),
     "mode cascade_fused": dict(mode="cascade_fused"),
-    "prefill_chunk": dict(paged=True, prefill_chunk=8),
     "mesh": dict(mesh=object()),
 }
 
