@@ -27,10 +27,16 @@ and chunked prefill behind conditional nodes), and both hold every stream
 to AR; phase 7 times the rounds that ran the draft apart from those that
 skipped it, serves with carried and recomputed draft KV and with chunked
 prefill of a prompt admitted mid-stream, profiles one launch of each kind
-and a steady window of rounds. Each phase prints its seconds. The last
-line is the JSON device record; the line before it lists the kernels, with
-the launches of phases 3, 5, 6 and 7 (graph launches counted by the
-server, a gated segment's only in the rounds that ran it). Exits non-zero,
+and a steady window of rounds. Phase 8 serves the multi-level cascade
+(``cascade_fused``: the mixing hierarchy, whose int8 level runs the W8A8
+kernel on weights quantized once, dense and paged; the scaling hierarchy)
+and the per-step ``legacy`` baseline in split rounds, holds every stream
+to AR and the dispatches per round to the server's own count, and times
+one decode of the int8 drafter against float32 and against quantizing the
+weights per call. Each phase prints its seconds. The last line is the JSON
+device record; the line before it lists the kernels, with the launches of
+phases 3, 5, 6, 7 and 8 (graph launches counted by the server, a gated
+segment's only in the rounds that ran it). Exits non-zero,
 with no result, when any phase fails or when no CUDA device (or no
 repro_torch beside this script) is present.
 """
@@ -128,6 +134,27 @@ def _device_ms(fn, flush, kernel: str, iters: int = 20) -> float:
     if count == 0:
         raise AssertionError(f"the profiler recorded no launch of {kernel}")
     return total / count / 1e3
+
+
+def _busy_ms(fn, iters: int = 5) -> float:
+    """Mean device time of all the kernels one call of ``fn`` launches, from
+    the profiler's CUDA activity records (after 2 warm-up calls): the
+    device's share of the call, without the host's launch gaps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return total / iters / 1e3
 
 
 def _bound_ms(nbytes: float, ops: float, dtype: str):
@@ -436,7 +463,9 @@ def _bounded_kernels(torch, gen, flush) -> None:
                 raise AssertionError(f"a device-bounded flash decode differs from the host cut ({name})")
 
 
-W8A8_ROWS = (1, 4, 16, 17, 20, 32, 40, 64, 96)   # chain and tree steps, verifies, ragged row tiles
+# chain and tree steps, the cascade drafter's carry steps (8) and seed block
+# (128), verifies, ragged row tiles
+W8A8_ROWS = (1, 4, 8, 16, 17, 20, 32, 40, 64, 96, 128)
 W8A8_TIMED_ROWS = (4, 16, 32, 64)
 W8A8_SHAPES = ((4096, 11008), (11008, 4096))      # the MLP's gate/up and down products
 
@@ -1005,9 +1034,10 @@ def _serve(torch, srv, prompts, ar_streams, readmit=(), late=()):
     order), and hold every stream to its AR stream. Returns a record of
     the run, with the mean wall time of the steps whose round prefilled a
     chunk, of those that ran the draft and no chunk, and of those that ran
-    neither (read from the drained round, so only where each step drains). Kernel
-    launches are the wrappers' counts plus, in single mode, those of the
-    server's graph launches."""
+    neither (read from the drained round, so only where each step drains),
+    and each step's wall ms and stats deltas. Kernel launches are the
+    wrappers' counts plus, in single mode, those of the server's graph
+    launches."""
     paged_kw = dict(max_new_tokens=GEN_TOKENS) if srv.paged else {}
     pending = list(late)
     for b, p in enumerate(prompts):
@@ -1019,7 +1049,7 @@ def _serve(torch, srv, prompts, ar_streams, readmit=(), late=()):
     torch.cuda.synchronize()
     _reset_counts()
     steps0, graph0 = dict(srv.stats), dict(srv.graph_launches)
-    slot_rounds, step_ms, step_kind, t0 = 0, [], [], time.perf_counter()
+    slot_rounds, step_ms, step_kind, per_step, t0 = 0, [], [], [], time.perf_counter()
     while gen or pending:
         if pending and srv.stats["steps"] - steps0["steps"] == 2:
             for b in pending:
@@ -1028,8 +1058,10 @@ def _serve(torch, srv, prompts, ar_streams, readmit=(), late=()):
             pending = []
         slot_rounds += len(gen)
         d0, p0, t = srv.stats["draft_rounds"], srv.stats["prefill_rounds"], time.perf_counter()
+        before = dict(srv.stats)
         out = srv.step()
         step_ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append({k: v - before[k] for k, v in srv.stats.items()})
         step_kind.append("prefilled" if srv.stats["prefill_rounds"] > p0
                          else "ran" if srv.stats["draft_rounds"] > d0 else "skipped")
         for b, toks in out.items():
@@ -1062,6 +1094,7 @@ def _serve(torch, srv, prompts, ar_streams, readmit=(), late=()):
                 tokens_per_slot_round=st["tokens"] / slot_rounds, wall_s=wall,
                 ms_per_round=wall / st["steps"] * 1e3, launches=counts,
                 launches_per_round={k: v / st["steps"] for k, v in counts.items()},
+                per_step=per_step, step_ms=step_ms,
                 **{f"ms_{kind}": mean_ms(kind) for kind in ("prefilled", "ran", "skipped")})
 
 
@@ -1192,7 +1225,8 @@ def _profile_rounds(torch, srv, prompts, phase: int, n_rounds: int = 8) -> None:
     busy = sum(groups.values())
     rounds = srv.stats["steps"] - rounds0
     drafted = srv.stats["draft_rounds"] + srv.stats["draft_dispatches"]
-    print(f"[phase {phase}] profile tree_fused dense {srv.round_mode} rounds ({rounds} rounds, "
+    print(f"[phase {phase}] profile {srv.mode} {'paged' if srv.paged else 'dense'} {srv.round_mode} "
+          f"rounds ({rounds} rounds, "
           f"{drafted} of {srv.stats['steps']} rounds needed the draft so far): "
           f"wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms, idle share "
           f"{1 - busy / (wall * 1e3):.3f}, {launches} device kernels; by group (ms): "
@@ -1310,6 +1344,133 @@ def phase_single(torch, served: dict, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ phase 8
+def _dispatches(step: dict) -> int:
+    """Model dispatches of one split round from its stats deltas: drafting
+    passes, rescores and the verify, which rides the last rescore in a
+    round that rescored."""
+    return (step["draft_dispatches"] + step["rescore_dispatches"] + step["target_calls"]
+            - (step["rescore_dispatches"] > 0))
+
+
+def _drafter_decodes(torch, cfg, params, bank, cache) -> None:
+    """One decode of the mixing bank's drafter (LS0.6+Q8: 13 layers) at
+    B=4 x 2 = 8 rows (a carry step) and B=4 x 32 = 128 rows (the seed block
+    of the 32-node bucket) over the admitted state: through the W8A8 kernel
+    on the MLP weights quantized once (the served path), the same layers in
+    float32, and the W8A8 kernel with the weights quantized on every call
+    (the reference's path, which serving does not take). CUDA events, mean
+    of 10 after 2 warm-up calls. The two int8 decodes give bitwise-equal
+    logits."""
+    import numpy as np
+
+    from repro_torch.models import decode_step
+
+    lvl, dev = bank.drafter, cache["pos"].device
+    rng = np.random.default_rng(SEED + 3)
+    for T in (2, 32):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(4, T)), device=dev)
+        kw = dict(tree_mask=torch.tril(torch.ones(T, T, dtype=torch.bool, device=dev)),
+                  layer_ids=lvl.layer_ids)
+        variants = {
+            "int8 quantized once": lambda: decode_step(cfg, lvl.params, cache, toks,
+                                                       quantize="int8", **kw),
+            "float32": lambda: decode_step(cfg, params, cache, toks, **kw),
+            "int8 quantized per call": lambda: decode_step(cfg, params, cache, toks,
+                                                           quantize="int8", **kw)}
+        once, per_call = variants["int8 quantized once"]()[0], variants["int8 quantized per call"]()[0]
+        torch.cuda.synchronize()
+        if not torch.equal(once, per_call) or not bool(torch.isfinite(once).all()):
+            raise AssertionError(f"phase 8: the drafter's int8 decode at {4 * T} rows differs "
+                                 "between weights quantized once and per call")
+        ms = {k: _time_ms(f, lambda: None, iters=10, warmup=2) for k, f in variants.items()}
+        busy = {k: _busy_ms(f) for k, f in variants.items()}
+        print(f"[phase 8] one {lvl.name} decode ({len(lvl.layer_ids)} layers), {4 * T} rows, ms by "
+              "events (device busy): "
+              + ", ".join(f"{k} {v:.2f} ({busy[k]:.2f})" for k, v in ms.items())
+              + f"; quantized once vs per call bitwise equal logits; float32 / int8 once "
+              f"{ms['float32'] / ms['int8 quantized once']:.2f}x by events, "
+              f"{busy['float32'] / busy['int8 quantized once']:.2f}x device busy")
+
+
+def phase_cascade(torch, served: dict, results: dict) -> None:
+    """The multi-level cascade and the per-step baseline at vicuna-7b width,
+    float32, in split rounds, with phase 6's prompts and settings:
+    ``cascade_fused`` with the mixing hierarchy (LS0.4 over LS0.6+Q8, the
+    int8 level's MLP weights quantized once and run through the W8A8
+    kernel), dense and paged; with the scaling hierarchy (LS0.4 over LS0.6,
+    no int8 level); and ``legacy`` with layer sparsity 0.5. Every stream
+    equals AR; no round makes more model dispatches than
+    ``expected_dispatches_per_round()`` and a cascade round that drafts and
+    rescores makes exactly that many; the W8A8 kernel launches in the
+    mixing runs and not in the others. Before serving, one decode of the
+    int8 drafter is timed three ways (``_drafter_decodes``); after, a
+    profiled window of mixing rounds gives the device's idle share."""
+    from repro_torch.core import build_hierarchy, layer_sparsity
+    from repro_torch.serving import BatchedSpecServer
+
+    cfg, params, prompts, ar_streams = (served[k] for k in ("cfg", "params", "prompts",
+                                                            "ar_streams"))
+    runs = [("cascade_fused mixing dense", False, {}),
+            ("cascade_fused mixing paged", True, {}),
+            ("cascade_fused scaling dense", False, dict(hierarchy=build_hierarchy(cfg, "scaling"))),
+            ("legacy LS0.5 dense", False, dict(mode="legacy", draft_spec=layer_sparsity(cfg, 0.5)))]
+    for i, (name, paged, kw) in enumerate(runs):
+        kw = dict(dict(mode="cascade_fused"), **kw)
+        srv = BatchedSpecServer(cfg, params, paged=paged, page_size=PAGE, round_mode="split",
+                                **SERVER, **kw)
+        bank = srv.bank
+        if bank is not None and bank.int8_exec != "kernel":
+            raise AssertionError(f"{name}: int8_exec resolved to {bank.int8_exec!r} on the card")
+        if i == 0:
+            for b, p in enumerate(prompts):
+                srv.add_request(b, p)
+            _drafter_decodes(torch, cfg, params, bank, srv.cache)
+        rec = _serve(torch, srv, prompts, ar_streams)
+        steps, expected = rec["per_step"], srv.expected_dispatches_per_round()
+        disp = [_dispatches(st) for st in steps]
+        if max(disp) > expected or (bank is not None and max(disp) != expected):
+            raise AssertionError(f"{name}: dispatches per round {disp}, expected {expected}")
+        rescored = [st for st in steps if st["rescore_dispatches"]]
+        plain = [st for st in steps if not st["rescore_dispatches"]]
+        drafted = sum(st["draft_dispatches"] for st in steps)
+
+        def per(key, sts, n):
+            return sum(st[key] for st in sts) * 1e3 / n if n else float("nan")
+
+        mid = sum(st["rescore_dispatches"] - 1 for st in rescored)
+        w8a8 = rec["launches_per_round"]["int8_matmul"]
+        with_int8 = bank is not None and any(lv.quantize for lv in bank.levels)
+        bank_text = (f" | bank {len(bank)} levels {[lv.name for lv in bank.levels]}, int8_exec "
+                     f"{bank.int8_exec}, param_bytes {bank.param_bytes / 2**30:.3f} GiB"
+                     if bank is not None else "")
+        print(f"[phase 8] {name}: {rec['requests']} requests identical to AR | {rec['rounds']} rounds "
+              f"({len(rescored)} rescored, {sum(1 for st in plain if st['draft_dispatches'])} drafted "
+              f"without rescore), {rec['target_calls']} target calls, "
+              f"{rec['tokens_per_slot_round']:.2f} tokens per slot-round, {rec['wall_s']:.3f} s "
+              f"({rec['ms_per_round']:.2f} ms per round) | dispatches per round: mean "
+              f"{sum(disp) / len(disp):.2f}, max {max(disp)}, expected {expected} (draft "
+              f"{drafted / len(steps):.2f}, rescore {sum(st['rescore_dispatches'] for st in steps) / len(steps):.2f}, "
+              f"verify {rec['target_calls'] / len(steps):.2f}) | ms per dispatch: drafting "
+              f"{'scan' if srv.mode == 'cascade_fused' else 'step'} {per('draft_time', steps, drafted):.2f}, "
+              f"intermediate rescore {per('rescore_time', steps, mid):.2f} ({mid}), rescore+verify "
+              f"{per('verify_time', rescored, len(rescored)):.2f} ({len(rescored)}), verify "
+              f"{per('verify_time', plain, len(plain)):.2f} ({len(plain)}) | W8A8 launches per "
+              f"round {w8a8:.2f}{bank_text} | launches per round: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in rec["launches_per_round"].items()))
+        _check_launches(name, rec["launches"], paged)
+        if (w8a8 > 0) != with_int8:
+            raise AssertionError(f"{name}: {w8a8:.2f} W8A8 launches per round "
+                                 f"({'an' if with_int8 else 'no'} int8 level)")
+        results["int8_matmul"]["launches"] += rec["launches"]["int8_matmul"]
+        del srv, bank
+        torch.cuda.empty_cache()
+    srv = BatchedSpecServer(cfg, params, mode="cascade_fused", round_mode="split", **SERVER)
+    _profile_rounds(torch, srv, prompts, 8)
+    del srv
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -1340,6 +1501,7 @@ def main() -> int:
     timed("phase 5", phase_int8, torch, results)
     served = timed("phase 6", phase_server, torch, ar_streams, results)
     timed("phase 7", phase_single, torch, served, results)
+    timed("phase 8", phase_cascade, torch, served, results)
     del served
     torch.cuda.empty_cache()
     print(f"[chip_smoke] all phases in {time.perf_counter() - t_all:.1f} s")

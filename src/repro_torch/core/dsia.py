@@ -30,6 +30,10 @@ class DraftSpec:
     prior_alpha: float = 0.5             # cold-start acceptance prior (App. D)
     prior_c: float = 0.5                 # cold-start cost-coefficient prior
 
+    @property
+    def n_active_layers(self) -> Optional[int]:
+        return None if self.gates is None else int(sum(self.gates))
+
     def gates_array(self, num_layers: int) -> np.ndarray:
         if self.gates is None:
             return np.ones((num_layers,), np.float32)
@@ -37,9 +41,19 @@ class DraftSpec:
             raise ValueError(f"{self.name}: {len(self.gates)} gates for {num_layers} layers")
         return np.asarray(self.gates, np.float32)
 
+    def prior_alpha_given(self, stronger: "DraftSpec") -> float:
+        """App. D cold-start prior for level-to-level acceptance: how often
+        ``stronger`` (the next level up a cascade) agrees with this draft's
+        tokens. Both priors are calibrated against the target, so the
+        conditional prior is their ratio, clipped to [prior, 0.98]."""
+        if stronger.prior_alpha <= 0:
+            return self.prior_alpha
+        return float(np.clip(self.prior_alpha / stronger.prior_alpha, self.prior_alpha, 0.98))
+
     def unsupported_by_gates_only(self) -> Tuple[str, ...]:
         """Spec fields that a gates-only drafting path cannot honor (the
-        batched server's chain_fused and tree_fused modes)."""
+        batched server's chain_fused, legacy and tree_fused modes);
+        ``cascade_fused`` honors them through its draft bank."""
         bad = []
         if self.quantize is not None:
             bad.append(f"quantize={self.quantize!r}")

@@ -1,6 +1,7 @@
 """CAS-Spec engines: the single-sequence ``SpecEngine`` (DSIA draft
 execution + tree verification) and the batched server's round functions
-(``chain_draft_scan``, ``tree_draft_scan``, ``verify_accept_commit``,
+(``chain_draft_scan``, ``tree_draft_scan``, the cascade's
+``cascade_rescore`` and ``cascade_rescore_verify``, ``verify_accept_commit``,
 ``tree_verify_accept_commit`` and its host-walk twin for the split rounds,
 and the single-dispatch rounds ``chain_round`` / ``tree_round``).
 
@@ -17,8 +18,9 @@ exact — the losslessness invariant (see models.model).
 The batched functions are the reference's ``core/engine.py`` functions of
 the same names. The reference's ``lax.scan`` over steps is a Python loop
 here (PyTorch runs eagerly), and its drop-mode scatters are one-hot
-``torch.where`` updates (an index of N matches no column) or, for the
-carried KV buffers, ``models.model._scatter_rows``. A layer-sparse draft
+``torch.where`` updates (an index of N matches no column), masked
+scatters that write a dropped row's anchor entry back (``_set_at``; the
+carried KV buffers: ``models.model._scatter_rows``). A layer-sparse draft
 runs either through the gate vector (``gates``, mask exec) or, on a
 homogeneous stack, through ``layer_ids`` (slice exec): the kept layers
 only, the same numbers. ``draft_kv`` picks how draft steps see each other:
@@ -264,6 +266,8 @@ def chain_draft_scan(
     gates=None,                       # (num_layers,) DSIA layer gates (mask exec)
     *,
     layer_ids: Optional[List[int]] = None,   # kept layers (slice exec)
+    quantize: Optional[str] = None,   # "int8": W8A8 MLP matmuls
+    attn_override: Optional[dict] = None,    # efficient-attention DSIA
     draft_kv: str = "recompute",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k-step neural chain drafting. Step ``j`` writes the draft's argmax
@@ -273,15 +277,16 @@ def chain_draft_scan(
     under a causal mask at every step; ``"carry"`` decodes it once, then
     only the appended token of each step against [cache ++ the carried
     rows 0..j]. Returns (chains, have) with ``have = max(have, min(limit,
-    steps))``."""
+    steps))``. ``quantize`` and ``attn_override`` reach every draft decode
+    (a cascade level's DSIA execution)."""
     _check_draft_kv(draft_kv, "chain_draft_scan")
+    dsia = dict(gates=gates, layer_ids=layer_ids, quantize=quantize, attn_override=attn_override)
     B, K = chains.shape
     toks = torch.cat([pending[:, None], chains], dim=1).to(torch.int32)
     mask = torch.tril(torch.ones((K + 1, K + 1), dtype=torch.bool, device=toks.device))
     if draft_kv == "recompute":
         for j in range(steps):
-            logits, _ = M.decode_step(cfg, params, cache, toks, gates=gates, tree_mask=mask,
-                                      layer_ids=layer_ids)
+            logits, _ = M.decode_step(cfg, params, cache, toks, tree_mask=mask, **dsia)
             nxt = logits[:, j].argmax(dim=-1).to(torch.int32)
             fill = (have <= j) & (j < limit)
             toks[:, j + 1] = torch.where(fill, nxt, toks[:, j + 1])
@@ -289,8 +294,7 @@ def chain_draft_scan(
         # one block decode fills the carried buffers and each column's argmax
         base = cache["pos"]
         col_ids = torch.arange(K + 1, dtype=torch.int32, device=toks.device)
-        logits, staged = M.decode_step(cfg, params, cache, toks, gates=gates, tree_mask=mask,
-                                       layer_ids=layer_ids)
+        logits, staged = M.decode_step(cfg, params, cache, toks, tree_mask=mask, **dsia)
         nxt = logits.argmax(dim=-1).to(torch.int32)                 # (B, k+1)
         staged_pos = base[:, None] + col_ids[None]
         for j in range(steps):
@@ -303,9 +307,8 @@ def chain_draft_scan(
             # their own step), so causal visibility is exact
             smask = (col_ids <= j)[None, None, :].expand(B, 1, K + 1)
             logits1, st1 = M.decode_step(
-                cfg, params, cache, toks[:, j + 1: j + 2], gates=gates,
-                q_pos=(base + j + 1)[:, None], staged_kv=staged, staged_pos=staged_pos,
-                staged_mask=smask, layer_ids=layer_ids)
+                cfg, params, cache, toks[:, j + 1: j + 2], q_pos=(base + j + 1)[:, None],
+                staged_kv=staged, staged_pos=staged_pos, staged_mask=smask, **dsia)
             nxt[:, j + 1] = logits1[:, 0].argmax(dim=-1).to(torch.int32)
             for seg, seg1 in zip(staged, st1):
                 for unit, unit1 in zip(seg, seg1):
@@ -335,6 +338,8 @@ def tree_draft_scan(
     *,
     top_p: float = 0.3,
     layer_ids: Optional[List[int]] = None,   # kept layers (slice exec)
+    quantize: Optional[str] = None,   # "int8": W8A8 MLP matmuls
+    attn_override: Optional[dict] = None,    # efficient-attention DSIA
     draft_kv: str = "recompute",
 ):
     """DyTC tree growth over every slot at once (§4.2, Alg. 1 batched).
@@ -354,10 +359,12 @@ def tree_draft_scan(
     [cache ++ carried rows] (ancestors through the leaf's closure row, each
     node itself through the new block, siblings mutually invisible). A
     node's logits depend only on its ancestors, which never change, so the
-    two give the same trees. Returns (tokens, parents, depth, p_acc, mask,
-    count, first_neural (B,) int32, -1 if none).
+    two give the same trees. ``quantize`` and ``attn_override`` reach every
+    draft decode. Returns (tokens, parents, depth, p_acc, mask, count,
+    first_neural (B,) int32, -1 if none).
     """
     _check_draft_kv(draft_kv, "tree_draft_scan")
+    dsia = dict(gates=gates, layer_ids=layer_ids, quantize=quantize, attn_override=attn_override)
     B, N = tokens.shape
     dev = tokens.device
     b_idx = torch.arange(B, device=dev)
@@ -372,14 +379,14 @@ def tree_draft_scan(
     carry = draft_kv == "carry"
     if carry:
         # seed decode: the carried buffers and every node's candidates
-        logits, staged = M.decode_step(cfg, params, cache, tokens, gates=gates, tree_mask=mask,
-                                       q_pos=base + depth, layer_ids=layer_ids)
+        logits, staged = M.decode_step(cfg, params, cache, tokens, tree_mask=mask,
+                                       q_pos=base + depth, **dsia)
         cand_v, cand_i = torch.topk(torch.softmax(logits.float(), dim=-1), top_k, dim=-1)
         eye = torch.eye(top_k, dtype=torch.bool, device=dev)
     for e in range(expansions):
         if not carry:
-            logits, _ = M.decode_step(cfg, params, cache, tokens, gates=gates, tree_mask=mask,
-                                      q_pos=base + depth, layer_ids=layer_ids)
+            logits, _ = M.decode_step(cfg, params, cache, tokens, tree_mask=mask,
+                                      q_pos=base + depth, **dsia)
         # select (Alg. 1 line 5) + stop rule; the node is consumed either way
         leaf = torch.where(active, p_acc, float("-inf")).argmax(dim=1)
         valid = active.any(dim=1) & (e < limit)
@@ -428,9 +435,9 @@ def tree_draft_scan(
             # candidates at their node index
             q_new = (base[:, 0] + parent_depth + 1)[:, None].expand(B, top_k)
             logits_n, st_n = M.decode_step(
-                cfg, params, cache, top_idx.to(torch.int32), gates=gates, tree_mask=eye,
-                q_pos=q_new, staged_kv=staged, staged_pos=base + depth,
-                staged_mask=parent_row[:, None, :].expand(B, top_k, N), layer_ids=layer_ids)
+                cfg, params, cache, top_idx.to(torch.int32), tree_mask=eye, q_pos=q_new,
+                staged_kv=staged, staged_pos=base + depth,
+                staged_mask=parent_row[:, None, :].expand(B, top_k, N), **dsia)
             cv_n, ci_n = torch.topk(torch.softmax(logits_n.float(), dim=-1), top_k, dim=-1)
             idx_all = torch.stack(idxs, dim=1)                      # (B, top_k), N = dropped
             # the reference's drop-mode scatter into the (R, B, N, KV, hd)
@@ -446,6 +453,132 @@ def tree_draft_scan(
                 cand_v = torch.where(at, cv_n[:, r][:, None, :], cand_v)
                 cand_i = torch.where(at, ci_n[:, r][:, None, :], cand_i)
     return tokens, parents, depth, p_acc, mask, count, first_neural
+
+
+def _set_at(buf: torch.Tensor, idx: torch.Tensor, value: torch.Tensor,
+            keep: torch.Tensor) -> torch.Tensor:
+    """``buf[b, idx[b]] = value[b]`` where ``keep[b]``: the reference's
+    drop-mode scatter at fixed shape, one write per row. A dropped row
+    writes its anchor entry (the index clamped into the buffer) back with
+    the value it holds, so nothing lands out of bounds. Returns a new
+    tensor; ``buf`` is (B, N, ...)."""
+    B, N = buf.shape[:2]
+    b_idx = torch.arange(B, device=buf.device)
+    at = idx.clamp(0, N - 1).long()
+    old = buf[b_idx, at]
+    new = torch.where(keep.reshape(B, *([1] * (old.ndim - 1))), value.to(buf.dtype), old)
+    return buf.index_put((b_idx, at), new)
+
+
+def cascade_rescore(
+    cfg: ModelConfig,
+    params: dict,
+    cache: dict,                      # batched committed cache (read-only here)
+    tokens: torch.Tensor,             # (B, N) int32 node tokens from the level below
+    parents: torch.Tensor,            # (B, N) int32 (-1 root)
+    depth: torch.Tensor,              # (B, N) int32
+    p_acc: torch.Tensor,              # (B, N) float32
+    mask: torch.Tensor,               # (B, N, N) bool ancestor closure
+    count: torch.Tensor,              # (B,) int32 node slots consumed
+    probe: torch.Tensor,              # (B,) int32 node whose verdict to report (-1 none)
+    apply: torch.Tensor,              # (B,) bool: slots routed through this level
+    alpha: torch.Tensor,              # (B,) float32 this level's acceptance estimate
+    gates=None,                       # (num_layers,) this level's DSIA gates (mask exec)
+    *,
+    layer_ids: Optional[List[int]] = None,   # kept layers (slice exec)
+    quantize: Optional[str] = None,   # "int8": W8A8 MLP matmuls
+    attn_override: Optional[dict] = None,    # efficient-attention DSIA
+    sampling=None,                    # not ported: greedy only
+):
+    """One intermediate-verify dispatch of a stronger cascade level (Alg. 1's
+    level-to-level acceptance, batched). The level decodes the padded node
+    block under the ancestor masks (the cache stays read-only) and then, per
+    slot where ``apply``:
+
+      1. **endorse** — a node whose token equals this level's argmax at its
+         parent, with every proper ancestor endorsed, gets its P_acc raised
+         to ``parent P_acc * alpha``;
+      2. **hedge** — at the shallowest first-mismatch node, this level's
+         own continuation is added as a sibling (kept nodes stay: the
+         rescored tree is a superset of the drafted one);
+      3. **extend** — the deepest endorsed node gets one child with this
+         level's continuation.
+
+    An append is dropped when a sibling already carries the token or the
+    bucket is full. Slots with ``apply`` false pass through. Returns
+    (tokens, parents, depth, p_acc, mask, count, level_node, probe_ok,
+    probe_valid): ``level_node`` is the depth-1 node carrying this level's
+    continuation of the root (-1 if none), the next level's Eq. 4
+    observation point; ``probe_ok`` / ``probe_valid`` are this level's
+    verdict on the input node ``probe``, valid only when its ancestors were
+    all endorsed. The reference's stochastic rule (``sampling``) is a later
+    slice."""
+    if sampling is not None:
+        raise NotImplementedError("cascade_rescore: sampling is not ported yet (ROADMAP queue A)")
+    B, N = tokens.shape
+    dev = tokens.device
+    b_idx = torch.arange(B, device=dev)
+    slot_j = torch.arange(N, device=dev)[None]
+    logits, _ = M.decode_step(cfg, params, cache, tokens, gates=gates, tree_mask=mask,
+                              q_pos=cache["pos"][:, None] + depth, layer_ids=layer_ids,
+                              quantize=quantize, attn_override=attn_override)
+    nxt = logits.argmax(dim=-1).to(torch.int32)                  # (B, N)
+
+    real = slot_j < count[:, None]
+    has_parent = real & (parents >= 0)                           # non-root live
+    p_clip = parents.clamp(0, N - 1).long()
+    parent_nxt = nxt.gather(1, p_clip)
+    ok = torch.where(has_parent, tokens == parent_nxt, True)
+    bad = has_parent & ~ok
+    eye = torch.eye(N, dtype=torch.bool, device=dev)[None]
+    anc_bad = (mask & ~eye & bad[:, None, :]).any(dim=-1)        # a bad proper ancestor
+    # the probe's verdict before any change (the level below's first prediction)
+    probe_c = probe.clamp(0, N - 1).long()[:, None]
+    probe_valid = apply & (probe >= 0) & ~anc_bad.gather(1, probe_c)[:, 0]
+    probe_ok = ok.gather(1, probe_c)[:, 0] & probe_valid
+
+    alpha = alpha.float()
+    parent_p = p_acc.gather(1, p_clip)
+    endorsed = real & ~bad & ~anc_bad                            # root included
+    p_acc = torch.where(endorsed & has_parent & apply[:, None],
+                        torch.maximum(p_acc, parent_p * alpha[:, None]), p_acc)
+
+    def append(tokens, parents, depth, p_acc, mask, count, at, tok, want):
+        """One child per slot under node ``at`` carrying ``tok``, at index
+        ``count``, where ``want`` and no sibling has the token and the
+        bucket has room."""
+        sib = (parents == at[:, None]) & (slot_j < count[:, None]) & (tokens == tok[:, None])
+        keep = want & ~sib.any(dim=1) & (count < N)
+        a = at.long()
+        row = mask[b_idx, a] | (slot_j == count[:, None])
+        tokens = _set_at(tokens, count, tok, keep)
+        parents = _set_at(parents, count, at, keep)
+        depth = _set_at(depth, count, depth[b_idx, a] + 1, keep)
+        p_acc = _set_at(p_acc, count, p_acc[b_idx, a] * alpha, keep)
+        mask = _set_at(mask, count, row, keep)
+        return tokens, parents, depth, p_acc, mask, count + keep.to(torch.int32)
+
+    state = (tokens, parents, depth, p_acc, mask, count)
+    # hedge: a sibling with this level's continuation at the shallowest
+    # first mismatch (the most probable rejection point of the drafted tree)
+    cand = bad & ~anc_bad
+    has_hedge = cand.any(dim=1)
+    hedge_src = torch.where(cand, depth, N + 1).argmin(dim=1)
+    hedge_at = p_clip[b_idx, hedge_src].to(torch.int32)
+    hedge_tok = parent_nxt[b_idx, hedge_src]
+    state = append(*state, torch.where(has_hedge, hedge_at, 0), hedge_tok, apply & has_hedge)
+    # extend: one child below the deepest fully endorsed node
+    frontier = torch.where(endorsed, depth, -1).argmax(dim=1).to(torch.int32)
+    state = append(*state, frontier, nxt[b_idx, frontier.long()], apply)
+    tokens, parents, depth, p_acc, mask, count = state
+
+    # this level's Eq. 4 observation point: the depth-1 node carrying its
+    # argmax continuation of the root (the target's own pending token, so
+    # the node's parent is always accepted)
+    lvl_cand = (parents == 0) & (slot_j < count[:, None]) & (tokens == nxt[:, :1])
+    level_node = torch.where(apply & lvl_cand.any(dim=1),
+                             lvl_cand.to(torch.uint8).argmax(dim=1).to(torch.int32), -1)
+    return tokens, parents, depth, p_acc, mask, count, level_node, probe_ok, probe_valid
 
 
 def verify_accept_commit(cfg: ModelConfig, params: dict, cache: dict, pending: torch.Tensor,
@@ -505,6 +638,27 @@ def tree_verify_accept_commit_host(cfg: ModelConfig, params: dict, cache: dict,
     cache = M.commit_cache(cfg, cache, staged, torch.as_tensor(path, device=dev),
                            torch.as_tensor(n_acc, device=dev))
     return cache, path, n_acc, bonus
+
+
+def cascade_rescore_verify(cfg: ModelConfig, level_params: dict, target_params: dict, cache: dict,
+                           tokens, parents, depth, p_acc, mask, count, probe, apply, alpha,
+                           gates, live: torch.Tensor, *, layer_ids: Optional[List[int]] = None,
+                           quantize: Optional[str] = None, attn_override: Optional[dict] = None,
+                           sampling=None):
+    """The cascade's last rescore with the target verify folded in: the
+    strongest level's ``cascade_rescore``, then the target's verify and
+    commit over the rescored tree, so an L-level round is 1 draft + (L-2)
+    rescores + this. The port runs cascades in split rounds, which read the
+    outcome on the host anyway, so the verify is
+    ``tree_verify_accept_commit_host`` (the same path and commit as the
+    reference's device walk). Returns the rescore's nine outputs followed by
+    (cache, path, n_acc, bonus), the last three numpy arrays."""
+    out = cascade_rescore(cfg, level_params, cache, tokens, parents, depth, p_acc, mask, count,
+                          probe, apply, alpha, gates, layer_ids=layer_ids, quantize=quantize,
+                          attn_override=attn_override, sampling=sampling)
+    tokens, parents, depth, _, mask, count = out[:6]
+    return out + tree_verify_accept_commit_host(cfg, target_params, cache, tokens, parents, depth,
+                                                mask, count, live)
 
 
 # ===================================================== single-dispatch rounds

@@ -1,6 +1,7 @@
 """Per-configuration cost coefficients (§4.2) and the batched server's
 per-slot draft budgets, host side; copies of the reference's
-``CostTracker``, ``best_chain_length`` and ``best_tree_expansions``, and
+``CostTracker``, ``best_chain_length``, ``best_tree_expansions`` and
+``best_cascade_plan``, and
 their ``*_batched`` tensor twins for the single-dispatch serving round.
 
 ``c_hat(config)`` is the ratio of a configuration's measured per-call
@@ -10,11 +11,11 @@ returned as is.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.core.ewif import best_dytc_k, dytc_objective_grid, t_sd, t_sd_grid
+from repro_torch.core.ewif import best_cascade_k, best_dytc_k, dytc_objective_grid, t_sd, t_sd_grid
 
 
 class CostTracker:
@@ -65,6 +66,36 @@ def best_tree_expansions(alpha: float, c: float, e_max: int, t_min: float = 1.0)
     if best_k <= 0:
         return 0
     return best_k if t_sd(alpha, c, best_k) >= t_min else 0
+
+
+def best_cascade_plan(alphas: Sequence[float], cs: Sequence[float], alpha_direct: float,
+                      e_max: int, t_min: float = 1.0) -> tuple:
+    """Per-slot routing and budget of a ``cascade_fused`` round: returns
+    ``(expansions, use_rescore)`` for the best of three executions:
+
+      - **cascade** — the cheapest level drafts ``k`` tokens, every stronger
+        level rescores in one block forward, the target verifies:
+        ``ewif.t_cascade(alphas, cs, k)`` maximized over k;
+      - **single-level** — the cheapest level drafts straight for the
+        target, priced with ``alpha_direct`` (the slot's tracked
+        cheap-vs-target acceptance, or the compositional prior);
+      - **PLD-only** — ``(0, False)``: no neural work, speedup 1.0.
+
+    A slot whose best option misses ``t_min`` collapses to PLD-only."""
+    v_casc, k_casc = best_cascade_k(alphas, cs, e_max)
+    if len(alphas) < 2:
+        v_casc = -1.0                       # no level to rescore with
+    v_single, k_single = 1.0, 0
+    for k in range(1, max(e_max, 0) + 1):
+        v = t_sd(alpha_direct, max(cs[-1], 1e-3), k)
+        if v > v_single:
+            v_single, k_single = v, k
+    best = max(v_casc, v_single)
+    if best < t_min:
+        return 0, False
+    if v_casc >= v_single:
+        return k_casc, True
+    return k_single, False
 
 
 def best_chain_length_batched(alpha: torch.Tensor, c, k_max: int, t_min: float) -> torch.Tensor:

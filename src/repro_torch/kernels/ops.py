@@ -9,10 +9,18 @@ pass. ``paged_verify_attention`` is its block-paged twin: the cache
 partials come from the paged kernel, which reads the pool through the page
 table in place. The reference's 128-lane head-dim padding and its pool
 transpose to the Pallas layout are TPU artifacts and are not carried over.
+
+``quantized_matmul`` is the W8A8 product of the ActivationQuant DSIA. It
+takes a float weight, quantized on every call as the reference does, or a
+``QuantWeight`` that ``prequantize`` made once (a cascade level's MLP
+weights, quantized when its draft bank is built): then only the activation
+rows are quantized per call. ``quantize_cols`` is deterministic, so both
+give the same product bit for bit.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -118,16 +126,40 @@ def paged_verify_attention(
     return _unrows(out, T)
 
 
-def quantized_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """W8A8 dynamic-quantized x (M, K) @ w (K, N) -> (M, N) float32. K and
-    N are zero-padded to the kernel's tile (a no-op at the model widths)."""
-    M0, K0 = x.shape
-    N0 = w.shape[1]
-    x_q, xs = quantize_rows(x)
+@dataclasses.dataclass(frozen=True)
+class QuantWeight:
+    """A (K, N) weight quantized once for the W8A8 kernel: ``w_q`` (K', N')
+    int8 per-column symmetric and ``ws`` (1, N') float32 column scales, zero-
+    and one-padded to the kernel's tile; ``n`` is the unpadded N."""
+    w_q: torch.Tensor
+    ws: torch.Tensor
+    n: int
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.w_q, self.ws))
+
+
+def prequantize(w: torch.Tensor) -> QuantWeight:
+    """``quantized_matmul``'s weight half, once: per-column int8 and its
+    scales, padded to the kernel's tile."""
+    K0, N0 = w.shape
     w_q, ws = quantize_cols(w)
     pk, pn = -K0 % TILE_K, -N0 % TILE_N
     if pk or pn:
-        x_q = F.pad(x_q, (0, pk))
         w_q = F.pad(w_q, (0, pn, 0, pk))
         ws = F.pad(ws, (0, pn), value=1.0)
-    return int8_matmul(x_q, w_q, xs, ws)[:, :N0]
+    return QuantWeight(w_q.contiguous(), ws.contiguous(), N0)
+
+
+def quantized_matmul(x: torch.Tensor, w: Union[torch.Tensor, QuantWeight]) -> torch.Tensor:
+    """W8A8 dynamic-quantized x (M, K) @ w (K, N) -> (M, N) float32: x per
+    row, w per column (every call for a float ``w``; a ``QuantWeight`` was
+    quantized once). K and N are zero-padded to the kernel's tile (a no-op
+    at the model widths)."""
+    qw = w if isinstance(w, QuantWeight) else prequantize(w)
+    x_q, xs = quantize_rows(x)
+    pk = qw.w_q.shape[0] - x.shape[1]
+    if pk:
+        x_q = F.pad(x_q, (0, pk))
+    return int8_matmul(x_q, qw.w_q, xs, qw.ws)[:, :qw.n]

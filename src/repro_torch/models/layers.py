@@ -4,6 +4,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ops import QuantWeight, quantized_matmul
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm scaled by ``(1 + weight)``: the reference stores the norm
@@ -33,19 +35,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 # ----------------------------------------------------------------------- MLP
-def _mm(x: torch.Tensor, w: torch.Tensor, quantize) -> torch.Tensor:
+def _mm(x: torch.Tensor, w, quantize) -> torch.Tensor:
     """(..., d) @ (d, f), optionally through the W8A8 kernel
     (``quantize="int8"``: dynamic per-row activation / per-column weight
-    int8, the ActivationQuant DSIA's execution)."""
-    if quantize is None:
+    int8, the ActivationQuant DSIA's execution). A ``QuantWeight`` (the
+    weight quantized once) takes only ``quantize="int8"``."""
+    if quantize is None and not isinstance(w, QuantWeight):
         return x @ w
     if quantize != "int8":
-        raise ValueError(f"unsupported quantize mode {quantize!r}")
-    from repro_torch.kernels.ops import quantized_matmul
-
-    lead = x.shape[:-1]
+        raise ValueError(f"unsupported quantize mode {quantize!r} for this weight")
     out = quantized_matmul(x.reshape(-1, x.shape[-1]), w)
-    return out.reshape(*lead, w.shape[-1]).to(x.dtype)
+    return out.reshape(*x.shape[:-1], out.shape[-1]).to(x.dtype)
 
 
 def mlp_apply(params: dict, x: torch.Tensor, act: str, gated: bool, quantize=None) -> torch.Tensor:

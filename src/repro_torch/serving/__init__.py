@@ -1,4 +1,5 @@
-"""Batched speculative serving of the port (split rounds; see server.py)."""
+"""Batched speculative serving of the port (see server.py) and the cascade's draft bank."""
+from repro_torch.serving.draft_bank import DraftBank
 from repro_torch.serving.server import BatchedSpecServer
 
-__all__ = ["BatchedSpecServer"]
+__all__ = ["BatchedSpecServer", "DraftBank"]

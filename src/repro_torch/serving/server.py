@@ -1,18 +1,32 @@
 """Batched speculative serving with continuous batching, greedy: the port of
-the reference's ``serving/server.py::BatchedSpecServer``. Two proposal
+the reference's ``serving/server.py::BatchedSpecServer``. Four proposal
 modes:
 
   - ``chain_fused`` — per-slot PLD chains filled up by a layer-sparse
     neural chain draft (``core.engine.chain_draft_scan``), verified by
     ``core.engine.verify_accept_commit``.
+  - ``legacy`` (``fused=False``) — the same chains drafted one token per
+    decode call with a host read after each: the per-step baseline.
   - ``tree_fused`` — the paper's Dynamic Tree Cascade (§4.2) batched: every
     slot's tree is seeded with its PLD chain and grown by
     ``core.engine.tree_draft_scan`` under per-slot Eq. 5 budgets, then
     verified by ``core.engine.tree_verify_accept_commit`` (split rounds:
     ``tree_verify_accept_commit_host``, which walks the tree on the host).
+  - ``cascade_fused`` — the paper's multi-level cascade (§4.1 + Alg. 1)
+    batched: a ``DraftBank`` makes a DSIA hierarchy (``hierarchy=``, by
+    default ``build_hierarchy(cfg, "mixing")``: LS0.4 over LS0.6+Q8 over
+    PLD) executable; the cheapest level grows every slot's PLD-seeded tree
+    in one drafting scan, each stronger level rescores it in one dispatch
+    (``core.engine.cascade_rescore``: endorse, hedge, extend) and the last
+    one carries the target verify (``cascade_rescore_verify``). Each slot is
+    routed by ``latency.best_cascade_plan``: the cascade, the cheapest level
+    alone, or PLD alone. An int8 level runs its MLP products through the
+    W8A8 kernel on weights quantized once (``int8_exec``).
 
-Two round structures (``round_mode``; ``"auto"`` is ``"single"``, as in the
-reference):
+Two round structures (``round_mode``; ``"auto"`` is ``"single"`` for
+``chain_fused`` and ``tree_fused`` and ``"split"`` for ``legacy`` and
+``cascade_fused``, as in the reference, whose cascade keeps one dispatch per
+level):
 
   - ``"single"`` — one round is ``core.engine.chain_round`` /
     ``tree_round`` on carried device state (``dstate``: pending tokens,
@@ -55,9 +69,9 @@ prefilling slot (``core.engine.prefill_chunk_stage``, behind a conditional
 node of its own), and slots still prefilling are dead for the decode half.
 
 Not ported yet (they raise ``NotImplementedError``; ROADMAP queue A):
-sampled serving (``sampling``), the ``legacy`` and ``cascade_fused`` modes,
-mesh serving (``mesh``), and single rounds over a non-homogeneous stack
-(mask exec reads the layer gates on the host).
+sampled serving (``sampling``), mesh serving (``mesh``), and single rounds
+over a non-homogeneous stack (mask exec reads the layer gates on the host).
+The reference's round telemetry (``telemetry=``) is not mirrored either.
 """
 from __future__ import annotations
 
@@ -71,9 +85,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.config.base import ModelConfig
 from repro_torch.core.acceptance import AcceptanceTracker, ema_init
-from repro_torch.core.dsia import PLD_SPEC, DraftSpec
+from repro_torch.core.dsia import PLD_SPEC, DraftSpec, build_hierarchy
 from repro_torch.core.engine import (
     _check_draft_kv,
+    cascade_rescore,
+    cascade_rescore_verify,
     chain_draft,
     chain_draft_scan,
     chain_prologue,
@@ -86,12 +102,18 @@ from repro_torch.core.engine import (
     tree_verify_accept_commit_host,
     verify_accept_commit,
 )
-from repro_torch.core.latency import CostTracker, best_chain_length, best_tree_expansions
+from repro_torch.core.latency import (
+    CostTracker,
+    best_cascade_plan,
+    best_chain_length,
+    best_tree_expansions,
+)
 from repro_torch.core.pld import PromptLookup
 from repro_torch.core.tree import bucket_for, tree_seed_arrays
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.graph_cond import CondGraph
 from repro_torch.models import model as M
+from repro_torch.serving.draft_bank import DraftBank
 
 PROPOSAL_MODES = ("chain_fused", "legacy", "tree_fused", "cascade_fused")
 ROUND_MODES = ("auto", "single", "split")
@@ -123,7 +145,7 @@ class BatchedSpecServer:
         adaptive: bool = True,         # per-slot adaptive draft budgets
         t_min: float = 1.05,           # min expected speedup to keep drafting
         min_obs: int = 4,              # per-slot observations before adapting
-        mode: Optional[str] = None,    # chain_fused (default) | tree_fused
+        mode: Optional[str] = None,    # chain_fused | legacy | tree_fused | cascade_fused
         tree_expansions: int = 5,      # max tree expansion steps per round
         tree_top_k: int = 2,           # sibling candidates per expansion
         tree_top_p: float = 0.3,       # TOP-P sibling filter (P_tree)
@@ -138,16 +160,25 @@ class BatchedSpecServer:
         prefill_chunk: int = 0,        # >0: in-round chunked prefill (paged, single)
         mesh=None,                     # not ported
         *,
+        fused: bool = True,            # False (with mode unset): legacy per-step drafting
+        hierarchy: Optional[List[DraftSpec]] = None,   # cascade_fused levels
+        int8_exec: str = "auto",       # the bank's int8 path: auto | kernel | sim
         device="cuda",
     ):
-        mode = mode or "chain_fused"
+        if mode is None:
+            mode = "chain_fused" if fused else "legacy"
         if mode not in PROPOSAL_MODES:
             raise ValueError(f"unknown proposal mode {mode!r}; pick one of {PROPOSAL_MODES}")
-        if mode in ("legacy", "cascade_fused"):
-            raise _not_ported(f"mode={mode!r}")
         if round_mode not in ROUND_MODES:
             raise ValueError(f"unknown round_mode {round_mode!r}; pick one of {ROUND_MODES}")
-        self.round_mode = "single" if round_mode == "auto" else round_mode
+        if round_mode == "auto":
+            round_mode = "single" if mode in ("chain_fused", "tree_fused") else "split"
+        if round_mode == "single" and mode not in ("chain_fused", "tree_fused"):
+            raise ValueError(
+                "round_mode='single' applies to chain_fused/tree_fused; legacy IS the per-step "
+                "split baseline, and cascade_fused keeps one dispatch per level (the target "
+                "verify rides the last rescore dispatch instead)")
+        self.round_mode = round_mode
         self.sync_every = max(int(sync_every or 1), 1)
         # carry: the reference's auto choice on attention-only stacks, the only
         # stacks the port builds (models.model._check_stack)
@@ -164,11 +195,19 @@ class BatchedSpecServer:
                              "round_mode='single'")
         if mesh is not None:
             raise _not_ported("mesh serving (mesh=...)")
-        if draft_spec is not None and draft_spec.unsupported_by_gates_only():
-            raise ValueError(
-                f"mode {mode!r} drafts gates-only and cannot honor "
-                f"{', '.join(draft_spec.unsupported_by_gates_only())} on draft_spec "
-                f"{draft_spec.name!r}")
+        if draft_spec is not None:
+            if mode == "cascade_fused":
+                raise ValueError(
+                    "cascade_fused drafts from a hierarchy, not a single draft_spec — pass "
+                    "hierarchy=[...] (or leave both unset for the default mixing hierarchy)")
+            if draft_spec.unsupported_by_gates_only():
+                raise ValueError(
+                    f"mode {mode!r} drafts gates-only and cannot honor "
+                    f"{', '.join(draft_spec.unsupported_by_gates_only())} on draft_spec "
+                    f"{draft_spec.name!r}; mode='cascade_fused' executes quantize/attn_override "
+                    "levels through the draft bank")
+        if hierarchy is not None and mode != "cascade_fused":
+            raise ValueError("hierarchy=... requires mode='cascade_fused'")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, server on {self.device}")
@@ -181,10 +220,17 @@ class BatchedSpecServer:
         self.tree_expansions, self.tree_top_k, self.tree_top_p = (
             tree_expansions, tree_top_k, tree_top_p)
         self.tree_bucket = tree_bucket
-        if mode == "tree_fused":
-            # worst case: root + PLD chain + top_k children per expansion step
+        self.bank: Optional[DraftBank] = None
+        if mode in ("tree_fused", "cascade_fused"):
+            # worst case: root + PLD chain + top_k children per expansion step,
+            # and for a cascade one hedge sibling and one extension per rescorer
+            extra = 0
+            if mode == "cascade_fused":
+                self.bank = DraftBank(cfg, params, hierarchy if hierarchy is not None
+                                      else build_hierarchy(cfg, "mixing"), int8_exec=int8_exec)
+                extra = 2 * len(self.bank.rescorers)
             self.tree_bucket = tree_bucket or bucket_for(
-                1 + draft_k + tree_top_k * tree_expansions)
+                1 + draft_k + tree_top_k * tree_expansions + extra)
         # the draft's layers: the kept ones (slice exec) on a homogeneous
         # stack, else the gate vector (mask exec) — the same numbers
         self._gates = self._layer_ids = None
@@ -220,9 +266,13 @@ class BatchedSpecServer:
         self.contexts: List[List[int]] = [[] for _ in range(max_batch)]
         self.live = np.zeros(max_batch, bool)
         self._pld_have = np.zeros(max_batch, np.int32)   # PLD prefix per round
-        self.stats = {"target_calls": 0, "draft_dispatches": 0, "tokens": 0, "steps": 0,
-                      "host_syncs": 0, "round_dispatches": 0, "device_wait": 0.0,
-                      "draft_rounds": 0, "prefill_rounds": 0, "graph_replays": 0}
+        # the reference's round telemetry (telemetry=, its _telem_host twin
+        # in split rounds) is ROADMAP A.3's: it joins these counters there
+        self.stats = {"target_calls": 0, "draft_dispatches": 0, "rescore_dispatches": 0,
+                      "tokens": 0, "drafted_tokens": 0, "steps": 0, "host_syncs": 0,
+                      "round_dispatches": 0, "device_wait": 0.0, "draft_time": 0.0,
+                      "rescore_time": 0.0, "verify_time": 0.0, "draft_rounds": 0,
+                      "prefill_rounds": 0, "graph_replays": 0}
 
         # carried device state of the single round: pending/live, the PLD
         # context buffer and the per-slot Eq. 4 estimator, at the draft's
@@ -346,6 +396,10 @@ class BatchedSpecServer:
         # continuous batching reuses slots across unrelated requests
         prior = self.draft_spec.prior_alpha if self.draft_spec else 0.5
         self.acceptance.reset(self._slot_key(slot), alpha0=prior)
+        if self.bank is not None:
+            for i in range(len(self.bank)):
+                self.acceptance.reset(self.bank.slot_key(i, slot), alpha0=self.bank.alpha_prior(i))
+            self.acceptance.reset(self.bank.direct_key(slot), alpha0=self.bank.direct_prior())
 
     # -------------------------------------------------- page pool (paged)
     def _alloc_slack(self) -> int:
@@ -429,6 +483,26 @@ class BatchedSpecServer:
         return best_tree_expansions(self.acceptance.alpha(key), max(c, 1e-3),
                                     self.tree_expansions, self.t_min)
 
+    # ----------------------------------------------------- dispatch counts
+    def expected_dispatches_per_round(self) -> int:
+        """Model dispatches of a fully drafting steady-state round, the
+        claim ``stats`` (``round_dispatches``, ``draft_dispatches``,
+        ``rescore_dispatches``, ``target_calls``) is held to:
+
+        single:  1 (the round's graph launch)
+        split:   2 (draft scan + verify), 1 with no neural drafter
+        legacy:  draft_k decode dispatches + 1 verify
+        cascade: L = 1 drafting scan + (L-1) rescores, the target verify in
+                 the last rescore; a 1-level bank is drafting scan + verify.
+        """
+        if self.round_mode == "single":
+            return 1
+        if self.mode == "legacy":
+            return (self.k if self.draft_spec is not None else 0) + 1
+        if self.mode == "cascade_fused":
+            return max(len(self.bank), 2)
+        return 2 if self.draft_spec is not None else 1
+
     # ------------------------------------------------------------- stepping
     def _dev(self, a, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
@@ -458,6 +532,8 @@ class BatchedSpecServer:
                 limit[b] = self._slot_limit(b)
         if self.draft_spec is None:
             return chains, have
+        if self.mode == "legacy":
+            return self._propose_legacy(chains, have, limit)
         return self._propose_fused(chains, have, limit)
 
     def _propose_fused(self, chains, have, limit):
@@ -473,10 +549,46 @@ class BatchedSpecServer:
             layer_ids=self._layer_ids)
         chains, have = ch_d.cpu().numpy(), hv_d.cpu().numpy()
         dt = time.perf_counter() - t0
-        self.stats["draft_dispatches"] += 1
-        self.stats["host_syncs"] += 1
+        self._count_draft(dt)
+        self.stats["drafted_tokens"] += steps
         # per-draft-step latency -> c_hat = draft step / verify round
         self.costs.observe("chain_draft", dt, tokens=steps)
+        return chains, have
+
+    def _count_draft(self, dt: float) -> None:
+        """One drafting dispatch and its host read."""
+        self.stats["draft_dispatches"] += 1
+        self.stats["draft_time"] += dt
+        self.stats["host_syncs"] += 1
+        self.stats["device_wait"] += dt
+
+    def _count_verify(self, dt: float) -> None:
+        """One target dispatch and its host read; its wall time prices the
+        target round."""
+        self.stats["target_calls"] += 1
+        self.stats["verify_time"] += dt
+        self.stats["host_syncs"] += 1
+        self.stats["device_wait"] += dt
+        self.costs.observe_target(dt, tokens=1)
+
+    def _propose_legacy(self, chains, have, limit):
+        """The per-step baseline: one decode of [pending, chain[:j]] per draft
+        position j (causal, the draft's layers), its argmax read on the host
+        after each."""
+        need = self.live & (limit > have)
+        if not need.any():
+            return chains, have
+        lo, hi = int(have[need].min()), int(limit[need].max())
+        for j in range(lo, hi):
+            toks = np.concatenate([self.pending[:, None], chains[:, :j]], axis=1)
+            t0 = time.perf_counter()
+            logits, _ = M.decode_step(self.cfg, self.params, self.cache, self._dev(toks),
+                                      gates=self._gates, layer_ids=self._layer_ids)
+            nxt = logits[:, -1].argmax(dim=-1).cpu().numpy()
+            self._count_draft(time.perf_counter() - t0)
+            fill = (have <= j) & (j < limit)
+            chains[fill, j] = nxt[fill]
+            have = np.maximum(have, np.where(fill, j + 1, have)).astype(np.int32)
         return chains, have
 
     def step(self) -> Dict[int, List[int]]:
@@ -487,16 +599,15 @@ class BatchedSpecServer:
             return self._step_single()
         if self.mode == "tree_fused":
             return self._step_tree()
+        if self.mode == "cascade_fused":
+            return self._step_cascade()
         chains, have = self._propose()
         t0 = time.perf_counter()
         self.cache, _, n_chain, new_pending = verify_accept_commit(
             self.cfg, self.params, self.cache, self._dev(self.pending), self._dev(chains),
             self._dev(have), self._dev(self.live, torch.bool))
         n_chain, new_pending = n_chain.cpu().numpy(), new_pending.cpu().numpy()
-        dt = time.perf_counter() - t0
-        self.stats["host_syncs"] += 1
-        self.stats["target_calls"] += 1
-        self.costs.observe_target(dt, tokens=1)   # per-round target latency
+        self._count_verify(time.perf_counter() - t0)
 
         out: Dict[int, List[int]] = {}
         for b in range(self.B):
@@ -549,8 +660,8 @@ class BatchedSpecServer:
             tokens, parents, count, first_neural = (
                 a.cpu().numpy() for a in (d_tokens, d_parents, d_count, d_first))
             dt = time.perf_counter() - t0
-            self.stats["draft_dispatches"] += 1
-            self.stats["host_syncs"] += 1
+            self._count_draft(dt)
+            self.stats["drafted_tokens"] += int(np.clip(count - have - 1, 0, None).sum())
             # per-expansion-step latency -> the c in the Eq. 5 budgets
             self.costs.observe("tree_draft", dt, tokens=expansions)
 
@@ -558,10 +669,7 @@ class BatchedSpecServer:
         self.cache, path, n_acc, bonus = tree_verify_accept_commit_host(
             self.cfg, self.params, self.cache, d_tokens, d_parents, d_depth, d_mask, d_count,
             self._dev(self.live, torch.bool))
-        dt = time.perf_counter() - t0
-        self.stats["target_calls"] += 1
-        self.stats["host_syncs"] += 1
-        self.costs.observe_target(dt, tokens=1)
+        self._count_verify(time.perf_counter() - t0)
 
         out_toks: Dict[int, List[int]] = {}
         for b in range(self.B):
@@ -585,6 +693,152 @@ class BatchedSpecServer:
         self.pending = np.where(self.live, bonus.astype(np.int64), self.pending)
         self.stats["steps"] += 1
         return out_toks
+
+    # --------------------------------------------------------- cascade round
+    def _slot_cascade_plan(self, b: int):
+        """Eq. 5 routing and budget of one slot: ``(expansions, use_rescore,
+        alpha_eff, rescorer_alphas)``. A slot whose trackers say the cascade
+        does not pay drafts single-level (no rescores) or with PLD alone."""
+        bank = self.bank
+        L = len(bank)
+        alphas = [self.acceptance.alpha(bank.slot_key(i, b), default=bank.alpha_prior(i))
+                  for i in range(L)]
+        cs = [max(self.costs.c_hat(bank.cost_key(i), default=bank.c_prior(i)), 1e-3)
+              for i in range(L - 1)]
+        cs.append(max(self.costs.c_hat("cascade_draft", default=bank.c_prior(L - 1)), 1e-3))
+        alpha_eff = float(np.prod(alphas))
+        # warm-up counts the keys this slot's rounds feed: rescored rounds
+        # observe slot_key(0), single-level rounds direct_key
+        warm = self.acceptance.counts(bank.slot_key(0, b)) + self.acceptance.counts(bank.direct_key(b))
+        if not self.adaptive or warm < self.min_obs:
+            return self.tree_expansions, L > 1, alpha_eff, alphas[: L - 1]
+        a_dir = self.acceptance.alpha(bank.direct_key(b), default=bank.direct_prior())
+        exp, use_rescore = best_cascade_plan(alphas, cs, a_dir, self.tree_expansions, self.t_min)
+        use_rescore = use_rescore and L > 1
+        if not use_rescore:
+            # a single-level round's stop rule uses the alpha its plan chose
+            alpha_eff = a_dir
+        return exp, use_rescore, alpha_eff, alphas[: L - 1]
+
+    def _step_cascade(self) -> Dict[int, List[int]]:
+        """One multi-level cascade round for the whole batch (Alg. 1 over the
+        §4.1 hierarchy): PLD-seeded trees, one drafting scan by the cheapest
+        level, one rescore dispatch per stronger level (none when no slot is
+        routed through them), the last one with the target verify and
+        commit folded in. Returns the accepted tokens per live slot."""
+        bank = self.bank
+        L = len(bank)
+        chains, have = self._pld_chains()
+        exp_b = np.zeros(self.B, np.int32)
+        use_rescore = np.zeros(self.B, bool)
+        alpha_eff = np.full(self.B, 0.5, np.float32)
+        resc_alphas = np.full((max(L - 1, 1), self.B), 0.5, np.float32)
+        for b in range(self.B):
+            if self.live[b]:
+                exp_b[b], use_rescore[b], alpha_eff[b], r_alphas = self._slot_cascade_plan(b)
+                resc_alphas[: len(r_alphas), b] = r_alphas
+        seed = tree_seed_arrays(self.pending.astype(np.int32), chains, have, self.tree_bucket,
+                                pld_alpha=bank.pld.prior_alpha)
+        tree = [torch.as_tensor(a, device=self.device) for a in seed]
+        first_neural = np.full(self.B, -1, np.int32)
+        expansions = int(exp_b.max(initial=0))
+        if expansions > 0:
+            drafter = bank.drafter
+            c = self.costs.c_hat("cascade_draft", default=bank.c_prior(L - 1))
+            t0 = time.perf_counter()
+            out = tree_draft_scan(
+                self.cfg, expansions, self.tree_top_k, drafter.params, self.cache, *tree,
+                self._dev(exp_b), self._dev(alpha_eff, torch.float32),
+                torch.tensor(max(c, 1e-3), dtype=torch.float32, device=self.device),
+                torch.tensor(self.t_min, dtype=torch.float32, device=self.device),
+                self._level_gates(drafter), top_p=self.tree_top_p, draft_kv=self.draft_kv,
+                layer_ids=drafter.layer_ids, quantize=drafter.quantize,
+                attn_override=drafter.attn_override)
+            tree, first_neural = list(out[:6]), out[6].cpu().numpy()
+            dt = time.perf_counter() - t0
+            self._count_draft(dt)
+            self.stats["drafted_tokens"] += int(np.clip(tree[5].cpu().numpy() - have - 1, 0,
+                                                        None).sum())
+            self.costs.observe("cascade_draft", dt, tokens=expansions)
+
+        # the stronger levels, just above the drafter first: each one
+        # dispatch; the probe carries each level's first own prediction to
+        # the next level's Eq. 4 verdict; the strongest carries the verify
+        live = self._dev(self.live, torch.bool)
+        level_node = np.full(self.B, -1, np.int32)
+        if use_rescore.any():
+            apply = self._dev(use_rescore & self.live, torch.bool)
+            probe = self._dev(first_neural)
+            for lvl in bank.rescorers:
+                r = lvl.index
+                last = lvl is bank.rescorers[-1]
+                args = (*tree, probe, apply, self._dev(resc_alphas[r], torch.float32),
+                        self._level_gates(lvl))
+                kw = dict(layer_ids=lvl.layer_ids, quantize=lvl.quantize,
+                          attn_override=lvl.attn_override)
+                t0 = time.perf_counter()
+                if last:
+                    out = cascade_rescore_verify(self.cfg, lvl.params, self.params, self.cache,
+                                                 *args, live, **kw)
+                    self.cache, path, n_acc, bonus = out[9:]
+                else:
+                    out = cascade_rescore(self.cfg, lvl.params, self.cache, *args, **kw)
+                tree, probe = list(out[:6]), out[6]
+                pv, pk = out[8].cpu().numpy(), out[7].cpu().numpy()
+                dt = time.perf_counter() - t0
+                self.stats["rescore_dispatches"] += 1
+                if last:
+                    # the dispatch holds the target verify: its wall time
+                    # prices the target round (the level's own c keeps its prior)
+                    self._count_verify(dt)
+                else:
+                    self.stats["rescore_time"] += dt
+                    self.stats["host_syncs"] += 1
+                    self.stats["device_wait"] += dt
+                    self.costs.observe(bank.cost_key(r), dt, tokens=1)
+                # Eq. 4: this level's verdict on level r+1's first token
+                for b in np.flatnonzero(pv):
+                    self.acceptance.observe(bank.slot_key(r + 1, b), bool(pk[b]))
+            level_node = probe.cpu().numpy()
+        else:
+            t0 = time.perf_counter()
+            self.cache, path, n_acc, bonus = tree_verify_accept_commit_host(
+                self.cfg, self.params, self.cache, tree[0], tree[1], tree[2], tree[4], tree[5],
+                live)
+            self._count_verify(time.perf_counter() - t0)
+
+        tokens, parents = tree[0].cpu().numpy(), tree[1].cpu().numpy()
+        out_toks: Dict[int, List[int]] = {}
+        for b in range(self.B):
+            if not self.live[b]:
+                continue
+            nodes = path[b, : n_acc[b]]
+            acc = [int(tokens[b, i]) for i in nodes]
+            self.contexts[b].extend(acc)
+            out_toks[b] = acc
+            self.stats["tokens"] += len(acc)
+            node_set = {int(i) for i in nodes}
+            # Eq. 4, target-facing (parent-accepted rule): on cascade rounds
+            # at the strongest level's own node; on single-level rounds at
+            # the drafter's first prediction, under the direct tracker
+            fn = int(level_node[b] if use_rescore[b] else first_neural[b])
+            if fn < 0 or int(parents[b, fn]) not in node_set:
+                continue
+            if use_rescore[b]:
+                self.acceptance.observe(bank.slot_key(0, b), fn in node_set)
+            else:
+                self.acceptance.observe(bank.direct_key(b), fn in node_set)
+                if L == 1:
+                    # a 1-level bank's direct acceptance is its level-0 alpha
+                    self.acceptance.observe(bank.slot_key(0, b), fn in node_set)
+        self.pending = np.where(self.live, bonus.astype(np.int64), self.pending)
+        self.stats["steps"] += 1
+        return out_toks
+
+    def _level_gates(self, lvl) -> Optional[torch.Tensor]:
+        """A bank level's gate vector on the device (mask exec), or None."""
+        g = lvl.exec_gates
+        return None if g is None else torch.as_tensor(g, device=self.device)
 
     # ------------------------------------------------------ single rounds
     def _plan(self):

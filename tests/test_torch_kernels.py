@@ -141,7 +141,7 @@ def test_quantized_matmul_matches_pallas(M):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-DECODE_ROWS = [1, 4, 16, 17, 20, 32, 40, 64, 96]
+DECODE_ROWS = [1, 4, 8, 16, 17, 20, 32, 40, 64, 96, 128]
 
 
 @pytest.mark.parametrize("K,N", [(4096, 11008), (11008, 4096), (256, 192)])

@@ -184,13 +184,13 @@ ROUND_LAYERS = 4
 
 
 @functools.lru_cache(maxsize=None)
-def _round_model():
+def _round_model(layers: int = ROUND_LAYERS):
     """vicuna-7b at full width (head dim 128, the kernels' only one) and
-    ROUND_LAYERS layers, float32, random weights from seed 0."""
+    ``layers`` layers, float32, random weights from seed 0."""
     from repro_torch.config import get_config
     from repro_torch.models import init_params
 
-    cfg = dataclasses.replace(get_config("vicuna-7b"), num_layers=ROUND_LAYERS, dtype="float32")
+    cfg = dataclasses.replace(get_config("vicuna-7b"), num_layers=layers, dtype="float32")
     return cfg, init_params(cfg, 0)
 
 
@@ -395,13 +395,15 @@ def _int8_case(M, K, N):
 
 
 @pytest.mark.parametrize("K,N", [(4096, 11008), (11008, 4096), (256, 192)])
-@pytest.mark.parametrize("M", [1, 4, 16, 17, 20, 32, 40, 64, 96])
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 17, 20, 32, 40, 64, 96, 128])
 def test_int8_kernel_bitwise_at_decode_rows_on_card(M, K, N):
-    """Every row count the decode path runs (chain steps of 1-4 rows, tree
-    steps and B=4 x T=5 verifies of 16-20, T=32, B=4 x T=16, and ragged 17,
-    40, 96 across row tiles) at both MLP shapes and a small one whose
-    second 128-column strip ends half way: bitwise equal to the plain
-    version. The plan splits K unevenly at the MLP shapes."""
+    """Every row count the decode path runs (chain steps of 1-4 rows, the
+    cascade drafter's carry steps of B=4 x 2 = 8, tree steps and B=4 x T=5
+    verifies of 16-20, T=32, B=4 x T=16, its seed block of B=4 x 32 = 128
+    in two 64-row tiles, and ragged 17, 40, 96 across row tiles) at both
+    MLP shapes and a small one whose second 128-column strip ends half way:
+    bitwise equal to the plain version. The plan splits K unevenly at the
+    MLP shapes."""
     _card()
     x_q, w_q, xs, ws = _int8_case(M, K, N)
     got = i8.int8_matmul(x_q, w_q, xs, ws)
@@ -421,3 +423,50 @@ def test_int8_kernel_bitwise_under_forced_plans_on_card(M, K, N, bm, splits):
     x_q, w_q, xs, ws = _int8_case(M, K, N)
     got = i8._launch(x_q, w_q, xs, ws, bm, splits)
     assert torch.equal(got, ref.ref_int8_matmul(x_q, w_q, xs, ws))
+
+
+@pytest.mark.parametrize("M", [8, 128])
+def test_prequantized_product_bitwise_equals_dynamic_on_card(M):
+    """A weight quantized once (the cascade bank's int8 level) gives the
+    per-call ``quantized_matmul`` bit for bit, through the kernel."""
+    dev = _card()
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(M)
+    x = torch.randn(M, 4096, generator=gen, device=dev)
+    w = torch.randn(4096, 11008, generator=gen, device=dev) / 64
+    before = i8.launches
+    got = ops.quantized_matmul(x, ops.prequantize(w))
+    assert i8.launches == before + 1
+    assert torch.equal(got, ops.quantized_matmul(x, w))
+
+
+# ------------------------------------------------------------- the cascade
+def test_cascade_server_on_card():
+    """``cascade_fused`` (the default mixing hierarchy) at vicuna-7b width
+    and two layers: ``int8_exec="auto"`` resolves to the kernel on CUDA,
+    every stream equals AR, and the int8 level launches the W8A8 kernel."""
+    _card()
+    from repro_torch.core import SpecEngine
+    from repro_torch.serving import BatchedSpecServer
+
+    cfg, params = _round_model(2)
+    srv = BatchedSpecServer(cfg, params, mode="cascade_fused", max_batch=2, max_len=256,
+                            min_obs=1)
+    assert srv.bank.int8_exec == "kernel" and srv.bank.drafter.quantize == "int8"
+    assert srv.bank.param_bytes > 0
+    rng = np.random.default_rng(2)
+    prompts = [np.tile(rng.integers(0, cfg.vocab_size, size=n), 3).astype(np.int32)
+               for n in (6, 11)]
+    for b, p in enumerate(prompts):
+        srv.add_request(b, p)
+    before = i8.launches
+    gen = {0: [], 1: []}
+    for _ in range(6):
+        for b, toks in srv.step().items():
+            gen[b].extend(toks)
+    assert i8.launches > before and srv.stats["draft_dispatches"] > 0
+    for b, p in enumerate(prompts):
+        eng = SpecEngine(cfg, params, max_len=256)
+        eng.start(p)
+        assert gen[b] == eng.generate_ar(len(gen[b])), f"slot {b} left AR"

@@ -199,8 +199,6 @@ def test_page_pool_budget_and_exhaustion():
 
 UNPORTED = {
     "sampling": dict(sampling=object()),
-    "mode legacy": dict(mode="legacy"),
-    "mode cascade_fused": dict(mode="cascade_fused"),
     "mesh": dict(mesh=object()),
 }
 
