@@ -1026,23 +1026,30 @@ SERVER = dict(max_batch=4, max_len=1024, draft_k=4, tree_expansions=5, adaptive=
 PAGE = 64
 
 
-def _serve(torch, srv, prompts, ar_streams, readmit=(), late=()):
+def _serve(torch, srv, prompts, ar_streams, readmit=(), late=(), sampling=None):
     """Admit ``prompts`` into slots 0.. (those in ``late`` after two
     rounds, mid-stream), step until every slot holds GEN_TOKENS tokens (a
     finished slot is released; the slots in ``readmit`` are admitted once
     more with the same prompt, onto the pages they gave back, in reverse
-    order), and hold every stream to its AR stream. Returns a record of
+    order), and hold every stream to its AR stream (none: ``ar_streams``
+    None). ``sampling``: a ``SamplingParams`` per prompt, passed at every
+    admission of it. Returns a record of
     the run, with the mean wall time of the steps whose round prefilled a
     chunk, of those that ran the draft and no chunk, and of those that ran
     neither (read from the drained round, so only where each step drains),
-    and each step's wall ms and stats deltas. Kernel launches are the
-    wrappers' counts plus, in single mode, those of the server's graph
-    launches."""
+    and each step's wall ms and stats deltas, and the streams. Kernel
+    launches are the wrappers' counts plus, in single mode, those of the
+    server's graph launches."""
     paged_kw = dict(max_new_tokens=GEN_TOKENS) if srv.paged else {}
+
+    def admit(b):
+        srv.add_request(b, prompts[b], sampling=None if sampling is None else sampling[b],
+                        **paged_kw)
+
     pending = list(late)
-    for b, p in enumerate(prompts):
+    for b in range(len(prompts)):
         if b not in pending:
-            srv.add_request(b, p, **paged_kw)
+            admit(b)
     todo = list(readmit)
     gen = {b: [] for b in range(len(prompts)) if b not in pending}
     done = []                                      # (prompt index, stream)
@@ -1053,7 +1060,7 @@ def _serve(torch, srv, prompts, ar_streams, readmit=(), late=()):
     while gen or pending:
         if pending and srv.stats["steps"] - steps0["steps"] == 2:
             for b in pending:
-                srv.add_request(b, prompts[b], **paged_kw)
+                admit(b)
                 gen[b] = []
             pending = []
         slot_rounds += len(gen)
@@ -1071,7 +1078,7 @@ def _serve(torch, srv, prompts, ar_streams, readmit=(), late=()):
             srv.release(b)
             if b in todo:
                 todo.remove(b)
-                srv.add_request(b, prompts[b], **paged_kw)
+                admit(b)
                 gen[b] = []
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1080,7 +1087,7 @@ def _serve(torch, srv, prompts, ar_streams, readmit=(), late=()):
         counts[k] += v - graph0.get(k, 0)
     st = {k: v - steps0[k] for k, v in srv.stats.items()}
     for i, stream in done:
-        if stream[:GEN_TOKENS] != ar_streams[i][:GEN_TOKENS]:
+        if ar_streams is not None and stream[:GEN_TOKENS] != ar_streams[i][:GEN_TOKENS]:
             raise AssertionError(f"prompt {i}: the server's stream left AR:\n"
                                  f"AR     {ar_streams[i][:GEN_TOKENS]}\nserver {stream[:GEN_TOKENS]}")
     def mean_ms(kind):
@@ -1094,7 +1101,7 @@ def _serve(torch, srv, prompts, ar_streams, readmit=(), late=()):
                 tokens_per_slot_round=st["tokens"] / slot_rounds, wall_s=wall,
                 ms_per_round=wall / st["steps"] * 1e3, launches=counts,
                 launches_per_round={k: v / st["steps"] for k, v in counts.items()},
-                per_step=per_step, step_ms=step_ms,
+                per_step=per_step, step_ms=step_ms, streams=done,
                 **{f"ms_{kind}": mean_ms(kind) for kind in ("prefilled", "ran", "skipped")})
 
 
@@ -1190,7 +1197,7 @@ def phase_server(torch, ar_streams: list, results: dict) -> dict:
     _profile_rounds(torch, server("tree_fused", False, round_mode="split"), prompts, 6)
     torch.cuda.empty_cache()
     return dict(cfg=cfg, params=params, spec=spec, prompts=prompts, ar_streams=ar_streams,
-                split_ms=split_ms, server=server)
+                split_ms=split_ms, server=server, greedy={})
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1326,6 +1333,7 @@ def phase_single(torch, served: dict, results: dict) -> None:
         _check_launches(name, rec["launches"], is_paged)
         for k in launches:
             launches[k] += rec["launches"][k]
+        served["greedy"][name] = dict(rec, capture_s=srv.capture_s, pool=srv.graph_pool_bytes)
         del srv
         torch.cuda.empty_cache()
     for k, v in launches.items():
@@ -1463,12 +1471,257 @@ def phase_cascade(torch, served: dict, results: dict) -> None:
             raise AssertionError(f"{name}: {w8a8:.2f} W8A8 launches per round "
                                  f"({'an' if with_int8 else 'no'} int8 level)")
         results["int8_matmul"]["launches"] += rec["launches"]["int8_matmul"]
+        served["greedy"][name] = rec
         del srv, bank
         torch.cuda.empty_cache()
     srv = BatchedSpecServer(cfg, params, mode="cascade_fused", round_mode="split", **SERVER)
     _profile_rounds(torch, srv, prompts, 8)
     del srv
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ phase 9
+STOCH = dict(temperature=0.8, top_k=20, top_p=0.9)
+
+
+def _bits(torch, t):
+    return t.cpu().view(torch.int32) if t.dtype == torch.float32 else t.cpu()
+
+
+def _sampling_on_card(torch, vocab: int) -> None:
+    """The sampled path's plain-PyTorch pieces on the card: the threefry key
+    stream bitwise against the same calls on the CPU, the warp
+    (``sampling_probs``) within 1e-6 of the CPU's with the same support at
+    a cascade verify's shape (B=4, 32 nodes, the full vocabulary), and the
+    key split, warp and stochastic walk of one verify timed at the
+    tree_fused (16 nodes) and cascade (32) buckets: CUDA events, graph
+    replay (as the single round runs them) and the profiler's device time."""
+    from repro_torch.core import prng, verify
+
+    keys = prng.split(prng.prng_key(SEED + 11), 4)
+    kd = keys.cuda()
+    pairs = {"prng_key": (prng.prng_key(2**31 - 1, device="cuda"), prng.prng_key(2**31 - 1)),
+             "split": (prng.split(kd, 5), prng.split(keys, 5)),
+             "fold_in": (prng.fold_in(kd, 3), prng.fold_in(keys, 3)),
+             "round_uniforms": (verify.round_uniforms(kd, 32)[1],
+                                verify.round_uniforms(keys, 32)[1])}
+    for n in (1, 5, 33):
+        pairs[f"uniform n={n}"] = (prng.uniform(kd, n), prng.uniform(keys, n))
+    bad = [k for k, (g, w) in pairs.items() if not torch.equal(_bits(torch, g), _bits(torch, w))]
+    print(f"[phase 9] threefry on the card against the CPU: {len(pairs) - len(bad)} of "
+          f"{len(pairs)} bitwise equal ({', '.join(pairs)})")
+    if bad:
+        raise AssertionError(f"phase 9: the card's key stream differs from the CPU's: {bad}")
+    gen = torch.Generator().manual_seed(SEED + 9)
+    B = 4
+    params = (torch.tensor([0.8, 0.0, 1.0, 0.6]), torch.tensor([20, 0, 0, 50], dtype=torch.int32),
+              torch.tensor([0.9, 1.0, 0.5, 1.0]))
+    logits = torch.randn(B, 32, vocab, generator=gen) * 3
+    want = verify.sampling_probs(logits, *params)
+    p_dev = [t.cuda() for t in params]
+    got = verify.sampling_probs(logits.cuda(), *p_dev).cpu()
+    err = (got - want).abs().max().item()
+    print(f"[phase 9] sampling_probs (4, 32, {vocab}) on the card against the CPU: max abs "
+          f"{err:.3e} (tolerance 1e-6), same support {torch.equal(got > 0, want > 0)}")
+    if err > 1e-6 or not torch.equal(got > 0, want > 0):
+        raise AssertionError("phase 9: sampling_probs on the card differs from the CPU's")
+    for N in (16, 32):
+        lg = (torch.randn(B, N, vocab, generator=gen) * 3).cuda()
+        q = verify.sampling_probs(lg, *p_dev)
+        # a random tree per slot whose first child at each node is the
+        # target's head token there, so that walks go deep
+        parents = torch.tensor([[-1] + [int(torch.randint(0, j, (1,), generator=gen))
+                                        for j in range(1, N)] for _ in range(B)], dtype=torch.int32)
+        tokens = torch.randint(0, vocab, (B, N), generator=gen, dtype=torch.int32)
+        head = q.argmax(-1).cpu()
+        for b in range(B):
+            seen = set()
+            for j in range(1, N):
+                p = int(parents[b, j])
+                if p not in seen:
+                    tokens[b, j] = head[b, p]
+                    seen.add(p)
+        tokens, parents = tokens.cuda(), parents.cuda()
+        count = torch.full((B,), N, dtype=torch.int32).cuda()
+        u = verify.round_uniforms(kd, N)[1]
+        fns = {"key split": lambda: verify.round_uniforms(kd, N),
+               "warp": lambda: verify.sampling_probs(lg, *p_dev),
+               "walk": lambda: verify.sample_accept_tree_batched(tokens, parents, count, q, u)}
+        ms = {k: (_time_ms(f, lambda: None), _graph_ms(f, lambda: None), _busy_ms(f))
+              for k, f in fns.items()}
+        n_acc = verify.sample_accept_tree_batched(tokens, parents, count, q, u)[1]
+        print(f"[phase 9] one verify's sampling, B=4, {N} nodes, V={vocab}, ms by events / graph "
+              "replay / device (profiler): "
+              + ", ".join(f"{k} {a:.4f} / {g:.4f} / {d:.4f}" for k, (a, g, d) in ms.items())
+              + f"; all three {sum(v[1] for v in ms.values()):.4f} ms by graph replay "
+              f"(accepted nodes per slot {n_acc.tolist()})")
+
+
+def _check_single(name: str, rec: dict, srv) -> None:
+    if (rec["host_syncs"] * srv.sync_every != rec["rounds"] or rec["draft_dispatches"]
+            or rec["graph_replays"] != rec["rounds"]):
+        raise AssertionError(f"{name}: {rec['host_syncs']} host syncs and "
+                             f"{rec['graph_replays']} replays in {rec['rounds']} rounds")
+
+
+def _check_dispatches(name: str, rec: dict, srv) -> list:
+    disp = [_dispatches(st) for st in rec["per_step"]]
+    if max(disp) > srv.expected_dispatches_per_round():
+        raise AssertionError(f"{name}: dispatches per round {disp}, expected at most "
+                             f"{srv.expected_dispatches_per_round()}")
+    return disp
+
+
+def _line(rec: dict) -> str:
+    return (f"{rec['rounds']} rounds, {rec['tokens_per_slot_round']:.2f} tokens per slot-round, "
+            f"{rec['ms_per_round']:.2f} ms per round")
+
+
+def _replay_equals_eager(torch, served, samp) -> None:
+    """One captured sampled tree_fused round against the same round run
+    eagerly by a twin server on the card: the tokens, every carried state
+    tensor (the keys included) and every cache leaf bitwise equal."""
+    from repro_torch.models.model import tree_map
+    from repro_torch.serving.sampler import SamplingParams
+
+    twins = [served["server"]("tree_fused", False, round_mode="single",
+                              sampling=SamplingParams(**STOCH)) for _ in range(2)]
+    twins[1]._graph = None
+    outs = []
+    for srv in twins:
+        for b, p in enumerate(served["prompts"]):
+            srv.add_request(b, p, sampling=samp[b])
+        outs.append(srv.step())
+    torch.cuda.synchronize()
+    leaves = [[], []]
+    for srv, acc in zip(twins, leaves):
+        tree_map(acc.append, srv.cache)
+    same = (outs[0] == outs[1]
+            and all(torch.equal(twins[0].dstate[k], twins[1].dstate[k]) for k in twins[0].dstate)
+            and all(torch.equal(a, b) for a, b in zip(*leaves)))
+    print(f"[phase 9] one sampled tree_fused round, graph replay against eager on the card: "
+          f"tokens, dstate ({len(twins[0].dstate)} tensors) and {len(leaves[0])} cache leaves "
+          f"bitwise equal {same}")
+    if not same:
+        raise AssertionError("phase 9: a captured sampled round differs from the eager round")
+
+
+def phase_sampled(torch, served: dict, results: dict) -> None:
+    """Sampled serving at vicuna-7b width, float32, four slots, phase 6's
+    prompts, GEN_TOKENS a request. A sampled build at temperature 0 serves
+    tree_fused dense in single and in split rounds, chain_fused paged with
+    chunked prefill (the 200-token prompt admitted mid-stream), the mixing
+    cascade and legacy: every stream equals AR. At temperature 0.8, top-k
+    20, top-p 0.9 and per-request seeds 11 + i, tree_fused single and the
+    mixing cascade are each served by two fresh servers: identical streams,
+    every token in the vocabulary, one graph launch and 1 / sync_every host
+    syncs a single round, at most ``expected_dispatches_per_round()`` model
+    dispatches a cascade round. Before serving, the device checks of
+    ``_sampling_on_card``; then one captured sampled round against the
+    eager one. Rounds are timed beside phases 7 and 8's greedy ones."""
+    from repro_torch.serving.sampler import SamplingParams
+
+    cfg, prompts, ar_streams = served["cfg"], served["prompts"], served["ar_streams"]
+    _sampling_on_card(torch, cfg.vocab_size)
+    greedy0 = SamplingParams(temperature=0.0)
+    stoch = SamplingParams(**STOCH)
+    seeded = [SamplingParams(**STOCH, seed=11 + i) for i in range(len(prompts))]
+    make = served["server"]
+    launches = {k: 0 for k in _counters()}
+
+    def count(rec):
+        for k in launches:
+            launches[k] += rec["launches"][k]
+
+    zero_runs = [
+        ("tree_fused dense, single", dict(mode="tree_fused", paged=False, round_mode="single"), ()),
+        ("chain_fused paged, single, prefill_chunk=64, 200-token prompt admitted mid-stream",
+         dict(mode="chain_fused", paged=True, round_mode="single", prefill_chunk=64), (3,)),
+        ("tree_fused dense, split", dict(mode="tree_fused", paged=False, round_mode="split"), ()),
+        ("cascade_fused mixing dense", dict(mode="cascade_fused", paged=False, draft=False,
+                                            round_mode="split"), ()),
+        ("legacy LS0.5 dense", dict(mode="legacy", paged=False, round_mode="split"), ()),
+    ]
+    for name, kw, late in zero_runs:
+        srv = make(sampling=greedy0, **kw)
+        rec = _serve(torch, srv, prompts, ar_streams, late=late)
+        count(rec)
+        extra = ""
+        if srv.round_mode == "single":
+            _check_single(name, rec, srv)
+            extra = (f", {rec['host_syncs'] / rec['rounds']:.2f} host syncs and "
+                     f"{rec['graph_replays'] / rec['rounds']:.2f} graph launches per round")
+        else:
+            disp = _check_dispatches(name, rec, srv)
+            extra = (f", dispatches per round max {max(disp)} "
+                     f"(expected {srv.expected_dispatches_per_round()})")
+        if srv.prefill_chunk and rec["prefill_rounds"] < 4:
+            raise AssertionError(f"{name}: {rec['prefill_rounds']} prefill rounds")
+        print(f"[phase 9] temperature 0, {name}: {rec['requests']} requests identical to AR | "
+              f"{_line(rec)}{extra} | launches per round: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in rec["launches_per_round"].items()))
+        del srv
+        torch.cuda.empty_cache()
+
+    greedy = served["greedy"]
+    for name, kw, ref in (
+            ("tree_fused dense, single", dict(mode="tree_fused", paged=False, round_mode="single"),
+             "tree_fused dense"),
+            ("cascade_fused mixing dense", dict(mode="cascade_fused", paged=False, draft=False,
+                                                round_mode="split"), "cascade_fused mixing dense")):
+        recs, streams = [], []
+        for _ in range(2):
+            srv = make(sampling=stoch, **kw)
+            rec = _serve(torch, srv, prompts, None, sampling=seeded)
+            count(rec)
+            recs.append(rec)
+            streams.append(sorted((i, s[:GEN_TOKENS]) for i, s in rec["streams"]))
+            if srv.round_mode == "single":
+                _check_single(name, rec, srv)
+                cap = (f"capture {srv.capture_s * 1e3:.1f} ms (greedy "
+                       f"{greedy[ref]['capture_s'] * 1e3:.1f}), graph pool "
+                       f"{srv.graph_pool_bytes / 2**20:.1f} MiB (greedy "
+                       f"{greedy[ref]['pool'] / 2**20:.1f})")
+                kinds = ", ".join(f"{rec['ms_' + k][1]} that {text} at {rec['ms_' + k][0]:.2f} ms "
+                                  f"(greedy {greedy[ref]['ms_' + k][0]:.2f})"
+                                  for k, text in (("ran", "ran the draft"),
+                                                  ("skipped", "skipped it")) if rec["ms_" + k][1])
+                detail = (f"{rec['host_syncs'] / rec['rounds']:.2f} host syncs and "
+                          f"{rec['graph_replays'] / rec['rounds']:.2f} graph launches per round; "
+                          f"{kinds}; {cap}")
+            else:
+                disp = _check_dispatches(name, rec, srv)
+                # the Eq. 4 observations the routing warms up on (min_obs each)
+                bank = srv.bank
+                obs = [srv.acceptance.counts(bank.slot_key(0, b))
+                       + srv.acceptance.counts(bank.direct_key(b)) for b in range(len(prompts))]
+                rescored = [sum(1 for st in r["per_step"] if st["rescore_dispatches"])
+                            for r in (rec, greedy[ref])]
+                detail = (f"dispatches per round mean {sum(disp) / len(disp):.2f}, max {max(disp)} "
+                          f"(expected at most {srv.expected_dispatches_per_round()}), "
+                          f"{rescored[0]} rounds rescored (greedy {rescored[1]}), Eq. 4 "
+                          f"observations of the last requests per slot {obs} (min_obs "
+                          f"{srv.min_obs})")
+            print(f"[phase 9] T 0.8 top-k 20 top-p 0.9, seeds 11-{10 + len(prompts)}, {name}: "
+                  f"{_line(rec)} (greedy {greedy[ref]['ms_per_round']:.2f} ms, "
+                  f"{greedy[ref]['tokens_per_slot_round']:.2f} tokens per slot-round) | {detail} | "
+                  "launches per round: "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in rec["launches_per_round"].items()))
+            del srv
+            torch.cuda.empty_cache()
+        if streams[0] != streams[1]:
+            raise AssertionError(f"{name}: two fresh sampled servers gave different streams")
+        toks = [t for _, s in streams[0] for t in s]
+        if len(streams[0]) != len(prompts) or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"{name}: streams {streams[0]}")
+        print(f"[phase 9] {name}: the two servers' stochastic streams are identical "
+              f"({len(toks)} tokens, all in the vocabulary; "
+              f"{sum(t == a for (i, s) in streams[0] for t, a in zip(s, ar_streams[i]))} "
+              f"agree with AR position by position)")
+    _replay_equals_eager(torch, served, seeded)
+    print(f"[phase 9] kernel launches of the served runs: {launches}")
+    for k, v in launches.items():
+        results[k]["launches"] += v
 
 
 # ------------------------------------------------------------------ main
@@ -1502,6 +1755,7 @@ def main() -> int:
     served = timed("phase 6", phase_server, torch, ar_streams, results)
     timed("phase 7", phase_single, torch, served, results)
     timed("phase 8", phase_cascade, torch, served, results)
+    timed("phase 9", phase_sampled, torch, served, results)
     del served
     torch.cuda.empty_cache()
     print(f"[chip_smoke] all phases in {time.perf_counter() - t_all:.1f} s")

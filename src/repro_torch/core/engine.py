@@ -3,7 +3,8 @@ execution + tree verification) and the batched server's round functions
 (``chain_draft_scan``, ``tree_draft_scan``, the cascade's
 ``cascade_rescore`` and ``cascade_rescore_verify``, ``verify_accept_commit``,
 ``tree_verify_accept_commit`` and its host-walk twin for the split rounds,
-and the single-dispatch rounds ``chain_round`` / ``tree_round``).
+their ``*_sampled`` twins, and the single-dispatch rounds ``chain_round`` /
+``tree_round``).
 
 Execution modes for layer-gated drafts:
   - "slice": run only the kept layers (fewer FLOPs — the honest speed of a
@@ -31,7 +32,7 @@ token-identical; the last step's decode, whose output no later step reads,
 is skipped).
 
 ``chain_round`` and ``tree_round`` are the reference's single-dispatch
-rounds, greedy: PLD over a carried context buffer, the Eq. 5 budgets from
+rounds: PLD over a carried context buffer, the Eq. 5 budgets from
 the carried Eq. 4 state, the draft, the verify, the accepted-path walk,
 the cache and context commit and the EMA update, with fixed shapes and no
 host read. Each is the composition of three segments, ``*_prologue``,
@@ -44,6 +45,13 @@ it ran. Run eagerly here, the draft runs masked by the budgets: where none
 needs it, it writes nothing. ``prefill_chunk_stage`` is the reference's
 chunked prefill, which the server runs ahead of the prologue behind a
 conditional node of its own.
+
+Sampled serving (the reference's ``sampling=``): the verifies accept by
+speculative sampling against the warped target distribution
+(``core/verify.py``) on uniforms split from per-slot threefry keys
+(``core/prng.py``) with tensor ops, so the keys are carried device state
+and a sampled round adds no dispatch and no host read; ``temp <= 0``
+slots reduce to the greedy rule token for token.
 """
 from __future__ import annotations
 
@@ -55,6 +63,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.config.base import ModelConfig
+from repro_torch.core import prng
 from repro_torch.core import verify as verify_lib
 from repro_torch.core.acceptance import AcceptanceTracker, ema_update
 from repro_torch.core.dsia import DraftSpec
@@ -488,7 +497,7 @@ def cascade_rescore(
     layer_ids: Optional[List[int]] = None,   # kept layers (slice exec)
     quantize: Optional[str] = None,   # "int8": W8A8 MLP matmuls
     attn_override: Optional[dict] = None,    # efficient-attention DSIA
-    sampling=None,                    # not ported: greedy only
+    sampling: Optional[tuple] = None, # (temp (B,), top_k (B,), top_p (B,), u (B, N+2))
 ):
     """One intermediate-verify dispatch of a stronger cascade level (Alg. 1's
     level-to-level acceptance, batched). The level decodes the padded node
@@ -511,10 +520,15 @@ def cascade_rescore(
     continuation of the root (-1 if none), the next level's Eq. 4
     observation point; ``probe_ok`` / ``probe_valid`` are this level's
     verdict on the input node ``probe``, valid only when its ancestors were
-    all endorsed. The reference's stochastic rule (``sampling``) is a later
-    slice."""
-    if sampling is not None:
-        raise NotImplementedError("cascade_rescore: sampling is not ported yet (ROADMAP queue A)")
+    all endorsed.
+
+    ``sampling`` switches on the stochastic rule: a node is endorsed iff
+    its uniform ``u[:, j] < q_level[parent](token)`` (``q_level`` the
+    level's warped distribution, ``verify.sampling_probs``), and the hedge
+    and extension tokens are inverse-CDF draws from ``q_level`` at
+    uniforms ``u[:, N]`` and ``u[:, N + 1]`` instead of argmaxes. This
+    shapes the proposal only: the target's stochastic walk keeps the round
+    lossless in law whatever the tree."""
     B, N = tokens.shape
     dev = tokens.device
     b_idx = torch.arange(B, device=dev)
@@ -528,7 +542,14 @@ def cascade_rescore(
     has_parent = real & (parents >= 0)                           # non-root live
     p_clip = parents.clamp(0, N - 1).long()
     parent_nxt = nxt.gather(1, p_clip)
-    ok = torch.where(has_parent, tokens == parent_nxt, True)
+    if sampling is None:
+        ok = torch.where(has_parent, tokens == parent_nxt, True)
+    else:
+        s_temp, s_topk, s_topp, s_u = sampling
+        q_lvl = verify_lib.sampling_probs(logits, s_temp, s_topk, s_topp)   # (B, N, V)
+        V = q_lvl.shape[-1]
+        tok_p = q_lvl.reshape(B, N * V).gather(1, p_clip * V + tokens.long())
+        ok = torch.where(has_parent, s_u[:, :N] < tok_p, True)
     bad = has_parent & ~ok
     eye = torch.eye(N, dtype=torch.bool, device=dev)[None]
     anc_bad = (mask & ~eye & bad[:, None, :]).any(dim=-1)        # a bad proper ancestor
@@ -565,11 +586,16 @@ def cascade_rescore(
     has_hedge = cand.any(dim=1)
     hedge_src = torch.where(cand, depth, N + 1).argmin(dim=1)
     hedge_at = p_clip[b_idx, hedge_src].to(torch.int32)
-    hedge_tok = parent_nxt[b_idx, hedge_src]
-    state = append(*state, torch.where(has_hedge, hedge_at, 0), hedge_tok, apply & has_hedge)
     # extend: one child below the deepest fully endorsed node
     frontier = torch.where(endorsed, depth, -1).argmax(dim=1).to(torch.int32)
-    state = append(*state, frontier, nxt[b_idx, frontier.long()], apply)
+    if sampling is None:
+        hedge_tok = parent_nxt[b_idx, hedge_src]
+        ext_tok = nxt[b_idx, frontier.long()]
+    else:
+        hedge_tok = verify_lib._inv_cdf(q_lvl[b_idx, hedge_at.long()], s_u[:, N])
+        ext_tok = verify_lib._inv_cdf(q_lvl[b_idx, frontier.long()], s_u[:, N + 1])
+    state = append(*state, torch.where(has_hedge, hedge_at, 0), hedge_tok, apply & has_hedge)
+    state = append(*state, frontier, ext_tok, apply)
     tokens, parents, depth, p_acc, mask, count = state
 
     # this level's Eq. 4 observation point: the depth-1 node carrying its
@@ -601,6 +627,29 @@ def verify_accept_commit(cfg: ModelConfig, params: dict, cache: dict, pending: t
     return cache, nxt, n_chain, new_pending
 
 
+def verify_accept_commit_sampled(cfg: ModelConfig, params: dict, cache: dict,
+                                 pending: torch.Tensor, chains: torch.Tensor, have: torch.Tensor,
+                                 live: torch.Tensor, temp: torch.Tensor, top_k: torch.Tensor,
+                                 top_p: torch.Tensor, u: torch.Tensor):
+    """``verify_accept_commit`` with speculative-sampling acceptance against
+    the warped target distribution (``verify.sample_accept_chain_batched``)
+    instead of argmax matching; ``u`` (B, k+1) are the round's uniforms,
+    split on the device from the carried keys. Slots with ``temp <= 0`` get
+    a one-hot q and accept exactly what the greedy verify accepts. Returns
+    (cache, n_chain (B,), new_pending (B,)), int32 tensors."""
+    toks = torch.cat([pending[:, None], chains], dim=1).to(torch.int32)
+    logits, staged = M.decode_step(cfg, params, cache, toks)
+    B, K = chains.shape
+    q = verify_lib.sampling_probs(logits, temp, top_k, top_p)          # (B, k+1, V)
+    n_chain, new_pending = verify_lib.sample_accept_chain_batched(chains, have, q, u[:, :K],
+                                                                   u[:, K])
+    n_chain = torch.where(live, n_chain, 0)
+    n_acc = torch.where(live, n_chain + 1, 0).to(torch.int32)           # + pending
+    steps = torch.arange(K + 1, device=toks.device)
+    cache = M.commit_cache(cfg, cache, staged, steps[None].expand(B, K + 1), n_acc)
+    return cache, n_chain, new_pending
+
+
 def tree_verify_accept_commit(cfg: ModelConfig, params: dict, cache: dict,
                               tokens: torch.Tensor, parents: torch.Tensor, depth: torch.Tensor,
                               mask: torch.Tensor, count: torch.Tensor, live: torch.Tensor):
@@ -616,6 +665,26 @@ def tree_verify_accept_commit(cfg: ModelConfig, params: dict, cache: dict,
     n_acc = torch.where(live, n_acc, 0)
     cache = M.commit_cache(cfg, cache, staged, path, n_acc)
     return cache, path, n_acc, bonus
+
+
+def tree_verify_accept_commit_sampled(cfg: ModelConfig, params: dict, cache: dict,
+                                      tokens: torch.Tensor, parents: torch.Tensor,
+                                      depth: torch.Tensor, mask: torch.Tensor,
+                                      count: torch.Tensor, live: torch.Tensor,
+                                      temp: torch.Tensor, top_k: torch.Tensor,
+                                      top_p: torch.Tensor, u: torch.Tensor):
+    """``tree_verify_accept_commit`` with the stochastic tree walk against
+    the warped target distribution (``verify.sample_accept_tree_batched``,
+    one uniform of ``u`` (B, N) per step); ``temp <= 0`` slots walk the
+    greedy path. Returns (cache, path_idx (B, N), n_acc (B,), next token
+    (B,)), int32 tensors; no host read."""
+    logits, staged = M.decode_step(cfg, params, cache, tokens, tree_mask=mask,
+                                   q_pos=cache["pos"][:, None] + depth)
+    q = verify_lib.sampling_probs(logits, temp, top_k, top_p)          # (B, N, V)
+    path, n_acc, nxt = verify_lib.sample_accept_tree_batched(tokens, parents, count, q, u)
+    n_acc = torch.where(live, n_acc, 0)
+    cache = M.commit_cache(cfg, cache, staged, path, n_acc)
+    return cache, path, n_acc, nxt
 
 
 def tree_verify_accept_commit_host(cfg: ModelConfig, params: dict, cache: dict,
@@ -644,21 +713,38 @@ def cascade_rescore_verify(cfg: ModelConfig, level_params: dict, target_params: 
                            tokens, parents, depth, p_acc, mask, count, probe, apply, alpha,
                            gates, live: torch.Tensor, *, layer_ids: Optional[List[int]] = None,
                            quantize: Optional[str] = None, attn_override: Optional[dict] = None,
-                           sampling=None):
+                           sampling: Optional[tuple] = None):
     """The cascade's last rescore with the target verify folded in: the
     strongest level's ``cascade_rescore``, then the target's verify and
     commit over the rescored tree, so an L-level round is 1 draft + (L-2)
     rescores + this. The port runs cascades in split rounds, which read the
-    outcome on the host anyway, so the verify is
+    outcome on the host anyway, so the greedy verify is
     ``tree_verify_accept_commit_host`` (the same path and commit as the
     reference's device walk). Returns the rescore's nine outputs followed by
-    (cache, path, n_acc, bonus), the last three numpy arrays."""
+    (cache, path, n_acc, bonus), the last three numpy arrays.
+
+    ``sampling`` = (temp, top_k, top_p, keys (B, 2)): the keys are split
+    into 2N + 2 uniforms, N + 2 for the stochastic rescore and N for the
+    stochastic walk of the target's verify
+    (``tree_verify_accept_commit_sampled``), and the advanced keys are
+    returned last."""
+    N = tokens.shape[1]
+    resc_sampling = None
+    if sampling is not None:
+        s_temp, s_topk, s_topp, keys = sampling
+        new_keys, u = verify_lib.round_uniforms(keys, 2 * N + 2)
+        resc_sampling = (s_temp, s_topk, s_topp, u[:, :N + 2])
     out = cascade_rescore(cfg, level_params, cache, tokens, parents, depth, p_acc, mask, count,
                           probe, apply, alpha, gates, layer_ids=layer_ids, quantize=quantize,
-                          attn_override=attn_override, sampling=sampling)
+                          attn_override=attn_override, sampling=resc_sampling)
     tokens, parents, depth, _, mask, count = out[:6]
-    return out + tree_verify_accept_commit_host(cfg, target_params, cache, tokens, parents, depth,
-                                                mask, count, live)
+    if sampling is None:
+        return out + tree_verify_accept_commit_host(cfg, target_params, cache, tokens, parents,
+                                                    depth, mask, count, live)
+    cache, path, n_acc, nxt = tree_verify_accept_commit_sampled(
+        cfg, target_params, cache, tokens, parents, depth, mask, count, live, s_temp, s_topk,
+        s_topp, u[:, N + 2:])
+    return out + (cache, path.cpu().numpy(), n_acc.cpu().numpy(), nxt.cpu().numpy(), new_keys)
 
 
 # ===================================================== single-dispatch rounds
@@ -738,17 +824,38 @@ def chain_draft(cfg: ModelConfig, params: dict, cache: dict, state: dict, mid: d
     mid["have"].copy_(have)
 
 
-def chain_tail(cfg: ModelConfig, params: dict, cache: dict, state: dict, mid: dict):
+def _advance_keys(state: dict, n: int):
+    """The live-gated key advance of a sampled round: split every slot's key
+    into its next key and ``n`` uniforms, and keep the old key where the
+    slot is dead, so a dead slot's stream stays put and a slot still
+    prefilling reaches its first decode round with the key admission
+    bound. Returns (keys, u)."""
+    new_keys, u = verify_lib.round_uniforms(state["key"], n)
+    return torch.where(state["live"][:, None], new_keys, state["key"]), u
+
+
+def chain_tail(cfg: ModelConfig, params: dict, cache: dict, state: dict, mid: dict, *,
+               sampled: bool = False):
     """The rest of ``chain_round``: verify, acceptance, cache and context
-    commit and the EMA update. Returns (new state, out) as ``chain_round``."""
+    commit and the EMA update. Returns (new state, out) as ``chain_round``.
+    ``sampled``: speculative-sampling acceptance on the carried keys and
+    warp parameters (``verify_accept_commit_sampled``); the new state then
+    holds the advanced ``key``."""
     live, pending = state["live"], state["pending"]
     chains, have, pld_have = mid["chains"], mid["have"], mid["pld_have"]
-    cache, _, n_chain, new_pending = verify_accept_commit(cfg, params, cache, pending, chains,
-                                                          have, live)
+    new = {}
+    if sampled:
+        new["key"], u = _advance_keys(state, chains.shape[1] + 1)
+        cache, n_chain, new_pending = verify_accept_commit_sampled(
+            cfg, params, cache, pending, chains, have, live, state["temp"], state["topk"],
+            state["topp"], u)
+    else:
+        cache, _, n_chain, new_pending = verify_accept_commit(cfg, params, cache, pending, chains,
+                                                              have, live)
     n_acc = torch.where(live, n_chain + 1, 0)
     acc_tok = torch.cat([pending[:, None], chains], dim=1)
-    new = {"ctx": _commit_ctx(mid["ctx"], mid["n"], acc_tok, n_acc),
-           "pending": torch.where(live, new_pending, pending).to(torch.int32)}
+    new.update(ctx=_commit_ctx(mid["ctx"], mid["n"], acc_tok, n_acc),
+               pending=torch.where(live, new_pending, pending).to(torch.int32))
     # Eq. 4 EMA over the neural drafter: the first neural position's outcome,
     # only when the PLD prefix was fully accepted (parent-accepted rule)
     obs = live & (have > pld_have) & (n_chain >= pld_have)
@@ -774,8 +881,9 @@ def chain_round(
     draft_kv: str = "recompute",
     max_ngram: int = 4,
     min_ngram: int = 1,
+    sampled: bool = False,
 ):
-    """One ``chain_fused`` serving round on carried state, greedy: device
+    """One ``chain_fused`` serving round on carried state: device
     PLD, Eq. 5 per-slot budgets from the carried Eq. 4 state, the
     ``draft_k``-step chain draft (run masked by the budgets: it writes
     nothing where PLD covers every budget), the verify, acceptance, cache
@@ -790,14 +898,22 @@ def chain_round(
     needed the draft (the reference's skip predicate). The draft runs the
     layers ``layer_ids`` (slice exec; None: every layer); the gate vector
     of mask exec is read on the host, so no round takes one. The
-    composition of ``chain_prologue``, ``chain_draft`` and ``chain_tail``."""
+    composition of ``chain_prologue``, ``chain_draft`` and ``chain_tail``.
+
+    ``sampled=True`` (the reference's sampled round): ``state`` also holds
+    the per-slot threefry keys ``key`` (B, 2) int64 and warp parameters
+    ``temp``, ``topk``, ``topp``; the tail splits the live slots' keys into
+    the round's uniforms and accepts by speculative sampling, and the new
+    state carries the advanced keys. The prologue and the draft are the
+    greedy round's (drafts stay point masses); ``temp <= 0`` slots emit
+    the greedy stream."""
     mid = chain_prologue(cache, state, c, draft_k=draft_k, use_draft=use_draft,
                          adaptive=adaptive, min_obs=min_obs, t_min=t_min, max_ngram=max_ngram,
                          min_ngram=min_ngram)
     if use_draft:
         chain_draft(cfg, params, cache, state, mid, draft_k=draft_k, layer_ids=layer_ids,
                     draft_kv=draft_kv)
-    return chain_tail(cfg, params, cache, state, mid)
+    return chain_tail(cfg, params, cache, state, mid, sampled=sampled)
 
 
 def tree_prologue(cache: dict, state: dict, c: torch.Tensor, *, draft_k: int, expansions: int,
@@ -840,19 +956,30 @@ def tree_draft(cfg: ModelConfig, params: dict, cache: dict, state: dict, mid: di
         mid[name].copy_(value)
 
 
-def tree_tail(cfg: ModelConfig, params: dict, cache: dict, state: dict, mid: dict):
+def tree_tail(cfg: ModelConfig, params: dict, cache: dict, state: dict, mid: dict, *,
+              sampled: bool = False):
     """The rest of ``tree_round``: verify, the accepted-path walk, cache and
-    context commit and the Eq. 4 update. Returns (new state, out)."""
+    context commit and the Eq. 4 update. Returns (new state, out).
+    ``sampled``: the stochastic walk on the carried keys, one uniform per
+    node of the bucket (``tree_verify_accept_commit_sampled``), and the
+    advanced ``key`` in the new state."""
     live, pending = state["live"], state["pending"]
     tokens, parents, depth, mask, count = (mid[k] for k in ("tokens", "parents", "depth", "mask",
                                                             "count"))
     first_neural, have = mid["first_neural"], mid["have"]
     B, N = tokens.shape
-    cache, path, n_acc, bonus = tree_verify_accept_commit(cfg, params, cache, tokens, parents,
-                                                          depth, mask, count, live)
+    new = {}
+    if sampled:
+        new["key"], u = _advance_keys(state, N)
+        cache, path, n_acc, bonus = tree_verify_accept_commit_sampled(
+            cfg, params, cache, tokens, parents, depth, mask, count, live, state["temp"],
+            state["topk"], state["topp"], u)
+    else:
+        cache, path, n_acc, bonus = tree_verify_accept_commit(cfg, params, cache, tokens,
+                                                              parents, depth, mask, count, live)
     acc_tok = torch.gather(tokens, 1, path.long())
-    new = {"ctx": _commit_ctx(mid["ctx"], mid["n"], acc_tok, n_acc),
-           "pending": torch.where(live, bonus, pending).to(torch.int32)}
+    new.update(ctx=_commit_ctx(mid["ctx"], mid["n"], acc_tok, n_acc),
+               pending=torch.where(live, bonus, pending).to(torch.int32))
     # Eq. 4 EMA at the slot's first neural node (parent-accepted rule)
     t_ids = torch.arange(N, device=tokens.device)
     on_path = torch.where(t_ids[None, :] < n_acc[:, None], path, N).long()
@@ -889,28 +1016,30 @@ def tree_round(
     draft_kv: str = "recompute",
     max_ngram: int = 4,
     min_ngram: int = 1,
+    sampled: bool = False,
 ):
-    """One ``tree_fused`` (DyTC, §4.2) serving round on carried state,
-    greedy: device PLD, tree seeding, the ``expansions``-step growth (run
+    """One ``tree_fused`` (DyTC, §4.2) serving round on carried state:
+    device PLD, tree seeding, the ``expansions``-step growth (run
     masked by the budgets: it adds no node where every budget is 0), the
     verify, the accepted-path walk, the cache and context commit and the
     Eq. 4 update, with no host read. Same ``state`` and returns as
     ``chain_round``; ``out["acc"]`` holds the accepted path's tokens (B,
     bucket). The composition of ``tree_prologue``, ``tree_draft`` and
-    ``tree_tail``."""
+    ``tree_tail``; ``sampled`` as in ``chain_round``, with the stochastic
+    tree walk."""
     mid = tree_prologue(cache, state, c, draft_k=draft_k, expansions=expansions, bucket=bucket,
                         pld_alpha=pld_alpha, use_draft=use_draft, adaptive=adaptive,
                         min_obs=min_obs, t_min=t_min, max_ngram=max_ngram, min_ngram=min_ngram)
     if use_draft and expansions > 0:
         tree_draft(cfg, params, cache, state, mid, c, expansions=expansions, top_k=top_k,
                    top_p=top_p, t_min=t_min, layer_ids=layer_ids, draft_kv=draft_kv)
-    return tree_tail(cfg, params, cache, state, mid)
+    return tree_tail(cfg, params, cache, state, mid, sampled=sampled)
 
 
 def prefill_chunk_stage(cfg: ModelConfig, params: dict, cache: dict, state: dict, *,
-                        chunk: int) -> None:
-    """Chunked prefill inside the serving round, greedy, in place: the
-    reference's ``prefill_chunk_stage``. Every slot still prefilling
+                        chunk: int, sampled: bool = False) -> None:
+    """Chunked prefill inside the serving round, in place: the reference's
+    ``prefill_chunk_stage``. Every slot still prefilling
     (``state["pf_done"] < state["pf_len"]``; its prompt sits in the carried
     ``ctx``) consumes up to ``chunk`` prompt tokens through one
     ``decode_step`` and a commit (a prompt needs no verification), which
@@ -921,7 +1050,12 @@ def prefill_chunk_stage(cfg: ModelConfig, params: dict, cache: dict, state: dict
     round prologue's pending write leaves the prompt as it is. Slots that
     prefill nothing commit nothing and keep their ``pending``: with no slot
     prefilling the stage changes nothing (the server runs it behind a
-    conditional node on ``any(pf_done < pf_len)``)."""
+    conditional node on ``any(pf_done < pf_len)``).
+
+    ``sampled``: the first token is drawn as the dense admission draws it
+    on the host: split the key admission bound, one uniform from the
+    second half, warp the last prompt row, inverse CDF; the slot keeps the
+    first half of the split only on the round its prompt completes."""
     ctx, pf_done, pf_len = state["ctx"], state["pf_done"], state["pf_len"]
     B, L = ctx.shape
     active = pf_done < pf_len
@@ -934,7 +1068,14 @@ def prefill_chunk_stage(cfg: ModelConfig, params: dict, cache: dict, state: dict
     done_now = active & (pf_done + n_new >= pf_len)
     last_i = torch.clamp(n_new - 1, 0, chunk - 1).long()
     last = logits[torch.arange(B, device=ctx.device), last_i]            # (B, V)
-    pend = torch.where(done_now, last.argmax(dim=-1).to(torch.int32), state["pending"])
+    if sampled:
+        keys = prng.split(state["key"], 2)
+        q = verify_lib.sampling_probs(last, state["temp"], state["topk"], state["topp"])
+        first = verify_lib._inv_cdf(q, prng.uniform(keys[:, 1], 1)[:, 0])
+        state["key"].copy_(torch.where(done_now[:, None], keys[:, 0], state["key"]))
+    else:
+        first = last.argmax(dim=-1).to(torch.int32)
+    pend = torch.where(done_now, first, state["pending"])
     new_done = pf_done + n_new
     safe = ctx.gather(1, torch.clamp(cache["pos"], 0, L - 1).long()[:, None])[:, 0]
     state["pending"].copy_(torch.where(new_done < pf_len, safe, pend))

@@ -1,6 +1,6 @@
-"""Batched speculative serving with continuous batching, greedy: the port of
-the reference's ``serving/server.py::BatchedSpecServer``. Four proposal
-modes:
+"""Batched speculative serving with continuous batching, greedy or sampled:
+the port of the reference's ``serving/server.py::BatchedSpecServer``. Four
+proposal modes:
 
   - ``chain_fused`` — per-slot PLD chains filled up by a layer-sparse
     neural chain draft (``core.engine.chain_draft_scan``), verified by
@@ -68,10 +68,28 @@ enqueue-only: each round consumes up to ``prefill_chunk`` prompt tokens per
 prefilling slot (``core.engine.prefill_chunk_stage``, behind a conditional
 node of its own), and slots still prefilling are dead for the decode half.
 
-Not ported yet (they raise ``NotImplementedError``; ROADMAP queue A):
-sampled serving (``sampling``), mesh serving (``mesh``), and single rounds
-over a non-homogeneous stack (mask exec reads the layer gates on the host).
-The reference's round telemetry (``telemetry=``) is not mirrored either.
+Sampled serving: ``sampling=SamplingParams(temperature, top_k, top_p,
+seed)`` makes every mode verify by speculative sampling against the warped
+target distribution (``core/verify.py``): chain rounds accept each drafted
+token with its probability under q and resample the residual, tree and
+cascade rounds walk the tree stochastically, and cascade rescores endorse,
+hedge and extend stochastically. Each slot carries its warp parameters and
+a threefry key in ``dstate`` (``temp``, ``topk``, ``topp``, ``key``, on
+sampled builds only); every dispatch splits the keys it needs with tensor
+ops (``core/prng.py``, the reference's ``jax.random`` stream bit for bit),
+so sampling adds no dispatch and no host sync to any round, and a single
+round's graph splits them inside the graph. ``add_request(...,
+sampling=...)`` overrides the build's parameters per request (a greedy
+build refuses a stochastic request); the request's key comes from its
+``seed`` or from ``fold_in(base key, admission count)``, and its first
+token is drawn on the host from the warped prefill row. ``temperature=0``
+streams equal the greedy build's, and a greedy build (``sampling=None``)
+runs exactly the greedy rounds.
+
+Not ported yet (they raise ``NotImplementedError``; ROADMAP queue A): mesh
+serving (``mesh``) and single rounds over a non-homogeneous stack (mask
+exec reads the layer gates on the host). The reference's round telemetry
+(``telemetry=``) is not mirrored either.
 """
 from __future__ import annotations
 
@@ -84,6 +102,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.config.base import ModelConfig
+from repro_torch.core import prng
 from repro_torch.core.acceptance import AcceptanceTracker, ema_init
 from repro_torch.core.dsia import PLD_SPEC, DraftSpec, build_hierarchy
 from repro_torch.core.engine import (
@@ -100,7 +119,9 @@ from repro_torch.core.engine import (
     tree_prologue,
     tree_tail,
     tree_verify_accept_commit_host,
+    tree_verify_accept_commit_sampled,
     verify_accept_commit,
+    verify_accept_commit_sampled,
 )
 from repro_torch.core.latency import (
     CostTracker,
@@ -110,10 +131,12 @@ from repro_torch.core.latency import (
 )
 from repro_torch.core.pld import PromptLookup
 from repro_torch.core.tree import bucket_for, tree_seed_arrays
+from repro_torch.core.verify import round_uniforms
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.graph_cond import CondGraph
 from repro_torch.models import model as M
 from repro_torch.serving.draft_bank import DraftBank
+from repro_torch.serving.sampler import SamplingParams, warp_probs
 
 PROPOSAL_MODES = ("chain_fused", "legacy", "tree_fused", "cascade_fused")
 ROUND_MODES = ("auto", "single", "split")
@@ -153,7 +176,7 @@ class BatchedSpecServer:
         draft_kv: str = "auto",        # auto (= carry) | carry | recompute
         round_mode: str = "auto",      # auto (= single) | single | split
         sync_every: Optional[int] = None,   # single: drain every N rounds (default 1)
-        sampling=None,                 # not ported: greedy only
+        sampling: Optional[SamplingParams] = None,   # None: greedy build
         paged: bool = False,           # block-paged KV cache
         page_size: int = 64,           # tokens per KV page
         num_pages: Optional[int] = None,    # pool size (default: full per-slot)
@@ -184,8 +207,16 @@ class BatchedSpecServer:
         # stacks the port builds (models.model._check_stack)
         draft_kv = "carry" if draft_kv == "auto" else draft_kv
         _check_draft_kv(draft_kv, "BatchedSpecServer")
+        if sampling is not None and not isinstance(sampling, SamplingParams):
+            raise TypeError(f"sampling must be a SamplingParams or None, not "
+                            f"{type(sampling).__name__}")
+        # the build's default warp parameters; requests may override them
+        # at admission. The base key seeds requests that bring no seed
+        self.sampling = sampling
+        self._admit_seq = 0            # admissions so far (the key derivation)
+        self._base_key = None
         if sampling is not None:
-            raise _not_ported("sampled serving (sampling=...)")
+            self._base_key = prng.prng_key(sampling.seed if sampling.seed is not None else 0)
         self.prefill_chunk = int(prefill_chunk or 0)
         if self.prefill_chunk and not paged:
             raise ValueError("prefill_chunk requires paged=True: chunked prompts commit "
@@ -284,6 +315,12 @@ class BatchedSpecServer:
                        "live": torch.zeros((max_batch,), dtype=torch.bool, device=dev),
                        "ctx": torch.zeros((max_batch, max_len), dtype=torch.int32, device=dev),
                        "alpha": alpha, "hist": hist, "hist_n": hist_n, "hist_ptr": hist_ptr}
+        if sampling is not None:
+            # per-slot warp parameters and threefry keys, carried into the rounds
+            self.dstate.update(temp=torch.zeros((max_batch,), dtype=torch.float32, device=dev),
+                               topk=torch.zeros((max_batch,), dtype=torch.int32, device=dev),
+                               topp=torch.ones((max_batch,), dtype=torch.float32, device=dev),
+                               key=torch.zeros((max_batch, 2), dtype=torch.int64, device=dev))
         if self.prefill_chunk:
             # prompt tokens committed so far and prompt length, per slot; a
             # slot with pf_done < pf_len is still prefilling
@@ -312,6 +349,7 @@ class BatchedSpecServer:
         self.capture_s = 0.0
         self.graph_pool_bytes = 0
         self._prologue_fn = self._draft_fn = self._tail_fn = None
+        sampled = sampling is not None
         if self.round_mode == "single":
             use_draft = draft_spec is not None
             kw = dict(use_draft=use_draft, adaptive=adaptive, min_obs=min_obs, t_min=float(t_min),
@@ -322,7 +360,7 @@ class BatchedSpecServer:
                 if use_draft:
                     self._draft_fn = functools.partial(chain_draft, cfg, draft_k=draft_k,
                                                        **draft_kw)
-                self._tail_fn = functools.partial(chain_tail, cfg)
+                self._tail_fn = functools.partial(chain_tail, cfg, sampled=sampled)
             else:
                 self._prologue_fn = functools.partial(
                     tree_prologue, draft_k=draft_k, expansions=tree_expansions,
@@ -331,12 +369,13 @@ class BatchedSpecServer:
                     self._draft_fn = functools.partial(
                         tree_draft, cfg, c=self._c_dev, expansions=tree_expansions,
                         top_k=tree_top_k, top_p=tree_top_p, t_min=float(t_min), **draft_kw)
-                self._tail_fn = functools.partial(tree_tail, cfg)
+                self._tail_fn = functools.partial(tree_tail, cfg, sampled=sampled)
             if dev.type == "cuda":
                 self._capture()
 
     # ------------------------------------------------------------ admission
     def add_request(self, slot: int, prompt: np.ndarray,
+                    sampling: Optional[SamplingParams] = None,
                     max_new_tokens: Optional[int] = None) -> None:
         """Prefill one prompt into a batch slot. On a paged build,
         ``max_new_tokens`` bounds the slot's pages to prompt + budget + the
@@ -345,7 +384,21 @@ class BatchedSpecServer:
         enqueues the prompt: the next rounds prefill it in chunks. Single
         rounds in flight are drained first, and tokens the slot's previous
         request left undrawn are dropped: call ``flush()`` before re-binding
-        a slot to collect them."""
+        a slot to collect them.
+
+        ``sampling`` overrides the build's ``SamplingParams`` for this
+        request. A greedy build refuses a stochastic request and accepts a
+        ``temperature=0`` one. On a sampled build the request's key is
+        ``prng_key(seed)``, or ``fold_in(base key, admission count)`` when
+        it brings no seed, and its first token is drawn here, on the host,
+        from the warped prefill row with a uniform of the key's split, as
+        the reference draws it (a chunked build binds the key unsplit: the
+        round that completes the prompt draws it)."""
+        if sampling is not None and not sampling.greedy and self.sampling is None:
+            raise ValueError(
+                "stochastic per-request sampling requires a sampled server build — construct "
+                "BatchedSpecServer(..., sampling=SamplingParams(...)); this greedy build runs "
+                "only the greedy rounds")
         self._drain()
         self._out_buf.pop(slot, None)
         prompt = np.asarray(prompt, np.int32)
@@ -355,12 +408,18 @@ class BatchedSpecServer:
                      else min(self.max_len, len(prompt) + int(max_new_tokens) + self._alloc_slack()))
             table_row = self._alloc_pages(slot, alloc)
             self.cache["page_table"][slot] = torch.as_tensor(table_row, device=self.device)
+        eff = sampling if sampling is not None else self.sampling
+        key = None
+        if self.sampling is not None:
+            key = (prng.prng_key(eff.seed) if eff.seed is not None
+                   else prng.fold_in(self._base_key, self._admit_seq))
+            self._admit_seq += 1
         if self.prefill_chunk:
             # enqueue only: pos 0, the prompt parked in ctx, pf_* armed. The
             # prompt's first token is a safe pending: the round prologue
             # writes pending at ctx[pos], which leaves the prompt as it is
             self.cache["pos"][slot] = 0
-            self._bind_slot(slot, prompt, int(prompt[0]))
+            self._bind_slot(slot, prompt, int(prompt[0]), eff, key)
             self.dstate["pf_done"][slot] = 0
             self.dstate["pf_len"][slot] = len(prompt)
             self.pending[slot] = int(prompt[-1])     # unknown until the prompt is prefilled
@@ -373,16 +432,31 @@ class BatchedSpecServer:
         last, c1 = M.prefill(self.cfg, self.params,
                              {"tokens": torch.as_tensor(prompt[None], device=self.device)}, c1)
         self.cache = M.write_slot(self.cfg, self.cache, c1, slot)
-        first = last[0].argmax()
-        self._bind_slot(slot, prompt, first)
+        if key is None:
+            first = last[0].argmax()
+        else:
+            # the key's first split is the round stream, its second half
+            # draws the first token by the rounds' inverse-CDF rule
+            key, sub = prng.split(key, 2)
+            u0 = float(prng.uniform(sub, 1)[0])
+            cum = np.cumsum(warp_probs(last[0].cpu().numpy(), eff.temperature, eff.top_k,
+                                       eff.top_p))
+            first = int(np.argmax(cum > u0 * cum[-1]))
+        self._bind_slot(slot, prompt, first, eff, key)
         self.pending[slot] = int(first)
 
-    def _bind_slot(self, slot: int, prompt: np.ndarray, pending) -> None:
+    def _bind_slot(self, slot: int, prompt: np.ndarray, pending,
+                   sampling: Optional[SamplingParams], key: Optional[torch.Tensor]) -> None:
         """The slot's row of the carried state, in place: its pending token,
-        its context buffer and a fresh estimator at the draft's prior; and
-        the host mirrors."""
+        its context buffer, a fresh estimator at the draft's prior and, on a
+        sampled build, its warp parameters and key; and the host mirrors."""
         ds = self.dstate
         ds["pending"][slot] = pending
+        if key is not None:
+            ds["temp"][slot] = max(sampling.temperature, 0.0)
+            ds["topk"][slot] = sampling.top_k
+            ds["topp"][slot] = sampling.top_p
+            ds["key"][slot] = key.to(self.device)
         ds["live"][slot] = True
         row = np.zeros(self.max_len, np.int32)
         row[: len(prompt)] = prompt
@@ -603,9 +677,17 @@ class BatchedSpecServer:
             return self._step_cascade()
         chains, have = self._propose()
         t0 = time.perf_counter()
-        self.cache, _, n_chain, new_pending = verify_accept_commit(
-            self.cfg, self.params, self.cache, self._dev(self.pending), self._dev(chains),
-            self._dev(have), self._dev(self.live, torch.bool))
+        args = (self.cfg, self.params, self.cache, self._dev(self.pending), self._dev(chains),
+                self._dev(have), self._dev(self.live, torch.bool))
+        if self.sampling is not None:
+            # the keys split on the device into this verify's k + 1 uniforms
+            ds = self.dstate
+            keys, u = round_uniforms(ds["key"], self.k + 1)
+            self.cache, n_chain, new_pending = verify_accept_commit_sampled(
+                *args, ds["temp"], ds["topk"], ds["topp"], u)
+            ds["key"].copy_(keys)
+        else:
+            self.cache, _, n_chain, new_pending = verify_accept_commit(*args)
         n_chain, new_pending = n_chain.cpu().numpy(), new_pending.cpu().numpy()
         self._count_verify(time.perf_counter() - t0)
 
@@ -666,9 +748,8 @@ class BatchedSpecServer:
             self.costs.observe("tree_draft", dt, tokens=expansions)
 
         t0 = time.perf_counter()
-        self.cache, path, n_acc, bonus = tree_verify_accept_commit_host(
-            self.cfg, self.params, self.cache, d_tokens, d_parents, d_depth, d_mask, d_count,
-            self._dev(self.live, torch.bool))
+        self.cache, path, n_acc, bonus = self._tree_verify(
+            d_tokens, d_parents, d_depth, d_mask, d_count, self._dev(self.live, torch.bool))
         self._count_verify(time.perf_counter() - t0)
 
         out_toks: Dict[int, List[int]] = {}
@@ -766,6 +847,12 @@ class BatchedSpecServer:
         # the next level's Eq. 4 verdict; the strongest carries the verify
         live = self._dev(self.live, torch.bool)
         level_node = np.full(self.B, -1, np.int32)
+        # sampled builds thread the slot keys through every rescore: each
+        # splits its own uniforms on the device and hands the advanced keys on
+        ds = self.dstate
+        warp = keys = None
+        if self.sampling is not None:
+            warp, keys = (ds["temp"], ds["topk"], ds["topp"]), ds["key"]
         if use_rescore.any():
             apply = self._dev(use_rescore & self.live, torch.bool)
             probe = self._dev(first_neural)
@@ -778,11 +865,18 @@ class BatchedSpecServer:
                           attn_override=lvl.attn_override)
                 t0 = time.perf_counter()
                 if last:
+                    sampling = None if warp is None else (*warp, keys)
                     out = cascade_rescore_verify(self.cfg, lvl.params, self.params, self.cache,
-                                                 *args, live, **kw)
-                    self.cache, path, n_acc, bonus = out[9:]
+                                                 *args, live, sampling=sampling, **kw)
+                    self.cache, path, n_acc, bonus = out[9:13]
+                    keys = out[13] if warp is not None else None
                 else:
-                    out = cascade_rescore(self.cfg, lvl.params, self.cache, *args, **kw)
+                    sampling = None
+                    if warp is not None:
+                        keys, u = round_uniforms(keys, self.tree_bucket + 2)
+                        sampling = (*warp, u)
+                    out = cascade_rescore(self.cfg, lvl.params, self.cache, *args,
+                                          sampling=sampling, **kw)
                 tree, probe = list(out[:6]), out[6]
                 pv, pk = out[8].cpu().numpy(), out[7].cpu().numpy()
                 dt = time.perf_counter() - t0
@@ -802,10 +896,11 @@ class BatchedSpecServer:
             level_node = probe.cpu().numpy()
         else:
             t0 = time.perf_counter()
-            self.cache, path, n_acc, bonus = tree_verify_accept_commit_host(
-                self.cfg, self.params, self.cache, tree[0], tree[1], tree[2], tree[4], tree[5],
-                live)
+            self.cache, path, n_acc, bonus = self._tree_verify(tree[0], tree[1], tree[2], tree[4],
+                                                               tree[5], live)
             self._count_verify(time.perf_counter() - t0)
+        if warp is not None and use_rescore.any():
+            ds["key"].copy_(keys)
 
         tokens, parents = tree[0].cpu().numpy(), tree[1].cpu().numpy()
         out_toks: Dict[int, List[int]] = {}
@@ -834,6 +929,21 @@ class BatchedSpecServer:
         self.pending = np.where(self.live, bonus.astype(np.int64), self.pending)
         self.stats["steps"] += 1
         return out_toks
+
+    def _tree_verify(self, tokens, parents, depth, mask, count, live):
+        """The split rounds' tree verify and commit: the greedy host walk, or
+        on a sampled build the stochastic walk on uniforms split from the
+        carried keys (one per node of the bucket). Returns (path, n_acc,
+        bonus) as numpy arrays after the new cache."""
+        args = (self.cfg, self.params, self.cache, tokens, parents, depth, mask, count, live)
+        if self.sampling is None:
+            return tree_verify_accept_commit_host(*args)
+        ds = self.dstate
+        keys, u = round_uniforms(ds["key"], tokens.shape[1])
+        cache, *walk = tree_verify_accept_commit_sampled(*args, ds["temp"], ds["topk"],
+                                                         ds["topp"], u)
+        ds["key"].copy_(keys)
+        return (cache, *(a.cpu().numpy() for a in walk))
 
     def _level_gates(self, lvl) -> Optional[torch.Tensor]:
         """A bank level's gate vector on the device (mask exec), or None."""
@@ -868,7 +978,7 @@ class BatchedSpecServer:
 
     def _seg_prefill(self, mid: dict) -> None:
         prefill_chunk_stage(self.cfg, self.params, self.cache, self.dstate,
-                            chunk=self.prefill_chunk)
+                            chunk=self.prefill_chunk, sampled=self.sampling is not None)
 
     def _seg_prologue(self, mid: dict) -> None:
         if self.prefill_chunk:

@@ -300,9 +300,14 @@ def test_cascade_rescore_verify_is_rescore_then_verify(rescore_inputs):
     for n in ("k", "v"):                                # the same commit
         assert torch.equal(out[9]["segments"][0][0][n], want[0]["segments"][0][0][n])
     assert torch.equal(out[9]["pos"], want[0]["pos"])
-    with pytest.raises(NotImplementedError):
-        engine.cascade_rescore(CFG, lvl.params, cache, *t, None, sampling=object())
-    with pytest.raises(NotImplementedError):
+    # the stochastic rule at temperature 0 (one-hot q) is the greedy rule
+    greedy0 = (torch.zeros(B), torch.zeros(B, dtype=torch.int32), torch.ones(B),
+               torch.rand(B, N + 2, generator=torch.Generator().manual_seed(0)))
+    sampled = engine.cascade_rescore(CFG, lvl.params, cache, *t, lvl.exec_gates,
+                                     layer_ids=lvl.layer_ids, sampling=greedy0)
+    for g, w in zip(sampled, rescored):
+        assert torch.equal(g, w)
+    with pytest.raises(TypeError):
         BatchedSpecServer(CFG, PARAMS, mode="cascade_fused", sampling=object(), device="cpu")
 
 

@@ -9,8 +9,10 @@ layers). A chunked server emits the reference chunked server's tokens round
 by round, and per slot a prefix of the port's non-chunked server's stream
 (chunks change when a prompt's tokens are consumed, not what the model
 computes); admission is enqueue-only, so decoding slots keep emitting while
-a long prompt is prefilled. Chunked prefill is refused on a dense cache,
-in split rounds and with sampling. On the CPU the stage runs in every
+a long prompt is prefilled. Chunked prefill is refused on a dense cache
+and in split rounds, and a ``sampling`` argument that is no
+``SamplingParams`` is refused (sampled chunked prefill:
+``test_torch_sampled_server.py``). On the CPU the stage runs in every
 round, masked where no slot prefills; on the card it sits behind a
 conditional node (``test_torch_on_card.py``).
 """
@@ -164,7 +166,7 @@ def test_chunked_admission_does_not_block_decoding():
 @pytest.mark.parametrize("kw,err", [
     (dict(paged=False), ValueError),
     (dict(round_mode="split"), ValueError),
-    (dict(sampling=object()), NotImplementedError),
+    (dict(sampling=object()), TypeError),
 ], ids=["dense", "split", "sampled"])
 def test_chunked_prefill_refusals(kw, err):
     with pytest.raises(err):

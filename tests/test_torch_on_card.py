@@ -19,7 +19,13 @@ and reduced depth, captured as segment graphs with the draft (and chunked
 prefill) behind conditional nodes: its replays equal eager rounds bitwise
 with carried or recomputed draft KV and with chunked prefill, an eager
 round makes no host sync, and a replay whose budgets need no draft runs
-none of the draft's kernels and equals a PLD-only twin bitwise.
+none of the draft's kernels and equals a PLD-only twin bitwise. Sampled
+serving: the threefry key stream on the card is bitwise the CPU's, the
+warp (``sampling_probs``) within 1e-6 of the CPU's with the same support,
+sampled replays equal eager sampled rounds bitwise (dense tree_fused and
+chunked-prefill paged chain_fused), an eager sampled round makes no host
+sync, and a sampled build's segments launch the greedy build's kernels,
+leaving a greedy build's segments as they were.
 """
 import dataclasses
 import functools
@@ -41,6 +47,7 @@ from torch_inputs import (  # noqa: E402
     int8_inputs,
     paged_inputs,
     tensors,
+    warp_cases,
 )
 
 pytestmark = pytest.mark.cuda
@@ -470,3 +477,90 @@ def test_cascade_server_on_card():
         eng = SpecEngine(cfg, params, max_len=256)
         eng.start(p)
         assert gen[b] == eng.generate_ar(len(gen[b])), f"slot {b} left AR"
+
+
+# ------------------------------------------------------------- sampled serving
+def _stoch():
+    from repro_torch.serving.sampler import SamplingParams
+
+    # no seed: each request's key is fold_in(base key, admission count)
+    return SamplingParams(temperature=0.8, top_k=20, top_p=0.9)
+
+
+def _bits(t):
+    return t.cpu().view(torch.int32) if t.dtype == torch.float32 else t.cpu()
+
+
+def test_prng_on_card_bitwise_equals_cpu():
+    from repro_torch.core import prng, verify
+
+    dev = _card()
+    assert torch.equal(prng.prng_key(2**31 - 1, device=dev).cpu(), prng.prng_key(2**31 - 1))
+    keys = prng.split(prng.prng_key(11), 4)
+    kd = keys.to(dev)
+    pairs = [(prng.split(kd, n), prng.split(keys, n)) for n in (2, 5)]
+    pairs += [(prng.fold_in(kd, d), prng.fold_in(keys, d)) for d in range(6)]
+    pairs += [(prng.uniform(kd, n), prng.uniform(keys, n)) for n in (1, 5, 33)]
+    pairs += list(zip(verify.round_uniforms(kd, 33), verify.round_uniforms(keys, 33)))
+    for got, want in pairs:
+        assert got.device.type == "cuda" and torch.equal(_bits(got), _bits(want))
+
+
+def test_sampling_probs_on_card_matches_cpu():
+    from repro_torch.core import verify
+
+    dev = _card()
+    rng = np.random.default_rng(8)
+    big = (rng.normal(size=(4, 32, 32000)).astype(np.float32) * 3,
+           np.array([0.8, 0.0, 1.0, 0.6], np.float32), np.array([20, 0, 0, 50], np.int32),
+           np.array([0.9, 1.0, 0.5, 1.0], np.float32))
+    for case in (warp_cases(), big):
+        cpu = tensors(*case)
+        want = verify.sampling_probs(*cpu)
+        got = verify.sampling_probs(*(t.to(dev) for t in cpu)).cpu()
+        assert torch.equal(got > 0, want > 0)
+        assert (got - want).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("case", ["tree_fused dense", "chain_fused paged chunked"])
+def test_sampled_replay_equals_eager_rounds_on_card(case):
+    _card()
+    mode, paged, kw = (("tree_fused", False, {}) if case == "tree_fused dense"
+                       else ("chain_fused", True, dict(prefill_chunk=64)))
+    graph, eager = (_round_server(mode, paged, sampling=_stoch(), **kw) for _ in range(2))
+    keys = graph.dstate["key"].clone()
+    _assert_replays_equal_eager(graph, eager, 6)
+    assert not torch.equal(graph.dstate["key"], keys)
+    if paged:
+        assert graph.stats["prefill_rounds"] == 2
+
+
+def test_eager_sampled_round_makes_no_host_sync_on_card():
+    _card()
+    srv = _round_server("tree_fused", True, sync_every=2, sampling=_stoch())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        srv._round()
+        srv._round()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    srv._inflight = 2
+    assert all(len(t) >= 2 for t in srv.flush().values())
+
+
+def test_sampled_build_keeps_greedy_segments_on_card():
+    """The greedy build's segments and their kernels are the same before
+    and after a sampled build of the same server, and the sampled build
+    captures the same segments with the same kernel launches (its warp,
+    walk and key split are plain PyTorch); only its dstate has the four
+    sampling entries."""
+    _card()
+    before = _round_server("tree_fused", False)
+    sampled = _round_server("tree_fused", False, sampling=_stoch())
+    after = _round_server("tree_fused", False)
+    plan = [name for name, _, _ in before._plan()]
+    assert plan == [name for name, _, _ in sampled._plan()] == [n for n, _, _ in after._plan()]
+    assert before.segment_launches == after.segment_launches == sampled.segment_launches
+    assert set(before.dstate) == set(after.dstate)
+    assert set(sampled.dstate) - set(before.dstate) == {"temp", "topk", "topp", "key"}

@@ -30,7 +30,6 @@ torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro.config import get_config as j_get_config  # noqa: E402
 from repro.core import acceptance as jacc  # noqa: E402
@@ -51,6 +50,7 @@ from repro_torch.core.tree import tree_seed_device  # noqa: E402
 from repro_torch.core.verify import greedy_accept_tree_device  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serving import BatchedSpecServer  # noqa: E402
+from torch_inputs import NoHostRead  # noqa: E402
 
 J_CFG = dataclasses.replace(j_get_config("vicuna-7b").reduced(), num_layers=3)
 CFG = dataclasses.replace(get_config("vicuna-7b").reduced(), num_layers=3)
@@ -202,21 +202,45 @@ def _round_state():
 
 @pytest.mark.parametrize("mode", ["chain_fused", "tree_fused"])
 def test_one_round_matches_reference(mode):
+    _one_round_matches_reference(mode, sampled=False)
+
+
+@pytest.mark.parametrize("mode", ["chain_fused", "tree_fused"])
+def test_one_sampled_round_matches_reference(mode):
+    """``sampled=True``: slot 0 at T 0.8 / top-k 20 / top-p 0.9, slot 1 at
+    temperature 0, both keys split in the round; the same tokens, state and
+    advanced keys as the reference's round."""
+    new = _one_round_matches_reference(mode, sampled=True)
+    assert not torch.equal(new["key"], torch.from_numpy(_SAMPLED_STATE["key"]))
+
+
+_SAMPLED_STATE = dict(temp=np.array([0.8, 0.0], np.float32), topk=np.array([20, 0], np.int32),
+                      topp=np.array([0.9, 1.0], np.float32),
+                      key=np.asarray(jax.random.split(jax.random.PRNGKey(5), 2)).astype(np.int64))
+
+
+def _one_round_matches_reference(mode, sampled):
     j_cache, state = _round_state()
     cache = bridge.cache_from_jax(jax.tree.map(np.asarray, j_cache), device="cpu")
+    if sampled:
+        state.update(_SAMPLED_STATE)
     t_state = {k: torch.from_numpy(v.copy()) for k, v in state.items()}
+    j_in = {k: jnp.asarray(v.astype(np.uint32) if k == "key" else v) for k, v in state.items()}
     c = 0.2
     kw = dict(draft_k=4, use_draft=True, adaptive=True, min_obs=1, t_min=1.05)
+    if sampled:
+        kw.update(sampled=True)
     if mode == "tree_fused":
         kw.update(expansions=3, top_k=2, top_p=0.3, bucket=16, pld_alpha=0.3)
         j_round, round_fn = jeng.tree_round, engine.tree_round
     else:
         j_round, round_fn = jeng.chain_round, engine.chain_round
     j_round = jax.jit(functools.partial(j_round, J_CFG, draft_kv="recompute", **kw))
-    j_cache, j_state, j_out = j_round(J_PARAMS, j_cache, jax.tree.map(jnp.asarray, state),
-                                      jnp.float32(c), jnp.ones(3))
+    j_cache, j_state, j_out = j_round(J_PARAMS, j_cache, j_in, jnp.float32(c), jnp.ones(3))
     new, out = round_fn(CFG, PARAMS, cache, t_state, torch.tensor(c), layer_ids=[0, 1, 2], **kw)
     assert bool(out["ran"])
+    if sampled:
+        np.testing.assert_array_equal(new["key"].numpy(), np.asarray(j_state["key"]))
     for k in ("acc", "n_acc", "drafted", "pld_have", "budget"):
         np.testing.assert_array_equal(out[k].numpy(), np.asarray(j_out[k]), err_msg=k)
     assert int(out["n_acc"].max()) > 1                 # drafts were accepted
@@ -227,6 +251,7 @@ def test_one_round_matches_reference(mode):
     np.testing.assert_array_equal(cache["pos"].numpy(), np.asarray(j_cache["pos"]))
     for n in ("k", "v"):
         _close(cache["segments"][0][0][n].numpy(), np.asarray(j_cache["segments"][0][0][n]), 1e-5)
+    return new
 
 
 # ------------------------------------------------------------------ servers
@@ -333,21 +358,6 @@ def test_auto_round_mode_is_single_and_split_still_runs():
 
 
 # ------------------------------------------- no host read, nothing rebound
-_HOST_READS = ("aten::_local_scalar_dense", "aten::nonzero", "aten::masked_select")
-
-
-class _NoHostRead(TorchDispatchMode):
-    """Refuses every op that reads a device value on the host or sizes its
-    output from data."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = func._schema.name
-        if name in _HOST_READS or name.startswith("aten::unique") or name.startswith(
-                "aten::_unique"):
-            raise AssertionError(f"{name} ran inside a serving round")
-        return func(*args, **(kwargs or {}))
-
-
 def _carried(srv):
     leaves = []
     M.tree_map(leaves.append, srv.cache)
@@ -360,7 +370,7 @@ def test_round_reads_nothing_on_the_host_and_rebinds_nothing(mode):
     for i, p in enumerate(PROMPTS):
         srv.add_request(i, p)
     before = [(t, t.data_ptr()) for t in _carried(srv)]
-    with _NoHostRead():
+    with NoHostRead():
         for _ in range(3):                     # steps before the drain: the round only
             assert srv.step() == {}
     assert srv.stats["draft_rounds"] == 0      # no drain yet: nothing was read

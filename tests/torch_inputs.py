@@ -6,6 +6,9 @@ same kernels against the JAX reference import it too.
 """
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+_HOST_READS = ("aten::_local_scalar_dense", "aten::nonzero", "aten::masked_select")
 
 
 def attention_inputs(B, KV, rep, T, S, hd, pos, seed=0):
@@ -94,3 +97,36 @@ def bounded_inputs(B, KV, T, P, n_pp, pos, hd=128, seed=0):
     return dict(q=f(B, KV, T, hd), k_pages=f(NP, P, KV, hd), v_pages=f(NP, P, KV, hd),
                 table=table, kv_pos=kv_pos, q_pos=q_pos, k_new=f(B, KV, T, hd),
                 v_new=f(B, KV, T, hd), tmask=np.broadcast_to(tm, (B, T, T)).copy())
+
+
+class NoHostRead(TorchDispatchMode):
+    """Refuses every op that reads a device value on the host or sizes its
+    output from data: the ops a serving round must not run."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func._schema.name
+        if name in _HOST_READS or name.startswith("aten::unique") or name.startswith(
+                "aten::_unique"):
+            raise AssertionError(f"{name} ran inside a serving round")
+        return func(*args, **(kwargs or {}))
+
+
+def warp_cases(B=5, T=3, V=64, seed=4):
+    """Inputs of ``verify.sampling_probs``: logits (B, T, V) and per-slot
+    temperature, top_k and top_p (B >= 5). Slot 0 is greedy, slot 1 has
+    ties at the k-th value (k=3 of five logits at 5, 3, 3, 3, 3), slot 2 a
+    row of equal logits (masses exactly 1/V) cut by top-p exactly on a
+    cumulative boundary (0.25: the first V/4 tokens), slot 3 top-k and
+    top-p together, the others no filter."""
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(size=(B, T, V)).astype(np.float32) * 2
+    logits[1, :, :6] = np.array([5.0, 3.0, 3.0, 3.0, 3.0, 1.0], np.float32)
+    logits[1, :, 6:] = np.minimum(logits[1, :, 6:], 0.5)
+    logits[2, 0] = 0.5
+    temp = np.full(B, 0.9, np.float32)
+    temp[:4] = (0.0, 0.7, 1.0, 1.3)
+    top_k = np.zeros(B, np.int32)
+    top_k[:4] = (5, 3, 0, 10)
+    top_p = np.ones(B, np.float32)
+    top_p[:4] = (0.9, 1.0, 0.25, 0.6)
+    return logits, temp, top_k, top_p
