@@ -33,10 +33,18 @@ kernel on weights quantized once, dense and paged; the scaling hierarchy)
 and the per-step ``legacy`` baseline in split rounds, holds every stream
 to AR and the dispatches per round to the server's own count, and times
 one decode of the int8 drafter against float32 and against quantizing the
-weights per call. Each phase prints its seconds. The last line is the JSON
-device record; the line before it lists the kernels, with the launches of
-phases 3, 5, 6, 7 and 8 (graph launches counted by the server, a gated
-segment's only in the rounds that ran it). Exits non-zero,
+weights per call. Phase 9 serves sampled builds (temperature 0 against AR
+in five modes, seeded stochastic streams twice, the key stream and the
+warp on the card against the CPU). Phase 10 drives the serving entry
+point: the seven single-stream baselines against AR; ``ServeLoop`` over
+eight requests of the synthetic task suite on four slots in three modes,
+every stream against AR and the round telemetry reconciled with the
+delivered tokens; telemetry on against off; and, the model freed, the
+``repro_torch.launch.serve`` CLI as two subprocesses. Each phase prints
+its seconds. The last line is the JSON device record; the line before it
+lists the kernels, with the launches of phases 3 and 5-10 (graph launches
+counted by the server, a gated segment's only in the rounds that ran it).
+Exits non-zero,
 with no result, when any phase fails or when no CUDA device (or no
 repro_torch beside this script) is present.
 """
@@ -1724,6 +1732,303 @@ def phase_sampled(torch, served: dict, results: dict) -> None:
         results[k]["launches"] += v
 
 
+# ------------------------------------------------------------------ phase 10
+LOOP_TASKS = ("summarization", "rag", "math", "translation")
+LOOP_SPANS = {"admit", "drain", "dispatch", "route", "retire"}
+
+
+def _loop_prompts(vocab: int):
+    """Eight requests of the synthetic Spec-Bench suite, two of each task, 96
+    tokens each (``repro_torch.data.make_task_prompts``)."""
+    from repro_torch.data import SPEC_TASKS, make_task_prompts
+
+    return [p for task in LOOP_TASKS for p in make_task_prompts(SPEC_TASKS[task], 2, vocab)]
+
+
+def _serve_loop(torch, srv, prompts, ar_streams) -> dict:
+    """Serve ``prompts`` (GEN_TOKENS each) through ``ServeLoop`` on the
+    server's slots, more requests than slots, so slots are re-admitted.
+    Every stream must equal its AR stream, the telemetry must reconcile
+    exactly (accepted = delivered + overshoot + unrouted + discarded +
+    leftover), a single-round server's device buffer must equal the fold of
+    its drained ring, the latency histograms must be populated and the
+    loop's spans present. Returns a record of the run."""
+    from repro_torch.serving import Request, RequestScheduler, ServeLoop, TraceRecorder
+
+    sched = RequestScheduler(srv.B)
+    reqs = [Request(prompt=p, max_new_tokens=GEN_TOKENS) for p in prompts]
+    for r in reqs:
+        sched.submit(r)
+    trace = TraceRecorder()
+    loop = ServeLoop(srv, sched, trace=trace)
+    torch.cuda.synchronize()
+    _reset_counts()
+    graph0, st0 = dict(srv.graph_launches), dict(srv.stats)
+    t0 = time.perf_counter()
+    loop.run()
+    leftover = srv.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    for k, v in srv.graph_launches.items():
+        counts[k] += v - graph0.get(k, 0)
+    st = {k: v - st0[k] for k, v in srv.stats.items()}
+    for i, r in enumerate(reqs):
+        if r.generated != ar_streams[i][:GEN_TOKENS]:
+            raise AssertionError(f"request {i}: the served stream left AR:\n"
+                                 f"AR     {ar_streams[i][:GEN_TOKENS]}\nserved {r.generated}")
+    tot = srv.telemetry_totals()
+    snap = srv.metrics.snapshot()
+    c = snap["counters"]
+    delivered = sum(len(r.generated) for r in reqs)
+    parts = {k: int(c.get(f"serve_{k}_tokens_total", 0))
+             for k in ("overshoot", "unrouted", "discarded")}
+    parts["leftover"] = sum(len(v) for v in leftover.values())
+    accepted = int(tot["accepted"].sum())
+    if accepted != delivered + sum(parts.values()):
+        raise AssertionError(f"telemetry does not reconcile: accepted {accepted}, delivered "
+                             f"{delivered}, {parts}")
+    if srv.round_mode == "single":
+        bad = [k for k, v in srv.ring_totals.items() if not (tot[k] == v).all()]
+        if bad:
+            raise AssertionError(f"the device telemetry {bad} differs from the ring fold")
+    hists = snap["histograms"]
+    lat = {}
+    for h in ("ttft", "tpot", "itl"):
+        rec = hists[f"serve_request_{h}_seconds"]
+        if rec["count"] <= 0:
+            raise AssertionError(f"no {h} observations")
+        lat[h] = (rec["sum"] / rec["count"] * 1e3, rec["count"])
+    spans = {e["name"] for e in trace.events}
+    if not LOOP_SPANS <= spans:
+        raise AssertionError(f"loop spans {spans} lack {LOOP_SPANS - spans}")
+    return dict(requests=len(sched.finished), rounds=st["steps"], wall_s=wall,
+                ms_per_round=wall / st["steps"] * 1e3, delivered=delivered, accepted=accepted,
+                parts=parts, host_syncs=st["host_syncs"], graph_replays=st["graph_replays"],
+                target_calls=st["target_calls"], launches=counts, lat=lat,
+                summary=srv.metrics_summary(),
+                launches_per_round={k: v / st["steps"] for k, v in counts.items()})
+
+
+def _baselines(torch, cfg, params, prompt, ar) -> dict:
+    """The seven single-stream baselines the CLI offers besides DyTC (AR,
+    PLD k=8, and SD, VC, HC, VC+HC and Tree over LS0.4), at its settings, and
+    Tr+VC over LS0.4; GEN_TOKENS each, every stream equal to AR."""
+    from repro_torch.core import SpecEngine, TreeVCScheduler, layer_sparsity
+    from repro_torch.launch.serve import SCHEDULERS
+
+    makers = {name: SCHEDULERS[name] for name in ("ar", "pld", "swift", "vc", "hc", "vchc", "tree")}
+    makers["trvc"] = lambda e, c: TreeVCScheduler(e, layer_sparsity(c, 0.4))
+    launches = {k: 0 for k in _counters()}
+    for name, build in makers.items():
+        eng = SpecEngine(cfg, params, max_len=1024)
+        eng.start(prompt)
+        sched = build(eng, cfg)
+        torch.cuda.synchronize()
+        before = _read_counts()
+        t0 = time.perf_counter()
+        out = sched.generate(GEN_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v - before[k] for k, v in _read_counts().items()}
+        for k, v in counts.items():
+            launches[k] += v
+        st = eng.stats
+        if out != ar[:GEN_TOKENS]:
+            raise AssertionError(f"baseline {name} left AR:\nAR       {ar[:GEN_TOKENS]}\n{name:8s} {out}")
+        print(f"[phase 10] baseline {name:5s} ({type(sched).__name__}): {GEN_TOKENS} tokens identical "
+              f"to AR | {st['rounds']} rounds, {st['target_calls']} target calls, "
+              f"{st['draft_calls']} draft calls, {st['accepted_tokens'] / st['rounds']:.2f} tokens per "
+              f"round, {wall:.3f} s ({wall / st['rounds'] * 1e3:.2f} ms per round) | launches per "
+              "round: " + ", ".join(f"{k} {v / st['rounds']:.2f}" for k, v in counts.items()))
+        del eng, sched
+    return launches
+
+
+def phase_serving(torch, served: dict, results: dict) -> None:
+    """The serving entry point at vicuna-7b width, float32, random weights
+    (seed 0), one card: the seven single-stream baselines on phase 3's
+    128-token prompt; ``ServeLoop`` over eight requests of the synthetic
+    task suite on four slots (each slot re-admitted once) in tree_fused
+    dense single rounds at sync_every=4, chain_fused paged single rounds
+    with prefill_chunk=64, and the mixing cascade in split rounds; and
+    tree_fused single with the round telemetry on against off, in turns:
+    the same graph launches, host syncs, kernels and tokens."""
+    from repro_torch.core import SpecEngine
+
+    cfg, params, make = served["cfg"], served["params"], served["server"]
+    launches = _baselines(torch, cfg, params, served["prompts"][2], served["ar_streams"][2])
+
+    prompts = _loop_prompts(cfg.vocab_size)
+    t0 = time.perf_counter()
+    ar = []
+    for p in prompts:
+        eng = SpecEngine(cfg, params, max_len=1024)
+        eng.start(p)
+        ar.append(eng.generate_ar(GEN_TOKENS))
+        del eng
+    print(f"[phase 10] AR streams of the {len(prompts)} requests ({', '.join(LOOP_TASKS)}, two each, "
+          f"{len(prompts[0])} tokens) in {time.perf_counter() - t0:.1f} s")
+    for name, kw in (
+            ("tree_fused dense, single, sync_every=4",
+             dict(mode="tree_fused", paged=False, round_mode="single", sync_every=4)),
+            ("chain_fused paged, single, prefill_chunk=64",
+             dict(mode="chain_fused", paged=True, round_mode="single", prefill_chunk=64)),
+            ("cascade_fused mixing dense, split", dict(mode="cascade_fused", paged=False,
+                                                       draft=False, round_mode="split"))):
+        srv = make(**kw)
+        rec = _serve_loop(torch, srv, prompts, ar)
+        for k, v in rec["launches"].items():
+            launches[k] += v
+        summ, lat = rec["summary"], rec["lat"]
+        # the ring drains every sync_every rounds and at each admission
+        if srv.round_mode == "single" and (
+                rec["graph_replays"] != rec["rounds"]
+                or rec["host_syncs"] > rec["rounds"] // srv.sync_every + len(prompts) + 1):
+            raise AssertionError(f"{name}: {rec['graph_replays']} replays and {rec['host_syncs']} "
+                                 f"host syncs in {rec['rounds']} rounds")
+        casc = (f", cascade acceptance by level {summ['cascade_acceptance']}, routed rounds "
+                f"{summ['cascade_routed_rounds']}" if "cascade_acceptance" in summ else "")
+        print(f"[phase 10] ServeLoop {name}: {rec['requests']} requests on {srv.B} slots identical "
+              f"to AR | {rec['rounds']} rounds, {rec['wall_s']:.3f} s ({rec['ms_per_round']:.2f} ms "
+              f"per round), {rec['delivered'] / rec['wall_s']:.1f} delivered tokens/s, "
+              f"{rec['host_syncs'] / rec['rounds']:.2f} host syncs and "
+              f"{rec['graph_replays'] / rec['rounds']:.2f} graph launches per round | telemetry: "
+              f"accepted {rec['accepted']} = delivered {rec['delivered']} + {rec['parts']}, "
+              f"accepted per round {summ['accepted_per_round']:.3f}, spec accept rate "
+              f"{summ['spec_accept_rate']:.3f}{casc} | mean TTFT {lat['ttft'][0]:.1f} ms, TPOT "
+              f"{lat['tpot'][0]:.2f} ms, ITL {lat['itl'][0]:.2f} ms ({lat['itl'][1]} gaps) | "
+              "launches per round: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in rec["launches_per_round"].items()))
+        if srv.mode == "cascade_fused" and rec["launches"]["int8_matmul"] <= 0:
+            raise AssertionError(f"{name}: the int8 level launched no W8A8 kernel")
+        del srv
+        torch.cuda.empty_cache()
+
+    # telemetry on against off, in turns (off, on, on, off)
+    runs = {True: [], False: []}
+    for telem in (False, True, True, False):
+        srv = make(mode="tree_fused", paged=False, round_mode="single", telemetry=telem)
+        rec = _serve(torch, srv, served["prompts"], served["ar_streams"])
+        for k, v in rec["launches"].items():
+            launches[k] += v
+        runs[telem].append((rec, srv.graph_pool_bytes))
+        del srv
+        torch.cuda.empty_cache()
+    for key in ("graph_replays", "host_syncs", "tokens", "rounds", "launches", "streams"):
+        vals = [rec[key] for telem in (True, False) for rec, _ in runs[telem]]
+        if any(v != vals[0] for v in vals):
+            raise AssertionError(f"telemetry on/off: {key} differs: {vals}")
+    rec = runs[True][0][0]
+    print(f"[phase 10] tree_fused dense single, telemetry on against off (off, on, on, off): identical "
+          f"streams, {rec['rounds']} rounds, {rec['graph_replays']} graph launches, "
+          f"{rec['host_syncs']} host syncs, {rec['tokens']} tokens and kernel launches | ms per round "
+          "on " + " / ".join(f"{r['ms_per_round']:.2f}" for r, _ in runs[True])
+          + ", off " + " / ".join(f"{r['ms_per_round']:.2f}" for r, _ in runs[False])
+          + " | rounds that skipped the draft on " + " / ".join(f"{r['ms_skipped'][0]:.2f}"
+                                                              for r, _ in runs[True])
+          + ", off " + " / ".join(f"{r['ms_skipped'][0]:.2f}" for r, _ in runs[False])
+          + f" | graph pool on {runs[True][0][1] / 2**20:.1f} MiB, off {runs[False][0][1] / 2**20:.1f} MiB")
+    _telemetry_cost(torch)
+    print(f"[phase 10] kernel launches of the baselines, the loops and the on/off runs: {launches}")
+    for k, v in launches.items():
+        results[k]["launches"] += v
+
+
+def _telemetry_cost(torch) -> None:
+    """What the in-graph round telemetry adds to a single round: one
+    ``accumulate_round`` at the server's shapes (B=4, budgets 0-5), its
+    device kernels (profiler), its device time and its time by graph
+    replay (each replay also pays the graph's fixed launch cost)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import telemetry as TM
+
+    B, K = SERVER["max_batch"], SERVER["tree_expansions"]
+    buf = TM.init_device_telemetry(TM.telemetry_schema(B, K), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {k: torch.randint(0, hi, (B,), generator=gen, device="cuda", dtype=torch.int32)
+           for k, hi in (("n_acc", 6), ("drafted", 4), ("pld_have", 5), ("budget", K + 1))}
+    live = torch.ones((B,), dtype=torch.bool, device="cuda")
+
+    def fn():
+        TM.accumulate_round(buf, out, live)
+
+    iters = 20
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = sum(e.count for e in evs) / iters
+    busy = sum(e.self_device_time_total for e in evs) / iters / 1e3
+    if kernels <= 0:
+        raise AssertionError("the profiler recorded no kernel of accumulate_round")
+    graph = _graph_ms(fn, lambda: None, iters=50)
+    print(f"[phase 10] accumulate_round alone (B={B}, budgets 0-{K}): {kernels:.1f} device kernels "
+          f"and {busy:.4f} ms of device time a call (profiler, {iters} calls), graph replay "
+          f"{graph:.4f} ms (replay floor: phase 2's one-element add)")
+
+
+def _cli(args, env, timeout: int = 600) -> tuple:
+    """Run ``python -m repro_torch.launch.serve`` with ``args``; returns its
+    summary (the last line) and its stdout."""
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args], cwd=HERE,
+                          env=env, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"serve {' '.join(args)} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    if summary.get("kind") != "serve_summary":
+        raise AssertionError(f"serve {' '.join(args)}: last line {summary}")
+    return summary, proc.stdout
+
+
+def phase_cli(torch) -> None:
+    """``python -m repro_torch.launch.serve`` as a subprocess on the card, at
+    full width (the parent holds no model then): the DyTC single stream,
+    and the batched server on the one-device mesh through ServeLoop with
+    its /metrics endpoint, trace and JSONL sink."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(HERE, "src")] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+    t0 = time.perf_counter()
+    summary, out = _cli(["--scheduler", "dytc", "--tokens", "32"], env)
+    if summary["delivered_tokens"] != 32 or summary["scheduler"] != "dytc":
+        raise AssertionError(f"serve --scheduler dytc: {summary}")
+    print(f"[phase 10] serve --scheduler dytc --tokens 32: exit 0 in {time.perf_counter() - t0:.1f} s | "
+          f"{out.strip().splitlines()[-3]} | {summary['rounds']} rounds, {summary['target_calls']} "
+          f"target calls, {summary['mean_accepted']:.2f} tokens per round")
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, jsonl = os.path.join(tmp, "trace.json"), os.path.join(tmp, "summary.jsonl")
+        args = ["--mesh", "model=1,data=1", "--mode", "tree_fused", "--batch", "4", "--tokens", "32",
+                "--metrics-port", "0", "--trace-out", trace, "--metrics-jsonl", jsonl]
+        t0 = time.perf_counter()
+        summary, out = _cli(args, env)
+        wall = time.perf_counter() - t0
+        rate = summary["spec_accept_rate"]
+        if summary["delivered_tokens"] != 128 or rate is None or not 0.0 <= rate <= 1.0:
+            raise AssertionError(f"serve {' '.join(args)}: {summary}")
+        with open(trace) as f:
+            spans = {e["name"] for e in json.load(f)["traceEvents"]}
+        if not LOOP_SPANS <= spans:
+            raise AssertionError(f"serve trace spans {spans} lack {LOOP_SPANS - spans}")
+        with open(jsonl) as f:
+            records = [json.loads(line) for line in f]
+        if records != [summary]:
+            raise AssertionError(f"serve JSONL records {records} != the summary line")
+    lines = out.strip().splitlines()
+    print(f"[phase 10] serve {' '.join(args[:8])} (metrics, trace, JSONL): exit 0 in {wall:.1f} s | "
+          f"{next(x for x in lines if x.startswith('mode='))} | delivered {summary['delivered_tokens']}, "
+          f"{summary['rounds']} rounds, {summary['host_syncs']} host syncs, spec accept rate "
+          f"{rate:.3f}, accepted per round {summary['accepted_per_round']:.3f} | trace spans "
+          f"{sorted(spans)}; the JSONL record equals the last line")
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -1756,8 +2061,10 @@ def main() -> int:
     timed("phase 7", phase_single, torch, served, results)
     timed("phase 8", phase_cascade, torch, served, results)
     timed("phase 9", phase_sampled, torch, served, results)
+    timed("phase 10", phase_serving, torch, served, results)
     del served
     torch.cuda.empty_cache()
+    timed("phase 10 CLI", phase_cli, torch)
     print(f"[chip_smoke] all phases in {time.perf_counter() - t_all:.1f} s")
     kernels = []
     for name, src, replaces in (

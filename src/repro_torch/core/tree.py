@@ -10,7 +10,7 @@ padded to fixed bucket sizes, with a dense (T, T) ancestor-closure mask.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -71,6 +71,12 @@ class DraftTree:
     def path_tokens(self, node: int) -> List[int]:
         return [self.tokens[i] for i in self.path_to(node)]
 
+    def siblings(self, node: int) -> List[int]:
+        p = self.parents[node]
+        if p == -1:
+            return []
+        return [c for c in self.children[p] if c != node]
+
     def flatten(
         self, bucket: Optional[int] = None
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
@@ -96,6 +102,15 @@ class DraftTree:
                 j = self.parents[j]
         rel[n:] = np.arange(T - n) + max(self.depth) + 1 if n else 0
         return tokens, rel, mask, real
+
+
+def chain_tree(root_token: int, chain: Sequence[int], config: str, alpha: float) -> DraftTree:
+    """A pure-chain tree (vanilla SD and the cascades)."""
+    t = DraftTree(root_token)
+    node = 0
+    for tok in chain:
+        node = t.add_child(node, tok, config, alpha)
+    return t
 
 
 def tree_seed_arrays(

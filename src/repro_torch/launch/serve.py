@@ -1,0 +1,225 @@
+"""Serving entry point of the port: the CAS-Spec engine (single stream) or the
+batched server; the counterpart of the reference's ``launch/serve.py``,
+with its flags and its last line.
+
+  python -m repro_torch.launch.serve --scheduler dytc --tokens 64
+  python -m repro_torch.launch.serve --mesh model=1,data=1 --mode tree_fused \\
+      --batch 4 --tokens 32 --metrics-port 0 --trace-out trace.json
+
+It runs on the card (``--device cuda``, the default; it raises when there
+is none). ``--device cpu --reduced`` runs the kernels' plain versions on the
+CPU, at the reduced width with 8 layers. ``--mesh model=1,data=1`` serves
+the requests through ``ServeLoop`` and ``BatchedSpecServer`` on the one
+device; a larger mesh raises ``NotImplementedError`` (ROADMAP A.6).
+
+Observability: ``--metrics-port`` serves Prometheus text at ``/metrics``
+while the run is in flight, ``--trace-out`` records Chrome-trace spans of
+the serving loop's phases, ``--profile-dir`` wraps the run in
+``torch.profiler`` (a Chrome trace in that directory) and
+``--metrics-jsonl`` appends the summary as one JSONL record. Whatever the
+flags, the last line of stdout is one JSON summary (``kind:
+"serve_summary"``).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+from repro_torch import resolve_device
+from repro_torch.config import get_config
+from repro_torch.core.cascade import (
+    ARScheduler,
+    HCScheduler,
+    PLDScheduler,
+    SDScheduler,
+    TreeScheduler,
+    VCHCScheduler,
+    VCScheduler,
+)
+from repro_torch.core.dsia import build_hierarchy, layer_sparsity
+from repro_torch.core.dytc import DyTCScheduler
+from repro_torch.core.engine import SpecEngine
+from repro_torch.data import SPEC_TASKS, make_task_prompts
+from repro_torch.models import init_params
+from repro_torch.serving.exporters import JsonlSink, MetricsHTTPServer
+from repro_torch.serving.telemetry import TraceRecorder, profiler_trace
+
+SCHEDULERS = {
+    "ar": lambda e, cfg: ARScheduler(e),
+    "pld": lambda e, cfg: PLDScheduler(e, k=8),
+    "swift": lambda e, cfg: SDScheduler(e, layer_sparsity(cfg, 0.4), k=4),
+    "vc": lambda e, cfg: VCScheduler(e, layer_sparsity(cfg, 0.4)),
+    "hc": lambda e, cfg: HCScheduler(e, layer_sparsity(cfg, 0.4)),
+    "vchc": lambda e, cfg: VCHCScheduler(e, layer_sparsity(cfg, 0.4)),
+    "tree": lambda e, cfg: TreeScheduler(e, layer_sparsity(cfg, 0.4)),
+    "dytc": lambda e, cfg: DyTCScheduler(e, build_hierarchy(cfg)),
+}
+MODES = ("chain_fused", "legacy", "tree_fused", "cascade_fused")
+
+
+def parse_mesh(spec: str) -> dict:
+    """``"model=K,data=D"`` -> ``{"model": K, "data": D}``. Only the
+    one-device mesh runs: mesh serving is not ported (ROADMAP A.6)."""
+    shape = {"model": 1, "data": 1}
+    for part in spec.split(","):
+        name, _, size = part.partition("=")
+        if name.strip() not in shape or not size.strip().isdigit():
+            raise ValueError(f"bad --mesh {spec!r}: expected 'model=K,data=D'")
+        shape[name.strip()] = int(size)
+    if shape != {"model": 1, "data": 1}:
+        raise NotImplementedError(
+            f"--mesh {spec}: serving over a mesh of more than one device is not ported yet "
+            "(ROADMAP A.6); --mesh model=1,data=1 runs the batched server on one device")
+    return shape
+
+
+def _emit_summary(summary: dict, args) -> None:
+    """The one machine-readable last line (and the optional JSONL record)."""
+    if args.metrics_jsonl:
+        with JsonlSink(args.metrics_jsonl) as sink:
+            sink.write(summary)
+    print(json.dumps(summary, sort_keys=True))
+
+
+def run_batched(cfg, params, args, device, mesh_shape: dict) -> None:
+    """``--mesh`` path: continuous batching through ``ServeLoop`` on the one
+    device of ``mesh_shape`` (``parse_mesh``)."""
+    from repro_torch.serving.sampler import SamplingParams
+    from repro_torch.serving.scheduler import Request, RequestScheduler, ServeLoop
+    from repro_torch.serving.server import BatchedSpecServer
+
+    print(f"mesh: {mesh_shape} over 1 devices")
+    srv_kw: dict = {}
+    if args.mode != "cascade_fused":
+        srv_kw["draft_spec"] = layer_sparsity(cfg, 0.4)
+    if args.temperature > 0.0:
+        srv_kw["sampling"] = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                                            top_p=args.top_p, seed=args.seed)
+    if args.paged or args.prefill_chunk:
+        # block-paged KV cache (and in-round chunked prefill): token-identical
+        # to the dense path
+        srv_kw.update(paged=True, page_size=args.page_size)
+        if args.prefill_chunk:
+            srv_kw["prefill_chunk"] = args.prefill_chunk
+    srv = BatchedSpecServer(cfg, params, max_batch=args.batch, max_len=1024, mode=args.mode,
+                            device=device, **srv_kw)
+    endpoint = (MetricsHTTPServer(srv.metrics, port=args.metrics_port)
+                if args.metrics_port is not None else None)
+    try:
+        if endpoint is not None:
+            print(f"metrics: {endpoint.url}")
+        trace = TraceRecorder() if args.trace_out else None
+        sched = RequestScheduler(args.batch)
+        for p in make_task_prompts(SPEC_TASKS[args.task], args.batch, cfg.vocab_size):
+            sched.submit(Request(prompt=p, max_new_tokens=args.tokens))
+        loop = ServeLoop(srv, sched, trace=trace)
+        t0 = time.perf_counter()
+        with profiler_trace(args.profile_dir):
+            while sched.busy:
+                loop.step_once()
+            srv.flush()
+        dt = time.perf_counter() - t0
+        tok = sum(len(r.generated) for r in sched.finished)
+        print(f"mode={args.mode} mesh={args.mesh} requests={len(sched.finished)} "
+              f"tokens={tok} time={dt:.2f}s ({dt / max(tok, 1) * 1e3:.1f} ms/tok)")
+        if trace is not None:
+            trace.save(args.trace_out)
+            print(f"trace: {args.trace_out} (open in https://ui.perfetto.dev)")
+    finally:
+        if endpoint is not None:
+            endpoint.close()
+    summary = {
+        "kind": "serve_summary",
+        "mesh": args.mesh,
+        "requests": len(sched.finished),
+        "delivered_tokens": tok,
+        "wall_s": dt,
+        **srv.metrics_summary(),
+    }
+    _emit_summary(summary, args)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", default="vicuna-7b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the config's reduced width, with 8 layers")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu (plain versions)")
+    ap.add_argument("--scheduler", default="dytc", choices=sorted(SCHEDULERS))
+    ap.add_argument("--tokens", type=int, default=64)
+    ap.add_argument("--task", default="summarization", choices=sorted(SPEC_TASKS))
+    ap.add_argument("--mesh", default=None,
+                    help="'model=1,data=1' -> the batched server on one device")
+    ap.add_argument("--mode", default="chain_fused", choices=MODES,
+                    help="batched server mode (with --mesh)")
+    ap.add_argument("--batch", type=int, default=4, help="batch slots (with --mesh)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (batched path; 0 = greedy, the default; "
+                         "lossless stochastic verify when > 0)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k filter for sampled serving (0 = off)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus mass for sampled serving (1.0 = off)")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="base PRNG seed for sampled serving (per-request streams derive "
+                         "from it and the admission order)")
+    ap.add_argument("--paged", action="store_true",
+                    help="block-paged KV cache (batched path; lossless)")
+    ap.add_argument("--page-size", type=int, default=64, help="tokens per KV page (with --paged)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help=">0: non-blocking admission; prompts prefill inside the single "
+                         "rounds, this many tokens per round (implies --paged)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve Prometheus /metrics on this port (0 = ephemeral; batched path)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write Chrome trace-event JSON of the serving loop's phases here "
+                         "(batched path)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="wrap the run in torch.profiler, writing a Chrome trace here")
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="append the final summary record to this JSONL file")
+    return ap
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = dataclasses.replace(cfg.reduced(), num_layers=8)
+    # a larger mesh is refused before anything is built
+    mesh_shape = parse_mesh(args.mesh) if args.mesh else None
+    params = init_params(cfg, 0, device=device)
+    if mesh_shape is not None:
+        run_batched(cfg, params, args, device, mesh_shape)
+        return
+    prompt = make_task_prompts(SPEC_TASKS[args.task], 1, cfg.vocab_size)[0]
+
+    eng = SpecEngine(cfg, params, max_len=1024, device=device)
+    eng.start(prompt)
+    sched = SCHEDULERS[args.scheduler](eng, cfg)
+    t0 = time.perf_counter()
+    with profiler_trace(args.profile_dir):
+        out = sched.generate(args.tokens)
+    dt = time.perf_counter() - t0
+    s = eng.stats
+    print(f"scheduler={args.scheduler} tokens={len(out)} time={dt:.2f}s "
+          f"({dt / len(out) * 1e3:.1f} ms/tok)")
+    print("output:", out[:32], "..." if len(out) > 32 else "")
+    summary = {
+        "kind": "serve_summary",
+        "scheduler": args.scheduler,
+        "delivered_tokens": len(out),
+        "wall_s": dt,
+        "rounds": s["rounds"],
+        "target_calls": s["target_calls"],
+        "mean_accepted": s["accepted_tokens"] / max(s["rounds"], 1),
+    }
+    _emit_summary(summary, args)
+
+
+if __name__ == "__main__":
+    main()

@@ -86,16 +86,31 @@ token is drawn on the host from the warped prefill row. ``temperature=0``
 streams equal the greedy build's, and a greedy build (``sampling=None``)
 runs exactly the greedy rounds.
 
+Telemetry, as the reference's: ``stats`` is a ``StatsView`` over the
+server's ``MetricsRegistry`` (``metrics``, shared when passed in), which
+also holds the serving counters and gauges. ``telemetry=True`` (the default)
+keeps the round telemetry buffer (``serving/telemetry.py``) on the device: a
+single round adds to it in place inside its captured graph, in the tail
+segment every round runs. Split, ``legacy`` and cascade rounds tally on
+the host, in a numpy twin, from arrays they already read (the port's verify
+reads its verdict to the host, so a device tally would only copy those
+arrays back). The host reads the buffer only at ``flush`` and
+``telemetry_totals``, after the rounds' own outputs, so
+telemetry adds no launch and no host sync to a round. The ring's per-round
+facts, folded on the host at every drain (``ring_totals``), must equal the
+device buffer of a single-round server at every telemetry drain; a
+mismatch raises. ``telemetry_totals()`` and ``metrics_summary()`` report
+it.
+
 Not ported yet (they raise ``NotImplementedError``; ROADMAP queue A): mesh
 serving (``mesh``) and single rounds over a non-homogeneous stack (mask
-exec reads the layer gates on the host). The reference's round telemetry
-(``telemetry=``) is not mirrored either.
+exec reads the layer gates on the host).
 """
 from __future__ import annotations
 
 import functools
 import time
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -135,6 +150,7 @@ from repro_torch.core.verify import round_uniforms
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.graph_cond import CondGraph
 from repro_torch.models import model as M
+from repro_torch.serving import telemetry as TM
 from repro_torch.serving.draft_bank import DraftBank
 from repro_torch.serving.sampler import SamplingParams, warp_probs
 
@@ -186,6 +202,8 @@ class BatchedSpecServer:
         fused: bool = True,            # False (with mode unset): legacy per-step drafting
         hierarchy: Optional[List[DraftSpec]] = None,   # cascade_fused levels
         int8_exec: str = "auto",       # the bank's int8 path: auto | kernel | sim
+        telemetry: bool = True,        # the device round telemetry buffer
+        metrics: Optional[TM.MetricsRegistry] = None,   # shared host registry
         device="cuda",
     ):
         if mode is None:
@@ -297,13 +315,22 @@ class BatchedSpecServer:
         self.contexts: List[List[int]] = [[] for _ in range(max_batch)]
         self.live = np.zeros(max_batch, bool)
         self._pld_have = np.zeros(max_batch, np.int32)   # PLD prefix per round
-        # the reference's round telemetry (telemetry=, its _telem_host twin
-        # in split rounds) is ROADMAP A.3's: it joins these counters there
-        self.stats = {"target_calls": 0, "draft_dispatches": 0, "rescore_dispatches": 0,
-                      "tokens": 0, "drafted_tokens": 0, "steps": 0, "host_syncs": 0,
-                      "round_dispatches": 0, "device_wait": 0.0, "draft_time": 0.0,
-                      "rescore_time": 0.0, "verify_time": 0.0, "draft_rounds": 0,
-                      "prefill_rounds": 0, "graph_replays": 0}
+        self._last_limit = np.zeros(max_batch, np.int32)  # split-round budgets
+        # the host registry is always on: it backs ``stats``. ``telemetry``
+        # gates only the device buffer, which single rounds add to; host-read
+        # rounds (split, legacy, cascade) tally into the numpy twin
+        self.telemetry = bool(telemetry)
+        self.metrics = metrics if metrics is not None else TM.MetricsRegistry()
+        self.stats = TM.StatsView(self.metrics)
+        budget_max = draft_k if mode in ("chain_fused", "legacy") else tree_expansions
+        self._telem_schema = TM.telemetry_schema(
+            max_batch, budget_max, levels=len(self.bank) if self.bank is not None else 0)
+        self._telem_host = TM.init_host_telemetry(self._telem_schema)
+        self._telem_seen = TM.init_host_telemetry(self._telem_schema)
+        self._telem_dev = (TM.init_device_telemetry(self._telem_schema, self.device)
+                           if self.telemetry else None)
+        # the drained ring rows folded into the same schema (single rounds)
+        self.ring_totals = TM.init_host_telemetry(self._telem_schema)
 
         # carried device state of the single round: pending/live, the PLD
         # context buffer and the per-slot Eq. 4 estimator, at the draft's
@@ -383,8 +410,9 @@ class BatchedSpecServer:
         builds ignore it. On a ``prefill_chunk`` build admission only
         enqueues the prompt: the next rounds prefill it in chunks. Single
         rounds in flight are drained first, and tokens the slot's previous
-        request left undrawn are dropped: call ``flush()`` before re-binding
-        a slot to collect them.
+        request left undrawn are dropped and counted
+        (``serve_discarded_tokens_total``): call ``flush()`` before
+        re-binding a slot to collect them (``ServeLoop`` does).
 
         ``sampling`` overrides the build's ``SamplingParams`` for this
         request. A greedy build refuses a stochastic request and accepts a
@@ -400,7 +428,11 @@ class BatchedSpecServer:
                 "BatchedSpecServer(..., sampling=SamplingParams(...)); this greedy build runs "
                 "only the greedy rounds")
         self._drain()
-        self._out_buf.pop(slot, None)
+        dropped = self._out_buf.pop(slot, None)
+        if dropped:
+            # tokens of the slot's previous binding that nobody collected:
+            # counted, so that the telemetry reconciles with routed streams
+            self.metrics.counter("serve_discarded_tokens_total").inc(len(dropped))
         prompt = np.asarray(prompt, np.int32)
         table_row = None
         if self.paged:
@@ -414,6 +446,8 @@ class BatchedSpecServer:
             key = (prng.prng_key(eff.seed) if eff.seed is not None
                    else prng.fold_in(self._base_key, self._admit_seq))
             self._admit_seq += 1
+            if not eff.greedy:
+                self.metrics.counter("serve_sampled_requests_total").inc()
         if self.prefill_chunk:
             # enqueue only: pos 0, the prompt parked in ctx, pf_* armed. The
             # prompt's first token is a safe pending: the round prologue
@@ -494,6 +528,7 @@ class BatchedSpecServer:
                 "fewer/shorter concurrent requests")
         pages = [self._free_pages.pop() for _ in range(need)]
         self._slot_pages[slot] = pages
+        self.metrics.gauge("serve_free_pages").set(len(self._free_pages))
         row = np.full(self._pages_per_slot, -1, np.int32)
         row[:need] = pages
         return row
@@ -502,6 +537,7 @@ class BatchedSpecServer:
         pages = self._slot_pages.pop(slot, None)
         if pages:
             self._free_pages.extend(pages)
+            self.metrics.gauge("serve_free_pages").set(len(self._free_pages))
 
     def release(self, slot: int) -> None:
         """Mark a slot free (its request finished or was cancelled). Its
@@ -604,6 +640,7 @@ class BatchedSpecServer:
         for b in range(self.B):
             if self.live[b]:
                 limit[b] = self._slot_limit(b)
+        self._last_limit = limit.copy()
         if self.draft_spec is None:
             return chains, have
         if self.mode == "legacy":
@@ -705,6 +742,8 @@ class BatchedSpecServer:
             pld_n = int(self._pld_have[b])
             if have[b] > pld_n and n_chain[b] >= pld_n:
                 self.acceptance.observe(self._slot_key(b), n_chain[b] > pld_n)
+        self._host_round_telemetry(n_chain + 1, np.maximum(have - self._pld_have, 0),
+                                   self._pld_have, self._last_limit)
         self.pending = np.where(self.live, new_pending.astype(np.int64), self.pending)
         self.stats["steps"] += 1
         return out
@@ -771,6 +810,7 @@ class BatchedSpecServer:
                 node_set = {int(i) for i in nodes}
                 if int(parents[b, fn]) in node_set:
                     self.acceptance.observe(self._slot_key(b), fn in node_set)
+        self._host_round_telemetry(n_acc, np.clip(count - have - 1, 0, None), have, limits)
         self.pending = np.where(self.live, bonus.astype(np.int64), self.pending)
         self.stats["steps"] += 1
         return out_toks
@@ -847,13 +887,14 @@ class BatchedSpecServer:
         # the next level's Eq. 4 verdict; the strongest carries the verify
         live = self._dev(self.live, torch.bool)
         level_node = np.full(self.B, -1, np.int32)
+        rescored_round = bool(use_rescore.any())
         # sampled builds thread the slot keys through every rescore: each
         # splits its own uniforms on the device and hands the advanced keys on
         ds = self.dstate
         warp = keys = None
         if self.sampling is not None:
             warp, keys = (ds["temp"], ds["topk"], ds["topp"]), ds["key"]
-        if use_rescore.any():
+        if rescored_round:
             apply = self._dev(use_rescore & self.live, torch.bool)
             probe = self._dev(first_neural)
             for lvl in bank.rescorers:
@@ -890,6 +931,8 @@ class BatchedSpecServer:
                     self.stats["host_syncs"] += 1
                     self.stats["device_wait"] += dt
                     self.costs.observe(bank.cost_key(r), dt, tokens=1)
+                self._telem_host["casc_obs"][r + 1] += pv.astype(np.int32)
+                self._telem_host["casc_accept"][r + 1] += (pv & pk).astype(np.int32)
                 # Eq. 4: this level's verdict on level r+1's first token
                 for b in np.flatnonzero(pv):
                     self.acceptance.observe(bank.slot_key(r + 1, b), bool(pk[b]))
@@ -899,10 +942,20 @@ class BatchedSpecServer:
             self.cache, path, n_acc, bonus = self._tree_verify(tree[0], tree[1], tree[2], tree[4],
                                                                tree[5], live)
             self._count_verify(time.perf_counter() - t0)
-        if warp is not None and use_rescore.any():
+        if warp is not None and rescored_round:
             ds["key"].copy_(keys)
 
         tokens, parents = tree[0].cpu().numpy(), tree[1].cpu().numpy()
+        # the verify already read its verdict to the host (the port's
+        # ``tree_verify_accept_commit_host``): the round's per-slot tallies
+        # and routing rows go to the host twin, with no device copy
+        self._host_round_telemetry(n_acc, np.clip(tree[5].cpu().numpy() - have - 1, 0, None),
+                                   have, exp_b)
+        routed = (use_rescore & self.live).astype(np.int32)
+        for lv in bank.rescorers:
+            self._telem_host["casc_routed"][lv.index] += routed
+        self._telem_host["casc_routed"][bank.drafter.index] += (
+            (exp_b > 0) & self.live).astype(np.int32)
         out_toks: Dict[int, List[int]] = {}
         for b in range(self.B):
             if not self.live[b]:
@@ -919,13 +972,15 @@ class BatchedSpecServer:
             fn = int(level_node[b] if use_rescore[b] else first_neural[b])
             if fn < 0 or int(parents[b, fn]) not in node_set:
                 continue
-            if use_rescore[b]:
-                self.acceptance.observe(bank.slot_key(0, b), fn in node_set)
-            else:
+            if not use_rescore[b]:
                 self.acceptance.observe(bank.direct_key(b), fn in node_set)
-                if L == 1:
-                    # a 1-level bank's direct acceptance is its level-0 alpha
-                    self.acceptance.observe(bank.slot_key(0, b), fn in node_set)
+            if use_rescore[b] or L == 1:
+                # the target-facing verdict (a 1-level bank's direct
+                # acceptance is its level-0 alpha): row 0 of the cascade
+                # tallies, always on the host
+                self.acceptance.observe(bank.slot_key(0, b), fn in node_set)
+                self._telem_host["casc_obs"][0, b] += 1
+                self._telem_host["casc_accept"][0, b] += int(fn in node_set)
         self.pending = np.where(self.live, bonus.astype(np.int64), self.pending)
         self.stats["steps"] += 1
         return out_toks
@@ -993,7 +1048,11 @@ class BatchedSpecServer:
         """Verify and commit, every write in place: the cache
         (``commit_cache``), ``dstate`` and the round's row of the output
         ring."""
-        new, out = self._tail_fn(self.params, self.cache, self._state(mid), mid)
+        state = self._state(mid)
+        new, out = self._tail_fn(self.params, self.cache, state, mid)
+        if self._telem_dev is not None:
+            # the decode half's live: a slot still prefilling gets no round
+            TM.accumulate_round(self._telem_dev, out, state["live"])
         for name, value in new.items():
             self.dstate[name].copy_(value)
         out["prefilled"] = mid.get("pf_any", self._false)
@@ -1025,6 +1084,8 @@ class BatchedSpecServer:
             for _ in range(2):
                 self._round()
                 self._ring_at.zero_()
+                if self._telem_dev is not None:
+                    self._telem_dev.zero_()
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()        # as the capture does first: its pool is the growth
@@ -1077,6 +1138,7 @@ class BatchedSpecServer:
         self._inflight = 0
         self._ring_at.zero_()
         w = rows.shape[2] - len(_RING_FACTS)
+        self._fold_ring(rows, w)
         for r in rows:
             facts = dict(zip(_RING_FACTS, r[:, w:].T))
             for stat, fact, seg in (("draft_rounds", "ran", "draft"),
@@ -1092,11 +1154,106 @@ class BatchedSpecServer:
                     self._out_buf.setdefault(b, []).extend(int(t) for t in r[b, :nb])
                     self.stats["tokens"] += nb
 
+    def _fold_ring(self, rows: np.ndarray, w: int) -> None:
+        """Fold drained ring rows (rounds, B, w + facts) into ``ring_totals``,
+        the host twin of what the device buffer holds for single rounds (a
+        slot is live in a round exactly when it accepted a token), and count
+        their neural drafted tokens."""
+        f = {k: rows[:, :, w + i] for i, k in enumerate(_RING_FACTS)}
+        live = f["n_acc"] > 0
+        rt = self.ring_totals
+        rt["rounds"] += live.sum(0, dtype=np.int32)
+        rt["accepted"] += f["n_acc"].sum(0, dtype=np.int32)
+        rt["drafted"] += f["drafted"].sum(0, dtype=np.int32)
+        rt["pld_tokens"] += f["pld_have"].sum(0, dtype=np.int32)
+        rt["pld_hit_rounds"] += ((f["pld_have"] > 0) & live).sum(0, dtype=np.int32)
+        K1 = rt["budget_hist"].shape[1]
+        slots = np.broadcast_to(np.arange(self.B), live.shape)
+        np.add.at(rt["budget_hist"], (slots, np.clip(f["budget"], 0, K1 - 1)),
+                  live.astype(np.int32))
+        self.stats["drafted_tokens"] += int(f["drafted"].sum())
+
     def flush(self) -> Dict[int, List[int]]:
-        """Drain the rounds in flight and return the buffered tokens per
-        slot. Split rounds return their tokens from ``step`` and leave
-        nothing in flight; for them this is empty."""
+        """Drain the rounds in flight and the telemetry, and return the
+        buffered tokens per slot. Split rounds return their tokens from
+        ``step`` and leave nothing in flight; for them this is empty."""
         self._drain()
+        self._drain_telemetry()
         out, self._out_buf = self._out_buf, {}
+        return out
+
+    # ------------------------------------------------------------ telemetry
+    def _host_round_telemetry(self, n_acc, drafted, pld_have, budget) -> None:
+        """Add one host-read round (split, ``legacy``, tree or cascade) to
+        the numpy twin, from arrays the round already read."""
+        th = self._telem_host
+        li = self.live.astype(np.int32)
+        th["rounds"] += li
+        th["accepted"] += np.asarray(n_acc, np.int32) * li
+        th["drafted"] += np.asarray(drafted, np.int32) * li
+        th["pld_tokens"] += np.asarray(pld_have, np.int32) * li
+        th["pld_hit_rounds"] += ((np.asarray(pld_have) > 0) & self.live).astype(np.int32)
+        K1 = th["budget_hist"].shape[1]
+        th["budget_hist"][np.arange(self.B), np.clip(np.asarray(budget), 0, K1 - 1)] += li
+
+    def _drain_telemetry(self) -> None:
+        """Fold the telemetry added since the last drain into the registry.
+        Callers drained the ring first, so the buffer belongs to rounds
+        already read: one copy, no new host sync. A single-round server's
+        buffer must equal the fold of its drained ring rows."""
+        totals = TM.merge_totals(self._telem_dev, self._telem_host)
+        if self._telem_dev is not None and self.round_mode == "single":
+            bad = [k for k, v in self.ring_totals.items() if not np.array_equal(totals[k], v)]
+            if bad:
+                raise RuntimeError(f"round telemetry {bad} on the device differs from the "
+                                   "drained ring rows")
+        delta = {k: v - self._telem_seen[k] for k, v in totals.items()}
+        self._telem_seen = totals
+        TM.fold_telemetry(self.metrics, delta)
+
+    def telemetry_totals(self) -> Dict[str, np.ndarray]:
+        """Cumulative drained telemetry (device buffer + host twin), keyed by
+        the ``telemetry_schema`` names. Drains the rounds in flight first
+        (their tokens stay buffered for the next ``flush``)."""
+        self._drain()
+        self._drain_telemetry()
+        return {k: v.copy() for k, v in self._telem_seen.items()}
+
+    def metrics_summary(self) -> Dict[str, Any]:
+        """A JSON-able end-of-run summary from the registry and the drained
+        telemetry: tokens per step, dispatch and sync accounting and per-level
+        cascade acceptance; the last line of ``launch/serve.py``."""
+        tot = self.telemetry_totals()
+        s = self.stats
+        steps = max(s["steps"], 1)
+        out: Dict[str, Any] = {
+            "mode": self.mode,
+            "round_mode": self.round_mode,
+            "rounds": s["steps"],
+            "tokens": s["tokens"],
+            "tokens_per_step": s["tokens"] / steps,
+            "round_dispatches": s["round_dispatches"],
+            "host_syncs": s["host_syncs"],
+            "device_wait_s": s["device_wait"],
+            "rounds_per_slot": tot["rounds"].tolist(),
+            "accepted_per_slot": tot["accepted"].tolist(),
+            "drafted_per_slot": tot["drafted"].tolist(),
+            "pld_tokens_per_slot": tot["pld_tokens"].tolist(),
+        }
+        # mean tokens committed per round, and the share of proposed (PLD +
+        # neural) tokens the verify accepted; the pending token every round
+        # emits is left out of the numerator
+        out["sampled"] = self.sampling is not None
+        rounds_t = float(tot["rounds"].sum())
+        acc_t = float(tot["accepted"].sum())
+        prop_t = float(tot["drafted"].sum() + tot["pld_tokens"].sum())
+        out["accepted_per_round"] = acc_t / rounds_t if rounds_t else None
+        out["spec_accept_rate"] = (acc_t - rounds_t) / prop_t if prop_t > 0 else None
+        if "casc_obs" in tot:
+            obs = tot["casc_obs"].sum(axis=1)
+            acc = tot["casc_accept"].sum(axis=1)
+            out["cascade_acceptance"] = [(float(a) / float(o) if o else None)
+                                         for a, o in zip(acc.tolist(), obs.tolist())]
+            out["cascade_routed_rounds"] = tot["casc_routed"].sum(axis=1).tolist()
         return out
 

@@ -25,7 +25,9 @@ warp (``sampling_probs``) within 1e-6 of the CPU's with the same support,
 sampled replays equal eager sampled rounds bitwise (dense tree_fused and
 chunked-prefill paged chain_fused), an eager sampled round makes no host
 sync, and a sampled build's segments launch the greedy build's kernels,
-leaving a greedy build's segments as they were.
+leaving a greedy build's segments as they were. Round telemetry: the
+buffer a captured round adds to equals the eager rounds' bitwise, and
+telemetry on or off launches and syncs alike.
 """
 import dataclasses
 import functools
@@ -258,6 +260,36 @@ def _assert_replays_equal_eager(graph, eager, rounds):
     for name in graph.dstate:
         assert torch.equal(graph.dstate[name], eager.dstate[name]), name
     for a, b in zip(_cache_leaves(graph), _cache_leaves(eager)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["tree_fused", "chain_fused"])
+def test_captured_telemetry_equals_eager_on_card(mode):
+    """The round telemetry buffer rides the captured tail segment: after
+    six replays it is bitwise the eager rounds' buffer and the fold of the
+    drained ring; a telemetry-off twin launches the graph and reads the
+    host as often, with the same kernels and tokens."""
+    _card()
+    graph, eager = _round_server(mode, False), _round_server(mode, False)
+    _assert_replays_equal_eager(graph, eager, 6)
+    for name, value in graph._telem_dev.items():
+        assert torch.equal(value, eager._telem_dev[name]), name
+    totals = graph.telemetry_totals()
+    for name, value in graph.ring_totals.items():
+        assert np.array_equal(totals[name], value), name
+    assert int(totals["rounds"].sum()) == 6 * 4 and int(totals["accepted"].sum()) == (
+        graph.stats["tokens"])
+    off = _round_server(mode, False, telemetry=False)
+    assert off._telem_dev is None
+    for _ in range(6):
+        off.step()
+    off.flush()
+    for stat in ("graph_replays", "round_dispatches", "host_syncs", "tokens", "draft_rounds"):
+        assert off.stats[stat] == graph.stats[stat], stat
+    assert off.graph_launches == graph.graph_launches
+    for name in graph.dstate:
+        assert torch.equal(off.dstate[name], graph.dstate[name]), name
+    for a, b in zip(_cache_leaves(off), _cache_leaves(graph)):
         assert torch.equal(a, b)
 
 
