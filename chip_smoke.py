@@ -40,9 +40,15 @@ point: the seven single-stream baselines against AR; ``ServeLoop`` over
 eight requests of the synthetic task suite on four slots in three modes,
 every stream against AR and the round telemetry reconciled with the
 delivered tokens; telemetry on against off; and, the model freed, the
-``repro_torch.launch.serve`` CLI as two subprocesses. Each phase prints
+``repro_torch.launch.serve`` CLI as two subprocesses. Phase 11 trains
+vicuna-7b at full width and 8 layers in float32 through
+``repro_torch.training`` (the reference benchmarks' recipe, 60 steps;
+every loss finite, the last 5 steps' ce 1 nat below step 0's), times its
+steps, round-trips the checkpoint bitwise, and serves the trained model
+(AR, DyTC, ``ServeLoop``; every stream equal to AR) beside the same config
+with random weights. Each phase prints
 its seconds. The last line is the JSON device record; the line before it
-lists the kernels, with the launches of phases 3 and 5-10 (graph launches
+lists the kernels, with the launches of phases 3 and 5-11 (graph launches
 counted by the server, a gated segment's only in the rounds that ran it).
 Exits non-zero,
 with no result, when any phase fails or when no CUDA device (or no
@@ -52,7 +58,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -2029,6 +2037,253 @@ def phase_cli(torch) -> None:
           f"{sorted(spans)}; the JSONL record equals the last line")
 
 
+# ------------------------------------------------------------------ phase 11
+# the recipe of the reference's benchmarks/common.py::trained_params, at
+# vicuna-7b width: float32 params, gradients and two moments take 16 B a
+# parameter, so 8 layers (1.88 B parameters, 30 GB) fit the card; 32 do not
+TRAIN = dict(layers=8, steps=60, batch=8, seq=96, peak_lr=1e-3, warmup=10, corpus=60_000)
+
+
+def _matmul_params(cfg) -> int:
+    """Parameters that enter a matrix product for every token: each layer's
+    projections and the LM head (the embedding is a gather)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim()
+    attn = d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+    mlp = d * cfg.d_ff * (3 if cfg.mlp_gated else 2)
+    return cfg.num_layers * (attn + mlp) + d * cfg.padded_vocab
+
+
+def _split_step(torch, T, M, cfg, params, opt, batch) -> tuple:
+    """One step of ``make_train_step``'s work in its three parts, each timed
+    by CUDA events: forward (``loss_fn``), backward (``autograd.grad``) and
+    the optimizer (``cosine_lr`` + ``adamw_update``). Returns (params, opt,
+    (forward, backward, optimizer) ms, the peak device memory of each part)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    peaks = []
+
+    def mark(i):
+        ev[i].record()
+        if i:
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+
+    leaves = [p.detach().requires_grad_() for p in M.tree_leaves(params)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mark(0)
+    with torch.enable_grad():
+        loss, _ = T.loss_fn(cfg, M.tree_unflatten(params, leaves), batch, remat=False)
+        mark(1)
+        grads = torch.autograd.grad(loss, leaves)
+    mark(2)
+    lr = T.cosine_lr(opt.step, peak=TRAIN["peak_lr"], warmup=TRAIN["warmup"], total=TRAIN["steps"])
+    params, opt = T.adamw_update(params, M.tree_unflatten(params, grads), opt, lr=lr)
+    mark(3)
+    return params, opt, tuple(ev[i].elapsed_time(ev[i + 1]) for i in range(3)), peaks
+
+
+def _train(torch, cfg, tmp: str) -> dict:
+    """Train ``cfg`` from ``init_params(seed 0)`` through ``make_train_step``
+    with TRAIN's recipe, check every step finite and the loss falling, save
+    a checkpoint into ``tmp`` and read it back bitwise both ways, then time
+    three more steps in their parts. Returns the numbers."""
+    from repro_torch import training as T
+    from repro_torch.bridge import params_from_checkpoint
+    from repro_torch.data import lm_batches, synthetic_corpus
+    from repro_torch.models import init_params
+    from repro_torch.models import model as M
+
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, SEED)
+    opt = T.adamw_init(params)
+    step = T.make_train_step(cfg, peak_lr=TRAIN["peak_lr"], warmup=TRAIN["warmup"],
+                             total_steps=TRAIN["steps"], remat=False)
+    it = lm_batches(synthetic_corpus(cfg.vocab_size, TRAIN["corpus"]), TRAIN["batch"], TRAIN["seq"])
+    batches = [{"tokens": torch.as_tensor(next(it)["tokens"], device=params["embed"].device)}
+               for _ in range(TRAIN["steps"] + 3)]
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(TRAIN["steps"])]
+    metrics = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TRAIN["steps"]):
+        ev[i][0].record()
+        params, opt, m = step(params, opt, batches[i])
+        ev[i][1].record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in ev]
+    curve = {k: torch.stack([m[k] for m in metrics]).tolist() for k in ("ce", "loss", "lr", "grad_norm")}
+    for i in list(range(0, TRAIN["steps"], 10)) + [TRAIN["steps"] - 1]:
+        print(f"[phase 11] step {i:2d}: ce {curve['ce'][i]:.4f}, lr {curve['lr'][i]:.2e}, "
+              f"grad_norm {curve['grad_norm'][i]:.4f}, {step_ms[i]:.2f} ms")
+    bad = [i for i in range(TRAIN["steps"])
+           if not all(math.isfinite(curve[k][i]) for k in ("loss", "grad_norm"))]
+    if bad:
+        raise AssertionError(f"phase 11: steps {bad} have a loss or grad_norm that is not finite")
+    last5 = sum(curve["ce"][-5:]) / 5
+    if last5 > curve["ce"][0] - 1.0:
+        raise AssertionError(f"phase 11: the mean ce of the last 5 steps, {last5:.4f}, is not 1 nat "
+                             f"below step 0's {curve['ce'][0]:.4f}")
+
+    t0 = time.perf_counter()
+    T.save_checkpoint(tmp, params, opt, step=TRAIN["steps"])
+    save_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+    t0 = time.perf_counter()
+    trained = params_from_checkpoint(tmp, cfg)
+    read_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(M.tree_leaves(trained), M.tree_leaves(params)))
+    p2, o2, ck_step = T.load_checkpoint(tmp, params, opt)
+    same_all = ck_step == TRAIN["steps"] and all(
+        torch.equal(a, b) for a, b in zip(M.tree_leaves((p2, o2)), M.tree_leaves((params, opt))))
+    del p2, o2
+    print(f"[phase 11] checkpoint ({size / 1e9:.2f} GB in {len(os.listdir(tmp))} files): saved in "
+          f"{save_s:.1f} s, params_from_checkpoint in {read_s:.1f} s, bitwise equal: params "
+          f"{same}, load_checkpoint params, AdamW state and step {same_all}")
+    if not (same and same_all):
+        raise AssertionError("phase 11: the checkpoint does not give back the trained state bitwise")
+
+    split = []
+    for i in range(3):
+        params, opt, ms, split_peaks = _split_step(torch, T, M, cfg, params, opt,
+                                                   batches[TRAIN["steps"] + i])
+        split.append(ms)
+    del params, opt, metrics
+    torch.cuda.empty_cache()
+    return dict(trained=trained, step_ms=step_ms, wall=wall, peak=peak, curve=curve,
+                split=split, split_peaks=split_peaks, last5=last5)
+
+
+def _serve_model(torch, cfg, params, prompts) -> dict:
+    """AR and DyTC (the scaling hierarchy) on each prompt, every DyTC stream
+    equal to AR, then ``ServeLoop`` over the prompts on four slots in
+    tree_fused dense single rounds (sync_every=4, LS0.5), every stream equal
+    to AR. Returns the numbers and the kernel launches."""
+    from repro_torch.core import SpecEngine, layer_sparsity
+    from repro_torch.serving import BatchedSpecServer
+
+    _reset_counts()
+    ar, ar_s, dytc = [], 0.0, dict(rounds=0, accepted=0, wall=0.0, target_calls=0)
+    for p in prompts:
+        eng = SpecEngine(cfg, params, max_len=1024)
+        eng.start(p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ar.append(eng.generate_ar(GEN_TOKENS))
+        torch.cuda.synchronize()
+        ar_s += time.perf_counter() - t0
+        del eng
+        out, st, wall, finite = _generate(torch, cfg, params, p, dytc=True)
+        if out != ar[-1] or not finite:
+            raise AssertionError(f"phase 11: DyTC left AR (finite logits {finite}):\n"
+                                 f"AR   {ar[-1]}\nDyTC {out}")
+        dytc["rounds"] += st["rounds"]
+        dytc["accepted"] += st["accepted_tokens"]
+        dytc["target_calls"] += st["target_calls"]
+        dytc["wall"] += wall
+    launches = _read_counts()
+    srv = BatchedSpecServer(cfg, params, mode="tree_fused", draft_spec=layer_sparsity(cfg, 0.5),
+                            paged=False, round_mode="single", sync_every=4, **SERVER)
+    loop = _serve_loop(torch, srv, prompts, ar)
+    loop["draft_rounds"] = srv.stats["draft_rounds"]
+    del srv
+    torch.cuda.empty_cache()
+    for k, v in loop["launches"].items():
+        launches[k] += v
+    return dict(ar_ms=ar_s / (len(prompts) * GEN_TOKENS) * 1e3, dytc=dytc, loop=loop,
+                launches=launches)
+
+
+def phase_training(torch, results: dict) -> None:
+    """Attention-only training on the card: vicuna-7b at full width and 8
+    layers, float32, trained from seed 0 with the reference benchmarks'
+    recipe through ``repro_torch.training``; the checkpoint round trip; then
+    the trained model (read back with ``params_from_checkpoint``) and the
+    same config with random seed-0 weights served on phase 10's requests."""
+    import tempfile
+
+    from repro_torch.config import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.model import tree_leaves
+
+    before = torch.cuda.memory_allocated()
+    gc.collect()                   # earlier phases' servers may sit in reference cycles
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"[phase 11] device memory held before training: {before / 2**20:.1f} MiB, "
+          f"{held / 2**20:.1f} MiB after a garbage collection")
+    if held > 2**30:
+        live = sorted((o for o in gc.get_objects() if torch.is_tensor(o) and o.is_cuda),
+                      key=lambda t: -t.untyped_storage().nbytes())[:5]
+        raise AssertionError(f"phase 11: {held / 2**30:.2f} GiB still allocated before training; "
+                             f"the largest live tensors: {[tuple(t.shape) for t in live]}")
+    cfg = dataclasses.replace(get_config("vicuna-7b"), num_layers=TRAIN["layers"], dtype="float32")
+    n_params = sum(math.prod(p.shape) for p in tree_leaves(init_params(cfg, device="meta")))
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    flops = 6 * _matmul_params(cfg) * tokens
+    with tempfile.TemporaryDirectory() as tmp:
+        print(f"[phase 11] vicuna-7b width, {cfg.num_layers} layers, float32: {n_params / 1e9:.3f} B "
+              f"parameters ({16 * n_params / 1e9:.1f} GB with gradients and AdamW moments); "
+              f"{TRAIN['steps']} steps of {TRAIN['batch']} x {TRAIN['seq']} tokens, peak lr "
+              f"{TRAIN['peak_lr']}, warm-up {TRAIN['warmup']}; checkpoint directory on a disk with "
+              f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB free")
+        tr = _train(torch, cfg, tmp)
+    served = {"trained": tr.pop("trained")}
+    ms = sorted(tr["step_ms"][5:])
+    med = ms[len(ms) // 2]
+    fwd, bwd, opt = (sum(s[i] for s in tr["split"]) / len(tr["split"]) for i in range(3))
+    print(f"[phase 11] {TRAIN['steps']} steps in {tr['wall']:.2f} s; one step (CUDA events, steps "
+          f"5-{TRAIN['steps'] - 1}): median {med:.2f} ms, min {ms[0]:.2f}, max {ms[-1]:.2f}; split "
+          f"(3 more steps): forward {fwd:.2f} ms, backward {bwd:.2f}, optimizer {opt:.2f}; "
+          f"{tokens / med * 1e3:.0f} tokens/s; model FLOPs 6 x {_matmul_params(cfg) / 1e9:.3f} B "
+          f"x {tokens} = {flops / 1e12:.2f} TFLOP a step, {flops / (med / 1e3) / 1e12:.2f} TFLOP/s "
+          f"= {flops / (med / 1e3) / PEAK_OPS['float32']:.3f} of 67 TFLOP/s float32; peak "
+          f"device memory {tr['peak'] / 2**30:.2f} GiB (forward / backward / optimizer of the "
+          f"last split step: " + " / ".join(f"{b / 2**30:.2f}" for b in tr["split_peaks"])
+          + f" GiB); ce {tr['curve']['ce'][0]:.4f} at step 0, {tr['last5']:.4f} over the last 5")
+    if any(p.requires_grad for p in tree_leaves(served["trained"])):
+        raise AssertionError("phase 11: the served params record autograd")
+
+    prompts = _loop_prompts(cfg.vocab_size)
+    rows = {}
+    for name in ("trained", "random seed 0"):
+        params = served.pop(name) if name in served else init_params(cfg, SEED)
+        t0 = time.perf_counter()
+        rec = _serve_model(torch, cfg, params, prompts)
+        del params
+        torch.cuda.empty_cache()
+        if rec["launches"]["flash_decode"] <= 0 or rec["launches"]["tree_attention"] <= 0:
+            raise AssertionError(f"phase 11: {name}: launches {rec['launches']} do not show the "
+                                 "flash decode and tree attention kernels")
+        for k, v in rec["launches"].items():
+            results[k]["launches"] += v
+        d, lp = rec["dytc"], rec["loop"]
+        rows[name] = rec
+        print(f"[phase 11] {name} weights, {len(prompts)} requests x {GEN_TOKENS} tokens "
+              f"({time.perf_counter() - t0:.1f} s): DyTC streams identical to AR | AR "
+              f"{rec['ar_ms']:.2f} ms a token; DyTC {d['rounds']} rounds, "
+              f"{d['accepted'] / d['rounds']:.3f} tokens per round, {d['wall'] / d['rounds'] * 1e3:.2f} "
+              f"ms a round | ServeLoop tree_fused single LS0.5, 4 slots: identical to AR, "
+              f"{lp['rounds']} rounds ({lp['draft_rounds']} ran the draft), "
+              f"{lp['accepted'] / lp['rounds']:.3f} tokens per round, "
+              f"{lp['summary']['accepted_per_round']:.3f} per slot-round, spec accept rate "
+              f"{lp['summary']['spec_accept_rate']:.3f}, {lp['ms_per_round']:.2f} ms a round | "
+              f"launches: {rec['launches']}")
+    t, r = rows["trained"], rows["random seed 0"]
+    print("[phase 11] trained against random weights: DyTC tokens per round "
+          f"{t['dytc']['accepted'] / t['dytc']['rounds']:.3f} / "
+          f"{r['dytc']['accepted'] / r['dytc']['rounds']:.3f}; ServeLoop tokens per round "
+          f"{t['loop']['accepted'] / t['loop']['rounds']:.3f} / "
+          f"{r['loop']['accepted'] / r['loop']['rounds']:.3f}, per slot-round "
+          f"{t['loop']['summary']['accepted_per_round']:.3f} / "
+          f"{r['loop']['summary']['accepted_per_round']:.3f}, ms a round "
+          f"{t['loop']['ms_per_round']:.2f} / {r['loop']['ms_per_round']:.2f}")
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -2065,6 +2320,7 @@ def main() -> int:
     del served
     torch.cuda.empty_cache()
     timed("phase 10 CLI", phase_cli, torch)
+    timed("phase 11", phase_training, torch, results)
     print(f"[chip_smoke] all phases in {time.perf_counter() - t_all:.1f} s")
     kernels = []
     for name, src, replaces in (

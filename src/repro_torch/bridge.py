@@ -3,19 +3,24 @@
 Both packages keep the same layouts (see ``models/model.py``), so a
 conversion is a dtype and device move of every leaf. The inputs are nested
 dicts/lists of numpy arrays, e.g. ``jax.tree.map(np.asarray, params)`` of
-the reference's ``init_params``; this module imports neither JAX nor the
-reference package. bfloat16 leaves (numpy's ``ml_dtypes.bfloat16``) pass
-through float32, which holds every bfloat16 value exactly.
+the reference's ``init_params``, or a checkpoint directory in the
+reference's format (``params_from_checkpoint``); this module imports
+neither JAX nor the reference package. bfloat16 leaves (numpy's
+``ml_dtypes.bfloat16``) pass through float32, which holds every bfloat16
+value exactly.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.model import tree_map
+from repro_torch.config.base import ModelConfig
+from repro_torch.models.model import init_params, tree_map
+from repro_torch.training.checkpoint import read_npz
 
 
 def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -41,3 +46,13 @@ def cache_from_jax(cache, *, device="cuda") -> dict:
     cache on ``device``."""
     dev = resolve_device(device)
     return tree_map(lambda a: _leaf(a, dev, None), cache)
+
+
+def params_from_checkpoint(path: str, cfg: ModelConfig, *, device="cuda",
+                           dtype: Optional[torch.dtype] = None) -> dict:
+    """The params of a checkpoint directory in the reference's format
+    (``params.npz``, written by either package's ``save_checkpoint``) in the
+    port's layout on ``device``, float leaves as ``dtype`` (default: as
+    stored). ``cfg`` gives the names and shapes; no params are drawn."""
+    dev = resolve_device(device)
+    return read_npz(os.path.join(path, "params.npz"), init_params(cfg, device="meta"), dev, dtype)

@@ -1,0 +1,75 @@
+"""Training entry point of the port: the reference's ``launch/train.py``,
+with its flags and its printed lines, on the card.
+
+  python -m repro_torch.launch.train --steps 60 --batch 8 --seq 96 --ckpt ckpt/
+  python -m repro_torch.launch.train --device cpu --reduced --steps 3
+
+It runs on the card (``--device cuda``, the default; it raises when there
+is none); ``--device cpu`` runs on the CPU. ``--reduced`` trains the
+config's reduced width (``ModelConfig.reduced()``), without
+rematerialisation, as the reference does. ``--ckpt`` writes a checkpoint
+in the reference's format, which ``repro_torch.bridge.params_from_checkpoint``
+(or the reference's ``load_checkpoint``) reads. AdamW keeps float32
+moments: with float32 params and gradients that is 16 bytes a parameter,
+with the config's bfloat16 ones 12, so the full 32-layer vicuna-7b (6.7 B
+parameters: 108 GB, or 81 GB) does not fit one 80 GB card; cut the depth
+(``dataclasses.replace(cfg, num_layers=8, dtype="float32")``, 30 GB) to
+train its full width.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.config import get_config
+from repro_torch.data import lm_batches, synthetic_corpus
+from repro_torch.models import init_params
+from repro_torch.training import adamw_init, make_train_step, save_checkpoint
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    ap.add_argument("--arch", default="vicuna-7b")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--lr", type=float, default=6e-4)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu")
+    return ap
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    params = init_params(cfg, 0, device=device)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, peak_lr=args.lr, warmup=10, total_steps=args.steps,
+                           remat=not args.reduced)
+    corpus = synthetic_corpus(cfg.vocab_size, 100_000)
+    it = lm_batches(corpus, args.batch, args.seq)
+    t0 = time.perf_counter()
+    for i in range(args.steps):
+        b = {k: torch.as_tensor(v, device=device) for k, v in next(it).items()}
+        params, opt, m = step(params, opt, b)
+        if i % max(args.steps // 10, 1) == 0:
+            print(f"step {i:4d} ce={float(m['ce']):.4f} "
+                  f"lr={float(m['lr']):.2e} gnorm={float(m['grad_norm']):.2f}")
+    if device.type == "cuda":
+        torch.cuda.synchronize()   # steps run asynchronously; settle before timing
+    print(f"{args.steps} steps in {time.perf_counter()-t0:.1f}s")
+    if args.ckpt:
+        save_checkpoint(args.ckpt, params, opt, step=args.steps)
+        print("saved", args.ckpt)
+
+
+if __name__ == "__main__":
+    main()

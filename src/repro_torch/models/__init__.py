@@ -1,7 +1,9 @@
 """Model stack of the port (attention-only dense subset, dense or paged KV cache)."""
 from repro_torch.models.model import (
     commit_cache,
+    decode_commit_token,
     decode_step,
+    forward_train,
     init_cache,
     init_params,
     layout,
@@ -10,5 +12,5 @@ from repro_torch.models.model import (
     write_slot,
 )
 
-__all__ = ["commit_cache", "decode_step", "init_cache", "init_params", "layout", "pages_for",
-           "prefill", "write_slot"]
+__all__ = ["commit_cache", "decode_commit_token", "decode_step", "forward_train", "init_cache",
+           "init_params", "layout", "pages_for", "prefill", "write_slot"]

@@ -1,4 +1,5 @@
-"""Decoder assembly, attention-only subset: layout, init, prefill, decode, commit.
+"""Decoder assembly, attention-only subset: layout, init, training forward,
+prefill, decode, commit.
 
 Layouts are the reference's (``src/repro/models/model.py``), so that params
 and caches convert one-to-one (``repro_torch.bridge``):
@@ -12,7 +13,11 @@ and caches convert one-to-one (``repro_torch.bridge``):
     int32 (-1 = unallocated): position t of slot b lives at row t % P of
     page ``page_table[b, t // P]``.
 Layers run one at a time over views of those stacks (PyTorch runs eagerly:
-there is no scan to lower).
+there is no scan to lower). ``forward_train`` takes its views with one
+``torch.unbind`` per stacked leaf, whose backward writes the stack's
+gradient once; ``remat=True`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``, the counterpart of the reference's
+``jax.checkpoint``).
 
 Cache semantics: stage-then-commit. ``decode_step`` never writes the cache;
 it returns logits plus per-layer staged K/V, and ``commit_cache`` writes
@@ -47,6 +52,7 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.config.base import AttentionKind, BlockKind, ModelConfig
@@ -57,12 +63,28 @@ Cache = Dict[str, Any]
 
 
 def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every tensor leaf of nested dicts/lists/tuples."""
+    """Apply ``fn`` to every tensor leaf of nested dicts/lists/tuples (named
+    tuples too)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+        vals = [tree_map(fn, v) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else type(tree)(vals)
     return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The tensor leaves of nested dicts/lists/tuples, in ``tree_map``'s order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` whose leaves are ``leaves``, in
+    ``tree_leaves``' order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 # ===================================================================== layout
@@ -124,11 +146,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     """Random params in the reference's layout, shapes and scales, drawn
     from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the
     numbers differ from the reference's ``jax.random`` draws; the bridge
-    carries the reference's own params across when they must agree)."""
+    carries the reference's own params across when they must agree).
+    ``device="meta"`` gives the names and shapes alone, allocating nothing."""
     _check_stack(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     d, V, H, KV = cfg.d_model, cfg.padded_vocab, cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim()
     params: dict = {
@@ -261,7 +284,7 @@ def _attn_layer(
     if staged_buf is not None:
         carried = dict(k_staged=staged_buf["k"], v_staged=staged_buf["v"],
                        staged_pos=staged_pos, staged_mask=staged_mask)
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         o = attn_lib.blockwise_attention(q, k, v, q_pos, q_pos, kind=kind, window=window,
                                          sink=sink)
     elif "k_pages" in layer_cache:
@@ -312,42 +335,71 @@ def _run_stack(
     staged_kv=None,
     staged_pos: Optional[torch.Tensor] = None,
     staged_mask: Optional[torch.Tensor] = None,
+    remat: bool = False,
 ):
     """Returns (hidden, staged segments: [[{"k","v"}: (R_run, B, T, KV, hd)]]).
     ``staged_kv`` has the structure of a previous call's staged segments
-    (one entry per layer run, in run order)."""
+    (one entry per layer run, in run order). ``mode="train"`` takes no
+    cache and stages nothing (the staged segments are empty)."""
     _check_stack(cfg)
     segs = layout(cfg)
     g_host = _host_gates(gates, cfg.num_layers)
     if layer_ids is not None and (len(segs) != 1 or len(segs[0].unit) != 1):
         raise ValueError("layer_ids requires a homogeneous layer stack")
-    table = cache.get("page_table")
+    train = mode == "train"
+    table = None if train else cache.get("page_table")
     staged_segments = []
     for si, seg in enumerate(segs):
-        p_seg, c_seg = params["segments"][si], cache["segments"][si]
+        p_seg = params["segments"][si]
         U = len(seg.unit)
         staged = [{"k": [], "v": []} for _ in seg.unit]
+        # one unbind per leaf: its backward writes the stack's gradient once,
+        # where a backward per ``a[r]`` would zero-fill the whole stack per layer
+        views = [_unstack(p_seg[u], seg.repeats) for u in range(U)] if train else None
         repeats = range(seg.repeats) if layer_ids is None else layer_ids
         for i, r in enumerate(repeats):
             for u, spec in enumerate(seg.unit):
-                p_l = tree_map(lambda a, r=r: a[r], p_seg[u])          # views
-                lc = {n: a[r] for n, a in c_seg[u].items()}
-                lc.update(_pos=cache["pos"], _table=table)
                 gate = g_host[seg.start + r * U + u]
+                if train:
+                    body = _layer_fn(cfg, views[u][r], spec, gate, q_pos, "train")
+                    h = checkpoint(body, h, use_reentrant=False) if remat else body(h)
+                    continue
+                lc = {n: a[r] for n, a in cache["segments"][si][u].items()}
+                lc.update(_pos=cache["pos"], _table=table)
                 buf = None
                 if staged_kv is not None:
                     buf = {n: staged_kv[si][u][n][i] for n in ("k", "v")}
-                delta, st = _attn_layer(cfg, p_l, spec, h, q_pos, mode, lc, tree_mask,
-                                        attn_override, buf, staged_pos, staged_mask)
-                h = h + _gated(delta, gate)
-                if spec.has_mlp:
-                    x = rms_norm(h, p_l["norm2"], cfg.norm_eps)
-                    y = mlp_apply(p_l["mlp"], x, cfg.act, cfg.mlp_gated, quantize=quantize)
-                    h = h + _gated(y, gate)
+                p_l = tree_map(lambda a, r=r: a[r], p_seg[u])          # views
+                h, st = _layer_fn(cfg, p_l, spec, gate, q_pos, mode, lc, tree_mask, attn_override,
+                                  buf, staged_pos, staged_mask, quantize, staged=True)(h)
                 staged[u]["k"].append(st["k"])
                 staged[u]["v"].append(st["v"])
-        staged_segments.append([{n: torch.stack(s[n]) for n in ("k", "v")} for s in staged])
+        if not train:
+            staged_segments.append([{n: torch.stack(s[n]) for n in ("k", "v")} for s in staged])
     return h, staged_segments
+
+
+def _unstack(tree: dict, n: int) -> List[dict]:
+    """The ``n`` per-layer views of a unit's stacked params, one
+    ``torch.unbind`` per leaf."""
+    per = {k: (_unstack(v, n) if isinstance(v, dict) else torch.unbind(v)) for k, v in tree.items()}
+    return [{k: v[r] for k, v in per.items()} for r in range(n)]
+
+
+def _layer_fn(cfg, p_l, spec, gate, q_pos, mode, lc=None, tree_mask=None, attn_override=None,
+              buf=None, staged_pos=None, staged_mask=None, quantize=None, staged=False):
+    """One layer (attention, then the MLP) as a function of the residual
+    stream: returns the new stream, and with ``staged`` also the layer's
+    staged K/V."""
+    def body(h):
+        delta, st = _attn_layer(cfg, p_l, spec, h, q_pos, mode, lc, tree_mask, attn_override,
+                                buf, staged_pos, staged_mask)
+        h = h + _gated(delta, gate)
+        if spec.has_mlp:
+            x = rms_norm(h, p_l["norm2"], cfg.norm_eps)
+            h = h + _gated(mlp_apply(p_l["mlp"], x, cfg.act, cfg.mlp_gated, quantize=quantize), gate)
+        return (h, st) if staged else h
+    return body
 
 
 def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -365,6 +417,26 @@ def _head(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
 
 
 # =============================================================== entry points
+def forward_train(
+    cfg: ModelConfig,
+    params: dict,
+    batch: Dict[str, torch.Tensor],
+    *,
+    gates=None,
+    remat: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full causal forward over ``batch["tokens"]`` (B, S), differentiable,
+    writing no cache. Returns (logits (B, S, V) float32, moe_aux): the
+    attention-only stack has no MoE auxiliary loss, so it is a float32 zero.
+    ``remat=True`` recomputes each layer's activations in the backward pass."""
+    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
+    h = _embed(params, tokens)
+    q_pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    h, _ = _run_stack(cfg, params, h, mode="train", cache=None, gates=gates, q_pos=q_pos,
+                      tree_mask=None, remat=remat)
+    return _head(cfg, params, h), torch.zeros((), dtype=torch.float32, device=h.device)
+
+
 def prefill(
     cfg: ModelConfig,
     params: dict,
@@ -533,6 +605,28 @@ def _scatter_rows(buf: torch.Tensor, rows: torch.Tensor, ok: torch.Tensor,
                              flat.index_select(1, anchor))
     flat.index_copy_(1, torch.where(ok, rows, anchor),
                      torch.where(ok[None, :, None, None], src.to(buf.dtype), anchor_val))
+
+
+def decode_commit_token(
+    cfg: ModelConfig,
+    params: dict,
+    cache: Cache,
+    token,                            # (B,) one token per sequence
+    *,
+    gates=None,
+    attn_override: Optional[dict] = None,
+) -> Tuple[torch.Tensor, Cache]:
+    """Decode one token per sequence and commit its K/V at once, advancing
+    ``pos`` by one: ``decode_step`` then ``commit_cache``, in place. Unlike
+    ``decode_step`` this writes the cache (the reference's scan-friendly
+    draft step). Returns (logits (B, V) float32, cache)."""
+    token = torch.as_tensor(token, device=cache["pos"].device)
+    logits, staged = decode_step(cfg, params, cache, token[:, None], gates=gates,
+                                 attn_override=attn_override)
+    B, dev = token.shape[0], token.device
+    commit_cache(cfg, cache, staged, torch.zeros((B, 1), dtype=torch.int32, device=dev),
+                 torch.ones((B,), dtype=torch.int32, device=dev))
+    return logits[:, 0], cache
 
 
 def write_slot(cfg: ModelConfig, cache: Cache, c1: Cache, slot: int) -> Cache:

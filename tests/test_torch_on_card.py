@@ -27,7 +27,8 @@ chunked-prefill paged chain_fused), an eager sampled round makes no host
 sync, and a sampled build's segments launch the greedy build's kernels,
 leaving a greedy build's segments as they were. Round telemetry: the
 buffer a captured round adds to equals the eager rounds' bitwise, and
-telemetry on or off launches and syncs alike.
+telemetry on or off launches and syncs alike. Training: two train steps
+on the card within 1e-4 of the same steps on the CPU.
 """
 import dataclasses
 import functools
@@ -596,3 +597,37 @@ def test_sampled_build_keeps_greedy_segments_on_card():
     assert before.segment_launches == after.segment_launches == sampled.segment_launches
     assert set(before.dstate) == set(after.dstate)
     assert set(sampled.dstate) - set(before.dstate) == {"temp", "topk", "topp", "key"}
+
+
+# -------------------------------------------------------------------- training
+def test_train_steps_on_card_match_cpu():
+    """Two ``make_train_step`` steps (peak lr 1e-3, warm-up 1: the second
+    step moves the params by ~1e-3) of vicuna-7b at the reduced width and 2
+    layers, float32, TF32 off, on the card against the same steps on the
+    CPU from the same params and batches: ce and grad_norm within 1e-4
+    (relative for grad_norm), lr exact, every param and both moments
+    within 1e-4 (an element whose gradient is near zero may move by a
+    little more than its gradient's rounding)."""
+    _card()
+    from repro_torch import training as T
+    from repro_torch.config import get_config
+    from repro_torch.data import lm_batches, synthetic_corpus
+    from repro_torch.models import init_params
+    from repro_torch.models.model import tree_leaves, tree_map
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config("vicuna-7b").reduced(), num_layers=2)
+    cpu = init_params(cfg, 0, device="cpu")
+    card = tree_map(lambda a: a.cuda(), cpu)
+    o_cpu, o_card = T.adamw_init(cpu), T.adamw_init(card)
+    step = T.make_train_step(cfg, peak_lr=1e-3, warmup=1, total_steps=10, remat=False)
+    it = lm_batches(synthetic_corpus(cfg.vocab_size, 5_000), 4, 32)
+    for _ in range(2):
+        b = next(it)
+        cpu, o_cpu, m_cpu = step(cpu, o_cpu, b)
+        card, o_card, m_card = step(card, o_card, {"tokens": torch.as_tensor(b["tokens"]).cuda()})
+        assert abs(float(m_card["ce"]) - float(m_cpu["ce"])) <= 1e-4
+        assert abs(float(m_card["grad_norm"]) / float(m_cpu["grad_norm"]) - 1) <= 1e-4
+        assert float(m_card["lr"]) == float(m_cpu["lr"])
+    for got, want in zip(tree_leaves((card, o_card)), tree_leaves((cpu, o_cpu))):
+        close(got.cpu(), want, 1e-4)
