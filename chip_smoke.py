@@ -46,10 +46,19 @@ vicuna-7b at full width and 8 layers in float32 through
 every loss finite, the last 5 steps' ce 1 nat below step 0's), times its
 steps, round-trips the checkpoint bitwise, and serves the trained model
 (AR, DyTC, ``ServeLoop``; every stream equal to AR) beside the same config
-with random weights. Each phase prints
-its seconds. The last line is the JSON device record; the line before it
-lists the kernels, with the launches of phases 3 and 5-11 (graph launches
-counted by the server, a gated segment's only in the rounds that ran it).
+with random weights. Phase 12 drives the other attention-only models at
+full width, one at a time: stablelm-1.6b (hd 64), starcoder2-3b (GQA rep
+12, a 2-matrix GeLU MLP), gemma3-1b (hd 288, MQA, a mixed sliding/global
+stack) and internlm2-20b (GQA rep 6, cut to 24 layers in float32): AR and
+DyTC single stream and the batched server in single rounds, every stream
+equal to AR; gemma3 also paged, with chunked prefill and past its
+1024-token window; starcoder2's cascade on the W8A8 kernel; internlm2 at
+all 48 layers in bfloat16. Phase 2 also holds and times the attention
+kernels at those models' shapes. Each phase prints its seconds and the
+memory left allocated after it. The last line is the JSON device record;
+the line before it lists the kernels, with the launches of phases 3 and
+5-12 (graph launches counted by the server, a gated segment's only in the
+rounds that ran it).
 Exits non-zero,
 with no result, when any phase fails or when no CUDA device (or no
 repro_torch beside this script) is present.
@@ -304,14 +313,15 @@ def _rel(a, b) -> float:
     return _err(a, b) / max(float(b.float().abs().max()), 1e-30)
 
 
-def _paged_inputs(torch, gen, B, KV, T, P, n_pp, dtype, pos):
+def _paged_inputs(torch, gen, B, KV, T, P, n_pp, dtype, pos, hd=128, rep=1):
     """Paged verify inputs: pools (NP, P, KV, hd) in the model's layout with
     two spare pages, a scrambled table whose last batch row ends in -1
-    entries, kv_pos from ``pos`` (B,) (partial tail pages)."""
-    dev, hd = "cuda", 128
+    entries, kv_pos from ``pos`` (B,) (partial tail pages); ``rep`` * T
+    query rows per kv head."""
+    dev = "cuda"
     NP = B * n_pp + 2
     mk = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dtype)  # noqa: E731
-    q = mk(B, KV, T, hd)
+    q = mk(B, KV, rep * T, hd)
     k_pages, v_pages = mk(NP, P, KV, hd), mk(NP, P, KV, hd)
     perm = torch.randperm(NP, generator=gen, device=dev).to(torch.int32)
     table = perm[: B * n_pp].reshape(B, n_pp).contiguous()
@@ -321,7 +331,7 @@ def _paged_inputs(torch, gen, B, KV, T, P, n_pp, dtype, pos):
     slots = torch.arange(S, device=dev, dtype=torch.int32)[None].expand(B, S)
     pos_t = torch.as_tensor(pos, device=dev, dtype=torch.int32)[:, None]
     kv_pos = torch.where(slots < pos_t, slots, torch.full_like(slots, -1)).contiguous()
-    q_pos = (pos_t + torch.arange(T, device=dev, dtype=torch.int32)[None]).contiguous()
+    q_pos = (pos_t + torch.arange(T, device=dev, dtype=torch.int32)[None]).repeat(1, rep)
     kn, vn = mk(B, T, KV, hd), mk(B, T, KV, hd)
     tm = torch.tril(torch.ones(T, T, dtype=torch.bool, device=dev))
     tm[3, 2] = False
@@ -479,6 +489,112 @@ def _bounded_kernels(torch, gen, flush) -> None:
                 raise AssertionError(f"a device-bounded flash decode differs from the host cut ({name})")
 
 
+# the other models' attention shapes (phase 12): (model, B, KV, rep, T, S,
+# hd, mask kind, window, pages of 64 or 0)
+MODEL_SHAPES = (
+    ("stablelm-1.6b", 1, 32, 1, 16, 160, 64, "causal", 0, 0),
+    ("stablelm-1.6b", 1, 32, 1, 16, 2048, 64, "causal", 0, 0),
+    ("stablelm-1.6b", 1, 32, 1, 32, 160, 64, "causal", 0, 0),
+    ("stablelm-1.6b", 1, 32, 1, 32, 2048, 64, "causal", 0, 0),
+    ("gemma3-1b", 1, 1, 4, 16, 2048, 288, "window", 1024, 0),
+    ("gemma3-1b", 1, 1, 4, 16, 2048, 288, "window", 1024, 32),
+    ("internlm2-20b", 1, 8, 6, 32, 2048, 128, "causal", 0, 0),
+    ("starcoder2-3b", 1, 2, 12, 32, 2048, 128, "causal", 0, 0),
+)
+
+
+def _model_shape_kernels(torch, gen, flush) -> dict:
+    """Flash decode (#1, or #4 over pages), merged with the tree partials,
+    and tree attention (#2) at the other models' shapes (``MODEL_SHAPES``:
+    hd 64; hd 288 at MQA rep 4 with gemma3's window of 1024 over a cache of
+    2048, dense and over 32 pages of 64; hd 128 at GQA rep 6 and 12), each
+    against its plain twin, in float32 and bfloat16, timed by CUDA events
+    and graph replay beside the bound and SDPA over [cache ++ staged] with
+    the same mask (after an ``index_select`` gather when paged). The bound
+    counts the slots some row sees (the window's, not the whole cache) and
+    each row's visible slots' products. Returns the largest error of each
+    kernel."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tree_attention as ta
+
+    F = torch.nn.functional
+    tol = TOL["attention"]
+    worst = dict.fromkeys(("flash_decode", "flash_decode_paged", "tree_attention"), 0.0)
+    for model, B, KV, rep, T, S, hd, kind, window, n_pp in MODEL_SHAPES:
+        R = rep * T
+        for dtype in (torch.float32, torch.bfloat16):
+            kw = dict(kind=kind, window=window)
+            if n_pp:
+                q, kp, vp, table, kv_pos, q_pos, kn, vn, tmask = _paged_inputs(
+                    torch, gen, B, KV, T, S // n_pp, n_pp, dtype, (S - T,) * B, hd=hd, rep=rep)
+                k, v = (ref.paged_gather(p, table).transpose(1, 2) for p in (kp, vp))
+                idx = table.clamp_min(0).flatten()
+                kc_fn = lambda: (kp.index_select(0, idx).reshape(B, S, KV, hd),  # noqa: E731
+                                 vp.index_select(0, idx).reshape(B, S, KV, hd))
+                run = lambda: fd.flash_decode_paged_merge(q, kp, vp, table, kv_pos, q_pos,  # noqa: E731
+                                                          tree, **kw)
+                cache_bytes = _nbytes(table)
+            else:
+                q, kc, vc, kv_pos, q_pos, kn, vn, tmask = _attn_inputs(
+                    torch, gen, B, KV, R, T, S, hd, dtype, S - T)
+                q_pos[:, 0] = S - T                        # verify rows see the cache
+                k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+                kc_fn = lambda: (kc, vc)  # noqa: E731
+                run = lambda: fd.flash_decode_merge(q, k, v, kv_pos, q_pos, tree, **kw)  # noqa: E731
+                cache_bytes = 0
+            kt, vt = kn.transpose(1, 2), vn.transpose(1, 2)
+            tree = ta.tree_attention_partial(q, kt, vt, tmask)
+            want_t = ref.tree_attention_partial(q, kt, vt, tmask)
+            got = run()
+            want = ref.ref_verify_attention(q, k, v, kv_pos, q_pos, kt, vt, tmask, **kw)
+            torch.cuda.synchronize()
+            e_t = _err(tree[0] / tree[2][..., None], want_t[0] / want_t[2][..., None])
+            e = _err(got, want)
+            dt = str(dtype)[6:]
+            name = (f"{model} {dt} hd={hd} KV={KV} rep={rep} T={T} S={S}"
+                    + (f" {kind} {window}" if window else "") + (f", {n_pp} pages of {S // n_pp}"
+                                                                  if n_pp else ""))
+            print(f"[phase 2] {name}: merged verify err abs={e:.3e} rel={_rel(got, want):.3e}; "
+                  f"tree partials out err abs={e_t:.3e}")
+            if not (e <= tol and e_t <= tol):
+                raise AssertionError(f"attention at {name} disagrees with its plain version")
+            fd_name = "flash_decode_paged" if n_pp else "flash_decode"
+            worst[fd_name] = max(worst[fd_name], e)
+            worst["tree_attention"] = max(worst["tree_attention"], e_t)
+            # SDPA over the same function: one "head" per kv head with its R rows
+            vis = ref.visible(q_pos, kv_pos, kind, window, 0)               # (B, R, S)
+            t_rows = tmask.repeat(1, rep, 1)                                # (B, R, T)
+            am = torch.cat([vis, t_rows], dim=-1)[:, None]
+
+            def library():
+                kg, vg = kc_fn()
+                ks = torch.cat([kg, kn], dim=1).transpose(1, 2)
+                vs = torch.cat([vg, vn], dim=1).transpose(1, 2)
+                return F.scaled_dot_product_attention(q, ks, vs, attn_mask=am)
+
+            elt = q.element_size()
+            seen = int(vis.any(dim=1).sum())                                # slots some row sees
+            nbytes = (_nbytes(q, kv_pos, q_pos, *tree) + cache_bytes + 2 * seen * KV * hd * elt
+                      + 4 * q.numel())
+            bound, by = _bound_ms(nbytes, 4 * KV * hd * int(vis.sum()), dt)
+            plain = lambda: ref.merge_partials(  # noqa: E731
+                ref.flash_decode_partial(q, k, v, kv_pos, q_pos, **kw), tree)
+            tm = _timings(run, plain, library, flush, bound, by)
+            print(f"[phase 2] {name}: flash_decode{'_paged' if n_pp else ''} merge "
+                  + _timing_text(tm, "sdpa"))
+            tbytes = _nbytes(q, kt, vt, tmask) + 4 * q.numel() + 8 * q.numel() // hd
+            tbound, tby = _bound_ms(tbytes, 4 * KV * hd * rep * int(tmask.sum()), dt)
+            ks_t, vs_t = kt.contiguous(), vt.contiguous()
+            tt = _timings(lambda: ta.tree_attention_partial(q, kt, vt, tmask),
+                          lambda: ref.tree_attention_partial(q, kt, vt, tmask),
+                          lambda: F.scaled_dot_product_attention(q, ks_t, vs_t,
+                                                                 attn_mask=t_rows[:, None]),
+                          flush, tbound, tby)
+            print(f"[phase 2] {name}: tree_attention " + _timing_text(tt, "sdpa"))
+    return worst
+
+
 # chain and tree steps, the cascade drafter's carry steps (8) and seed block
 # (128), verifies, ragged row tiles
 W8A8_ROWS = (1, 4, 8, 16, 17, 20, 32, 40, 64, 96, 128)
@@ -574,6 +690,9 @@ def phase_kernels(torch, results: dict) -> None:
     F = torch.nn.functional
     _paged_kernel(torch, gen, flush, results)
     _bounded_kernels(torch, gen, flush)
+    other_worst = _model_shape_kernels(torch, gen, flush)
+    results["flash_decode_paged"]["max_abs_err"] = max(results["flash_decode_paged"]["max_abs_err"],
+                                                       other_worst["flash_decode_paged"])
     B, KV, hd, S, pos, window, sink = 1, 32, 128, 2048, 1500, 256, 4
     tol = TOL["attention"]
 
@@ -650,7 +769,8 @@ def phase_kernels(torch, results: dict) -> None:
                 lambda: ref.merge_partials(ref.flash_decode_partial(q, k, v, kv_pos, q_pos), tree),
                 lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am), flush, bound, by)
             print(f"[phase 2] flash_decode merge   {name:14s} " + _timing_text(timing[name], "sdpa"))
-    results["flash_decode"] = dict(max_abs_err=worst, **timing[f"float32_S{MAIN_PATH_S}"])
+    results["flash_decode"] = dict(max_abs_err=max(worst, other_worst["flash_decode"]),
+                                   **timing[f"float32_S{MAIN_PATH_S}"])
 
     # --- tree attention (#2)
     worst, timing = 0.0, {}
@@ -684,7 +804,8 @@ def phase_kernels(torch, results: dict) -> None:
                     flush, bound, by)
                 print(f"[phase 2] tree_attention   {name:8s} " + _timing_text(timing[name], "sdpa"))
     worst = max(worst, _carried_tree_kernel(torch, gen, flush, timing))
-    results["tree_attention"] = dict(max_abs_err=worst, **timing["float32"])
+    results["tree_attention"] = dict(max_abs_err=max(worst, other_worst["tree_attention"]),
+                                     **timing["float32"])
 
     # --- set_cond: the conditional node of the captured round
     results["set_cond"] = _set_cond_kernel(torch, flush)
@@ -2284,6 +2405,233 @@ def phase_training(torch, results: dict) -> None:
           f"{t['loop']['ms_per_round']:.2f} / {r['loop']['ms_per_round']:.2f}")
 
 
+# ------------------------------------------------------------------ phase 12
+# the other attention-only models at full width, random weights from seed 0;
+# internlm2-20b cut to 24 of its 48 layers in float32 (42.0 GB of weights;
+# all 48 would take 79.4 GB)
+OTHER_MODELS = (("stablelm-1.6b", {}), ("starcoder2-3b", {}), ("gemma3-1b", {}),
+                ("internlm2-20b", dict(num_layers=24)))
+
+
+def _gib(n: int) -> str:
+    return f"{n / 2**30:.2f} GiB"
+
+
+def _first_divergence(a: list, b: list):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def _single_stream(torch, cfg, params, prompts, label: str, exact: bool = True) -> list:
+    """AR and DyTC (LS0.5 over PLD: ``SpecEngine``) on each prompt,
+    GEN_TOKENS each. Prints tokens a round, ms a token and the draft's cost
+    coefficient c (the engine's measured draft / target latency); with
+    ``exact`` every DyTC stream must equal AR, else the first divergence is
+    printed. Returns the AR streams."""
+    from repro_torch.core import ARScheduler, DyTCScheduler, SpecEngine, layer_sparsity
+    from repro_torch.core.dsia import PLD_SPEC
+
+    spec = layer_sparsity(cfg, 0.5)
+    ar_streams = []
+    for i, prompt in enumerate(prompts):
+        runs = {}
+        for name in ("AR", "DyTC"):
+            eng = SpecEngine(cfg, params)
+            eng.start(prompt)
+            sched = (DyTCScheduler(eng, [spec, PLD_SPEC]) if name == "DyTC"
+                     else ARScheduler(eng))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sched.generate(GEN_TOKENS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if not bool(torch.isfinite(eng.last_logits).all()):
+                raise AssertionError(f"{label}: prompt {i}: non-finite logits ({name})")
+            runs[name] = (out, dict(eng.stats), wall, eng.costs.c_hat(spec.name, spec.prior_c))
+            del eng, sched
+        (ar, _, ar_wall, _), (dy, st, dy_wall, c) = runs["AR"], runs["DyTC"]
+        ar_streams.append(ar)
+        div = _first_divergence(ar, dy)
+        # c measured: a draft call's mean wall time over a target call's
+        c_ms = (st["draft_time"] / st["draft_calls"] / (st["verify_time"] / st["target_calls"])
+                if st["draft_calls"] else float("nan"))
+        print(f"[phase 12] {label} prompt {i} ({len(prompt)} tokens): AR "
+              f"{ar_wall / GEN_TOKENS * 1e3:.2f} ms a token | DyTC {st['rounds']} rounds, "
+              f"{st['accepted_tokens'] / st['rounds']:.2f} tokens a round, "
+              f"{dy_wall / GEN_TOKENS * 1e3:.2f} ms a token, {st['draft_calls']} {spec.name} draft "
+              f"calls, c: draft call / target call {c_ms:.3f} by wall time, the tracker's c_hat "
+              f"{c:.3f} (prior {spec.prior_c:.3f}) | identical={div is None}"
+              + ("" if div is None else f", first divergence at token {div}"))
+        if exact and div is not None:
+            raise AssertionError(f"{label}: prompt {i}: DyTC left AR at token {div}:\n"
+                                 f"AR   {ar}\nDyTC {dy}")
+    return ar_streams
+
+
+def _serve_single(torch, cfg, params, prompts, ar_streams, label: str, launches: dict,
+                  **kw) -> dict:
+    """One BatchedSpecServer run in single rounds (LS0.5, phase 6's
+    settings unless ``kw`` overrides them): every stream equal to AR, one
+    graph launch and one host sync a round."""
+    from repro_torch.core import layer_sparsity
+    from repro_torch.serving import BatchedSpecServer
+
+    srv_kw = dict(SERVER, mode="tree_fused", paged=False, page_size=PAGE, round_mode="single")
+    srv_kw.update(kw)
+    srv = BatchedSpecServer(cfg, params, draft_spec=layer_sparsity(cfg, 0.5), **srv_kw)
+    if srv._graph is None:
+        raise AssertionError(f"{label}: no CUDA graph was captured")
+    rec = _serve(torch, srv, prompts, ar_streams)
+    _check_single(label, rec, srv)
+    _check_launches(label, rec["launches"], srv.paged)
+    exec_text = (f"slice exec, {len(srv._layer_ids)} layers" if srv._layer_ids is not None
+                 else f"mask exec, {int(srv._gates.sum())} of {cfg.num_layers} gates open")
+    print(f"[phase 12] {label}: {rec['requests']} requests identical to AR | " + _line(rec)
+          + f", {rec['draft_rounds']} rounds drafted ({exec_text}), "
+          f"{rec['graph_replays'] / rec['rounds']:.2f} graph launches and "
+          f"{rec['host_syncs'] / rec['rounds']:.2f} host syncs a round, capture "
+          f"{srv.capture_s * 1e3:.1f} ms | launches per round: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in rec["launches_per_round"].items()))
+    for k, v in rec["launches"].items():
+        launches[k] += v
+    del srv
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _long_prompts(vocab: int):
+    """Two prompts past gemma3's 1024-token window, made of repeated motifs:
+    1100 tokens (a 100-token motif 11 times) and 1056 (a 96-token motif)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 4)
+    return [np.tile(rng.integers(0, vocab, size=m), n).astype(np.int32)
+            for m, n in ((100, 11), (96, 11))]
+
+
+def phase_models(torch, results: dict) -> None:
+    """The other attention-only models at full width, random weights from
+    seed 0, one at a time (each freed before the next):
+
+    (a) float32 single stream: AR and DyTC (LS0.5) on phase 3's three
+        prompts, every stream equal to AR, for stablelm-1.6b (hd 64),
+        starcoder2-3b (GQA rep 12, the 2-matrix GeLU MLP), gemma3-1b (hd
+        288, MQA, 22 sliding and 4 global layers: mask exec) and
+        internlm2-20b (GQA rep 6) at 24 of its 48 layers;
+    (b) the batched server in single rounds, ``tree_fused`` dense, B=4,
+        phase 6's four prompts, every stream equal to AR, one graph launch
+        a round; for gemma3 also paged and ``chain_fused`` paged with
+        chunked prefill (64 a round): single rounds over a mixed stack;
+    (c) gemma3 past its window: two prompts of 1100 and 1056 tokens,
+        ``max_len`` 2048, AR, DyTC and ``tree_fused`` single, every stream
+        equal to AR (the window mask cuts keys on 22 of 26 layers);
+    (d) starcoder2 in ``cascade_fused`` mixing (LS0.4 over LS0.6+Q8), split
+        rounds: streams equal AR and the W8A8 kernel on the 2-matrix MLP;
+    (e) internlm2-20b at all 48 layers in bfloat16 (39.7 GB), AR and DyTC,
+        not held to AR (as phase 4): the first divergence is printed.
+
+    Prints the memory allocated at the start and each model's peak."""
+    import numpy as np
+
+    from repro_torch.config import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.serving import BatchedSpecServer
+
+    t_phase = time.perf_counter()
+    print(f"[phase 12] memory allocated at the start: {_gib(torch.cuda.memory_allocated())}")
+    launches = dict.fromkeys(_counters(), 0)
+
+    def count(fn, *args, **kw):
+        _reset_counts()
+        out = fn(*args, **kw)
+        for k, v in _read_counts().items():
+            launches[k] += v
+        return out
+
+    def load(name, dtype, **kw):
+        cfg = dataclasses.replace(get_config(name), dtype=dtype, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(cfg, SEED)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in tree_leaves(params))
+        # init_params draws each stacked leaf in float32 and scales it: its
+        # peak holds two float32 copies of the largest leaf
+        print(f"[phase 12] {name} {dtype}, {cfg.num_layers} layers, d {cfg.d_model}, heads "
+              f"{cfg.num_heads} / kv {cfg.num_kv_heads}, hd {cfg.resolved_head_dim()}, d_ff "
+              f"{cfg.d_ff}{'' if cfg.mlp_gated else ' (2-matrix MLP)'}, vocab {cfg.vocab_size}: "
+              f"{n / 1e9:.3f} B parameters, {_gib(n * torch.finfo(getattr(torch, dtype)).bits // 8)}"
+              f" in {time.perf_counter() - t0:.1f} s; peak memory of the draw "
+              f"{_gib(torch.cuda.max_memory_allocated())}")
+        torch.cuda.reset_peak_memory_stats()
+        return cfg, params
+
+    def done(name):
+        torch.cuda.synchronize()
+        print(f"[phase 12] {name}: peak memory serving {_gib(torch.cuda.max_memory_allocated())}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 2)
+    for name, kw in OTHER_MODELS:
+        cfg, params = load(name, "float32", **kw)
+        label = name + (f" ({cfg.num_layers} layers)" if kw else "")
+        prompts = _prompts(cfg.vocab_size)
+        ar = count(_single_stream, torch, cfg, params, prompts, label)
+        long_prompt = np.tile(rng.integers(0, cfg.vocab_size, size=50), 4).astype(np.int32)
+        prompts = prompts + [long_prompt]
+        ar = ar + [count(_generate, torch, cfg, params, long_prompt, False)[0]]
+        _serve_single(torch, cfg, params, prompts, ar, f"{label} tree_fused dense single",
+                      launches)
+        if name == "gemma3-1b":
+            _serve_single(torch, cfg, params, prompts, ar, f"{label} tree_fused paged single",
+                          launches, paged=True)
+            _serve_single(torch, cfg, params, prompts, ar,
+                          f"{label} chain_fused paged single, prefill_chunk=64", launches,
+                          mode="chain_fused", paged=True, prefill_chunk=64)
+            # (c) past the window
+            longs = _long_prompts(cfg.vocab_size)
+            long_ar = count(_single_stream, torch, cfg, params, longs, f"{label} past its window")
+            _serve_single(torch, cfg, params, longs, long_ar,
+                          f"{label} past its window, tree_fused dense single", launches,
+                          max_batch=2, max_len=2048)
+        if name == "starcoder2-3b":
+            # (d) the cascade, its int8 level on the W8A8 kernel
+            srv = BatchedSpecServer(cfg, params, mode="cascade_fused", round_mode="split",
+                                    paged=False, **SERVER)
+            if srv.bank.int8_exec != "kernel":
+                raise AssertionError(f"{label}: int8_exec resolved to {srv.bank.int8_exec!r}")
+            rec = _serve(torch, srv, prompts, ar)
+            disp = _check_dispatches(f"{label} cascade_fused", rec, srv)
+            _check_launches(f"{label} cascade_fused", rec["launches"], False)
+            w8a8 = rec["launches"]["int8_matmul"]
+            print(f"[phase 12] {label} cascade_fused mixing dense split: {rec['requests']} requests "
+                  f"identical to AR | " + _line(rec) + f", dispatches per round max {max(disp)} of "
+                  f"{srv.expected_dispatches_per_round()} | bank {[lv.name for lv in srv.bank.levels]}, "
+                  f"param_bytes {_gib(srv.bank.param_bytes)} | W8A8 launches {w8a8} "
+                  f"({w8a8 / rec['rounds']:.2f} a round) | launches per round: "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in rec["launches_per_round"].items()))
+            if w8a8 <= 0:
+                raise AssertionError(f"{label}: the cascade's int8 level launched no W8A8 kernel")
+            for k, v in rec["launches"].items():
+                launches[k] += v
+            del srv
+        del params
+        done(label)
+    # (e) internlm2-20b at full depth in bfloat16
+    cfg, params = load("internlm2-20b", "bfloat16")
+    count(_single_stream, torch, cfg, params, _prompts(cfg.vocab_size),
+          f"internlm2-20b bfloat16 ({cfg.num_layers} layers)", exact=False)
+    del params
+    done("internlm2-20b bfloat16")
+    print(f"[phase 12] kernel launches: {launches}")
+    for name in ("flash_decode", "tree_attention", "flash_decode_paged", "int8_matmul", "set_cond"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 12: {name} was not launched")
+        results[name]["launches"] += launches[name]
+    print(f"[phase 12] {time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -2303,8 +2651,10 @@ def main() -> int:
     def timed(phase: str, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
+        gc.collect()
         torch.cuda.empty_cache()
-        print(f"[{phase}] done in {time.perf_counter() - t0:.1f} s")
+        print(f"[{phase}] done in {time.perf_counter() - t0:.1f} s; memory allocated "
+              f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB (after a garbage collection)")
         return out
 
     timed("phase 1", phase_env, torch)
@@ -2321,6 +2671,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("phase 10 CLI", phase_cli, torch)
     timed("phase 11", phase_training, torch, results)
+    timed("phase 12", phase_models, torch, results)
     print(f"[chip_smoke] all phases in {time.perf_counter() - t_all:.1f} s")
     kernels = []
     for name, src, replaces in (

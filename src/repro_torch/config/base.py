@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 
 class AttentionKind(str, enum.Enum):
@@ -196,6 +196,14 @@ class ModelConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
 # ----------------------------------------------------------------------- registry
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
@@ -212,3 +220,8 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
+
+
+def list_configs() -> List[str]:
+    import repro_torch.configs  # noqa: F401
+    return sorted(_REGISTRY)

@@ -813,12 +813,14 @@ def chain_prologue(cache: dict, state: dict, c: torch.Tensor, *, draft_k: int, u
 
 
 def chain_draft(cfg: ModelConfig, params: dict, cache: dict, state: dict, mid: dict, *,
-                draft_k: int, layer_ids: Optional[List[int]] = None,
+                draft_k: int, gates=None, layer_ids: Optional[List[int]] = None,
                 draft_kv: str = "recompute") -> None:
     """The draft of ``chain_round``: the ``draft_k``-step chain scan,
-    written in place into ``mid["chains"]`` and ``mid["have"]``."""
+    written in place into ``mid["chains"]`` and ``mid["have"]``. ``gates``
+    (mask exec) is read on the host, so a captured round takes it as a
+    host array or CPU tensor."""
     chains, have = chain_draft_scan(cfg, draft_k, params, cache, state["pending"], mid["chains"],
-                                    mid["have"], mid["limit"], layer_ids=layer_ids,
+                                    mid["have"], mid["limit"], gates, layer_ids=layer_ids,
                                     draft_kv=draft_kv)
     mid["chains"].copy_(chains)
     mid["have"].copy_(have)
@@ -945,12 +947,14 @@ def tree_prologue(cache: dict, state: dict, c: torch.Tensor, *, draft_k: int, ex
 
 def tree_draft(cfg: ModelConfig, params: dict, cache: dict, state: dict, mid: dict,
                c: torch.Tensor, *, expansions: int, top_k: int, top_p: float, t_min: float,
-               layer_ids: Optional[List[int]] = None, draft_kv: str = "recompute") -> None:
+               gates=None, layer_ids: Optional[List[int]] = None,
+               draft_kv: str = "recompute") -> None:
     """The draft of ``tree_round``: the ``expansions``-step tree growth,
-    written in place into the prologue's tree tensors."""
+    written in place into the prologue's tree tensors; ``gates`` as in
+    ``chain_draft``."""
     grown = tree_draft_scan(
         cfg, expansions, top_k, params, cache, *(mid[k] for k in _TREE[:6]), mid["limits"],
-        state["alpha"], torch.clamp(c.float(), min=1e-3), t_min, top_p=top_p,
+        state["alpha"], torch.clamp(c.float(), min=1e-3), t_min, gates, top_p=top_p,
         layer_ids=layer_ids, draft_kv=draft_kv)
     for name, value in zip(_TREE, grown):
         mid[name].copy_(value)

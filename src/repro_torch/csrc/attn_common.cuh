@@ -36,6 +36,12 @@
 // arithmetic does not depend on where a slot lives: a paged cache gives
 // bitwise the partials of the dense cache it gathers to.
 //
+// Head dims: any multiple of 8 whose 16-byte copies per row split evenly
+// over the CTA's threads (64, 128 and 288 are instantiated). Each thread
+// holds MT * HD / 2 accumulator floats, so above hd 128 a CTA takes one
+// m16 tile only (row_tiles): two tiles at hd 288 would hold 288 floats a
+// thread and spill.
+//
 // Bound on the H100: the bytes of K and V. At R <= 32 rows a K/V element
 // takes part in at most 2 * 32 multiply-adds (x3 TF32 passes in float32),
 // far below the ~150 TF32 flops per byte at which the tensor cores would
@@ -136,7 +142,9 @@ struct Tile {
   static constexpr int EPC = 16 / sizeof(T);             // elements per 16-byte copy
   static constexpr int CPR = HD / EPC;                   // copies per row
   static constexpr int PITCH = HD + EPC;                 // elements per staged row
-  static constexpr int STAGES = sizeof(T) == 4 ? 2 : 4;  // ring depth
+  // ring depth: 4 bfloat16 tiles, or 2 where a tile's rows are long (float32,
+  // or a head dim above 128, where 4 would leave room for one CTA an SM)
+  static constexpr int STAGES = sizeof(T) == 2 && HD <= 128 ? 4 : 2;
   static constexpr int SLAB = HD + 4;                    // floats per merge row
   static constexpr int QW = sizeof(T) == 2 ? 2 : 4;       // words per (row, k-step, t)
   static constexpr int QPITCH = HD / 8 * 4 * QW + 4 * QW;  // words per split Q row
@@ -162,8 +170,9 @@ __device__ __forceinline__ void rows_partials(
   constexpr int ROWS = G::ROWS, PITCH = G::PITCH, EPC = G::EPC, CPR = G::CPR;
   constexpr int STAGES = G::STAGES, NB = HD / 8;
   constexpr bool EXACT = sizeof(T) == 2;
-  static_assert(HD % 8 == 0 && (CPR & (CPR - 1)) == 0, "head_dim must be a power of two >= 8");
+  static_assert(HD % 8 == 0 && HD % EPC == 0, "head_dim must be a multiple of 8");
   static_assert(KT == 32 && KT * CPR % THREADS == 0, "one slot per lane, equal copies per thread");
+  static_assert(MT == 1 || HD <= 128, "one row tile above hd 128 (row_tiles)");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float m_w[WARPS][MAX_ROWS], l_w[WARPS][MAX_ROWS];
   constexpr int QW = G::QW, QPITCH = G::QPITCH;
@@ -394,8 +403,9 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// Row tile of a call with R rows per (batch, kv-head): one m16 tile for
-// R <= 16, two above (kernels/flash_decode.py::rows_per_cta mirrors it).
-inline int row_tiles(int R) { return R <= 16 ? 1 : 2; }
+// Row tiles of a CTA for R rows per (batch, kv-head) at head dim hd: one
+// m16 tile for R <= 16 or hd > 128, two otherwise
+// (kernels/flash_decode.py::rows_per_cta mirrors it).
+inline int row_tiles(int R, int hd) { return R <= 16 || hd > 128 ? 1 : 2; }
 
 }  // namespace attn

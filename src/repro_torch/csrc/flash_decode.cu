@@ -15,11 +15,14 @@
 // Design: flash-decoding on tensor cores (attn_common.cuh). Blocks run in no
 // order on Hopper, so S is split across CTAs, one CTA per (split, kv-head,
 // batch x row-tile of 16 or 32 rows); the split count is chosen so that
-// about two CTAs per SM are in flight, and split lengths are multiples of the
-// 32-slot key tile. Each CTA streams its K/V range through a cp.async ring
-// (2 float32 or 4 bfloat16 tiles deep, 100 KB or 85 KB of shared memory
-// with the split Q, two CTAs per SM), computes both products with mma.sync TF32 (3xTF32 where the
-// operands are float32) and writes un-normalised partials (acc, m, l). A
+// the CTAs that fit the SMs at once are in flight, and split lengths are
+// multiples of the 32-slot key tile. Each CTA streams its K/V range through
+// a cp.async ring (2 float32 or 4 bfloat16 tiles deep, 2 at hd 288), with
+// the split Q in shared memory: at hd 128 100 KB (float32) or 85 KB
+// (bfloat16), two CTAs per SM; at hd 64 52 or 45 KB; at hd 288, one 16-row
+// tile, 183 KB in float32, one CTA per SM, and 92.5 KB in bfloat16, two. It
+// computes both products with mma.sync TF32 (3xTF32 where the operands are
+// float32) and writes un-normalised partials (acc, m, l). A
 // second small kernel combines the splits by logsumexp. When the caller
 // hands it the staged-tree partials, the combine also performs the verify
 // merge of kernels/ops.py (lines 83-91 of the reference) and normalises, so
@@ -217,15 +220,23 @@ cudaError_t launch_paged(const Launch& a, int n_split, const void* q, const void
   return cudaGetLastError();
 }
 
-// The instantiation for (dtype, row tiles): 0 = float32, 1 = bfloat16.
+// The instantiation for (head dim, row tiles) of element type T.
+template <template <typename, int, int> class F, typename T, typename... Args>
+cudaError_t by_head_dim(int hd, int R, Args... args) {
+  const int mt = row_tiles(R, hd);
+  switch (hd) {
+    case 64: return mt == 1 ? F<T, 64, 1>::run(args...) : F<T, 64, 2>::run(args...);
+    case 128: return mt == 1 ? F<T, 128, 1>::run(args...) : F<T, 128, 2>::run(args...);
+    case 288: return F<T, 288, 1>::run(args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// dtype: 0 = float32, 1 = bfloat16.
 template <template <typename, int, int> class F, typename... Args>
-cudaError_t dispatch(int dtype, int R, Args... args) {
-  const int mt = row_tiles(R);
-  if (dtype == 0)
-    return mt == 1 ? F<float, 128, 1>::run(args...) : F<float, 128, 2>::run(args...);
-  if (dtype == 1)
-    return mt == 1 ? F<__nv_bfloat16, 128, 1>::run(args...)
-                   : F<__nv_bfloat16, 128, 2>::run(args...);
+cudaError_t dispatch(int dtype, int hd, int R, Args... args) {
+  if (dtype == 0) return by_head_dim<F, float>(hd, R, args...);
+  if (dtype == 1) return by_head_dim<F, __nv_bfloat16>(hd, R, args...);
   return cudaErrorInvalidValue;
 }
 
@@ -249,17 +260,16 @@ extern "C" {
 // 1 window, 2 streaming. Partials are (n_grid, B, KV, R[, hd]) float32,
 // n_grid the most splits the plan asks for at any live length up to S;
 // split i scans slots [i * split_len, min(L, (i + 1) * split_len)), L the
-// live length read from `bound` (n_bound ints; null: L = S). Only hd = 128
-// (vicuna-7b) is instantiated.
+// live length read from `bound` (n_bound ints; null: L = S). hd is 64, 128
+// or 288 (kernels/flash_decode.py: HEAD_DIMS); any other is refused.
 int fd_split(int dtype, const void* q, const void* k, const void* v, const int* kv_pos,
              const int* q_pos, float* acc_p, float* m_p, float* l_p, int B, int KV, int R,
              int S, int hd, long long k_sb, long long k_sg, long long k_ss, int kind,
              int window, int sink, float scale, int n_grid, int cap, const int* bound,
              int n_bound, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd != 128) return cudaErrorInvalidValue;
   const Launch a{B, KV, R, S, kind, window, sink, cap, n_bound, bound, scale};
-  return dispatch<DenseLaunch>(dtype, R, a, n_grid, q, k, v, kv_pos, q_pos, acc_p, m_p, l_p,
+  return dispatch<DenseLaunch>(dtype, hd, R, a, n_grid, q, k, v, kv_pos, q_pos, acc_p, m_p, l_p,
                                k_sb, k_sg, k_ss, st);
 }
 
@@ -273,9 +283,9 @@ int fd_paged_split(int dtype, const void* q, const void* k_pages, const void* v_
                    int kind, int window, int sink, float scale, int n_grid, int cap,
                    const int* bound, int n_bound, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd != 128 || num_pages < 1) return cudaErrorInvalidValue;
+  if (num_pages < 1) return cudaErrorInvalidValue;
   const Launch a{B, KV, R, n_pp * page_size, kind, window, sink, cap, n_bound, bound, scale};
-  return dispatch<PagedLaunch>(dtype, R, a, n_grid, q, k_pages, v_pages, table, n_pp,
+  return dispatch<PagedLaunch>(dtype, hd, R, a, n_grid, q, k_pages, v_pages, table, n_pp,
                                page_size, num_pages, p_sp, p_sr, p_sg, kv_pos, q_pos, acc_p,
                                m_p, l_p, st);
 }

@@ -134,6 +134,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const unsigned c
   return cudaGetLastError();
 }
 
+template <typename T, typename... Args>
+cudaError_t by_head_dim(int hd, Args... args) {
+  switch (hd) {
+    case 64: return launch<T, 64>(args...);
+    case 128: return launch<T, 128>(args...);
+    case 288: return launch<T, 288>(args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -143,21 +153,19 @@ extern "C" {
 // the carried segment: ks/vs slot s of (b, g) at b*s_sb + g*s_sg + s*s_st,
 // smask (B, T, n_s) bytes; with n_s = 0 ks, vs and smask are not read.
 // Outputs acc (B, KV, R, hd), m and l (B, KV, R), float32, over both
-// segments. Only hd = 128 (vicuna-7b) is instantiated.
+// segments. hd is 64, 128 or 288 (kernels/flash_decode.py: HEAD_DIMS); any
+// other is refused.
 int tree_attn(int dtype, const void* q, const void* k, const void* v, const unsigned char* mask,
               const void* ks, const void* vs, const unsigned char* smask, float* acc, float* m,
               float* l, int B, int KV, int R, int Tn, int n_s, int hd, long long k_sb,
               long long k_sg, long long k_st, long long s_sb, long long s_sg, long long s_st,
               float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd != 128 || n_s < 0) return cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch<float, 128>(q, k, v, mask, ks, vs, smask, acc, m, l, B, KV, R, Tn, n_s, k_sb,
-                              k_sg, k_st, s_sb, s_sg, s_st, scale, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, 128>(q, k, v, mask, ks, vs, smask, acc, m, l, B, KV, R, Tn, n_s,
-                                      k_sb, k_sg, k_st, s_sb, s_sg, s_st, scale, st);
-  return cudaErrorInvalidValue;
+  if (n_s < 0 || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  if (dtype == 0) return by_head_dim<float>(hd, q, k, v, mask, ks, vs, smask, acc, m, l, B, KV, R,
+                                            Tn, n_s, k_sb, k_sg, k_st, s_sb, s_sg, s_st, scale, st);
+  return by_head_dim<__nv_bfloat16>(hd, q, k, v, mask, ks, vs, smask, acc, m, l, B, KV, R, Tn,
+                                    n_s, k_sb, k_sg, k_st, s_sb, s_sg, s_st, scale, st);
 }
 
 }  // extern "C"

@@ -42,7 +42,7 @@ launches = 0          # dense kernel launches (split + combine count as one)
 paged_launches = 0    # paged kernel launches (split + combine count as one)
 
 KINDS = {"causal": 0, "window": 1, "streaming": 2}
-CUDA_HEAD_DIM = 128   # the one head dim the CUDA kernels instantiate (vicuna-7b)
+HEAD_DIMS = (64, 128, 288)   # the head dims the CUDA kernels instantiate
 KEY_TILE = 32         # key slots per staged tile (attn_common.cuh: KT)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -126,9 +126,7 @@ def _check_common(q, k, v, kv_pos, q_pos, tree, kind, bound, others=()) -> None:
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     if kv_pos.dtype != torch.int32 or q_pos.dtype != torch.int32:
         raise TypeError("flash_decode: kv_pos and q_pos must be int32")
-    if q.device.type == "cuda" and q.shape[-1] != CUDA_HEAD_DIM:
-        raise ValueError(f"flash_decode: the CUDA kernel takes head_dim {CUDA_HEAD_DIM}, "
-                         f"got {q.shape[-1]}")
+    check_head_dim("flash_decode", q)
     if kind not in KINDS:
         raise ValueError(f"unknown mask kind {kind!r}")
     if not (q.is_contiguous() and kv_pos.is_contiguous() and q_pos.is_contiguous()):
@@ -142,6 +140,13 @@ def _check_common(q, k, v, kv_pos, q_pos, tree, kind, bound, others=()) -> None:
                 or any(t.dtype != torch.float32 or not t.is_contiguous() for t in tree)):
             raise ValueError("flash_decode: tree partials must be contiguous float32 "
                              "(B, KV, R, hd) and (B, KV, R)")
+
+
+def check_head_dim(what: str, q) -> None:
+    """On the card, the head dim must be one the kernels instantiate."""
+    if q.device.type == "cuda" and q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{what}: the CUDA kernel takes a head_dim in {HEAD_DIMS}, "
+                         f"got {q.shape[-1]}")
 
 
 def check_aligned(what: str, *tensors) -> None:
@@ -183,21 +188,29 @@ def _check_paged(q, k_pages, v_pages, table, kv_pos, q_pos, tree, kind, bound) -
                          "q_pos (B, R)")
 
 
-def rows_per_cta(R: int) -> int:
+def rows_per_cta(R: int, hd: int) -> int:
     """Query rows of one CTA's tile: one 16-row tensor-core tile for
-    R <= 16, two above (attn_common.cuh: row_tiles)."""
-    return 16 if R <= 16 else 32
+    R <= 16 or hd > 128, two otherwise (attn_common.cuh: row_tiles)."""
+    return 16 if R <= 16 or hd > 128 else 32
 
 
-def _split_plan(device, B: int, KV: int, R: int, S: int):
+def ctas_per_sm(hd: int, dtype) -> int:
+    """Split CTAs resident on one SM: two, but one at hd 288 in float32,
+    whose ring and split Q take 183 KB of shared memory
+    (``flash_decode.cu``, design)."""
+    return 1 if hd > 128 and dtype == torch.float32 else 2
+
+
+def _split_plan(q, B: int, KV: int, R: int, S: int):
     """(n_grid, cap) for the kernels' own plan (``live_plan`` in the
     source): the live length's key tiles go to max(1, min(tiles, cap))
-    splits, cap being the split count whose grid fills the card's two
-    resident CTAs per SM in one wave (a second, partial wave would leave SMs
-    idle at the tail); n_grid, the grid's split dimension, is the most
-    splits any live length up to S asks for."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    cap = 2 * n_sm // (B * KV * -(-R // rows_per_cta(R)))
+    splits, cap being the split count whose grid fills the card's resident
+    CTAs in one wave (a second, partial wave would leave SMs idle at the
+    tail); n_grid, the grid's split dimension, is the most splits any live
+    length up to S asks for."""
+    hd = q.shape[-1]
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    cap = ctas_per_sm(hd, q.dtype) * n_sm // (B * KV * -(-R // rows_per_cta(R, hd)))
     return max(1, min(-(-S // KEY_TILE), cap)), cap
 
 
@@ -236,7 +249,7 @@ def _dense(q, k, v, kv_pos, q_pos, tree, kind, window, sink, scale, bound):
     B, KV, R, hd = q.shape
     S = k.shape[2]
     scale = hd ** -0.5 if scale is None else scale
-    n_grid, cap = _split_plan(q.device, B, KV, R, S)
+    n_grid, cap = _split_plan(q, B, KV, R, S)
     parts = _partials(q, n_grid)
     lib = _build.load("flash_decode", _SIGNATURES)
     stream = _build.stream_ptr(q.device)
@@ -258,7 +271,7 @@ def _paged(q, k_pages, v_pages, table, kv_pos, q_pos, tree, kind, window, sink, 
     n_pp = table.shape[1]
     S = n_pp * P_sz
     scale = hd ** -0.5 if scale is None else scale
-    n_grid, cap = _split_plan(q.device, B, KV, R, S)
+    n_grid, cap = _split_plan(q, B, KV, R, S)
     parts = _partials(q, n_grid)
     lib = _build.load("flash_decode", _SIGNATURES)
     stream = _build.stream_ptr(q.device)

@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.flash_decode import CUDA_HEAD_DIM, check_aligned
+from repro_torch.kernels.flash_decode import check_aligned, check_head_dim
 
 launches = 0
 
@@ -90,8 +90,7 @@ def _check(q, k, v, mask, k_staged=None, v_staged=None, staged_mask=None) -> Non
     if k.shape != (B, KV, T, hd) or v.shape != k.shape or mask.shape != (B, T, T) or R % T:
         raise ValueError(f"tree_attention: k {tuple(k.shape)} / mask {tuple(mask.shape)} "
                          f"do not match q {tuple(q.shape)}")
-    if q.device.type == "cuda" and hd != CUDA_HEAD_DIM:
-        raise ValueError(f"tree_attention: the CUDA kernel takes head_dim {CUDA_HEAD_DIM}, got {hd}")
+    check_head_dim("tree_attention", q)
     if not (q.is_contiguous() and mask.is_contiguous()):
         raise ValueError("tree_attention: q and mask must be contiguous")
     if k.stride(-1) != 1 or v.stride() != k.stride():

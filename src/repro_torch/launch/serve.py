@@ -3,14 +3,17 @@ batched server; the counterpart of the reference's ``launch/serve.py``,
 with its flags and its last line.
 
   python -m repro_torch.launch.serve --scheduler dytc --tokens 64
-  python -m repro_torch.launch.serve --mesh model=1,data=1 --mode tree_fused \\
-      --batch 4 --tokens 32 --metrics-port 0 --trace-out trace.json
+  python -m repro_torch.launch.serve --arch gemma3-1b --mesh model=1,data=1 \\
+      --mode tree_fused --batch 4 --tokens 32 --metrics-port 0 --trace-out trace.json
 
-It runs on the card (``--device cuda``, the default; it raises when there
-is none). ``--device cpu --reduced`` runs the kernels' plain versions on the
-CPU, at the reduced width with 8 layers. ``--mesh model=1,data=1`` serves
-the requests through ``ServeLoop`` and ``BatchedSpecServer`` on the one
-device; a larger mesh raises ``NotImplementedError`` (ROADMAP A.6).
+``--arch`` is any config the port registers (``repro_torch.config.
+list_configs()``: vicuna-7b, the default, internlm2-20b, starcoder2-3b,
+stablelm-1.6b, gemma3-1b). It runs on the card (``--device cuda``, the
+default; it raises when there is none). ``--device cpu --reduced`` runs the
+kernels' plain versions on the CPU, at the reduced width with 8 layers.
+``--mesh model=1,data=1`` serves the requests through ``ServeLoop`` and
+``BatchedSpecServer`` on the one device; a larger mesh raises
+``NotImplementedError`` (mesh serving is a later item of ROADMAP queue A).
 
 Observability: ``--metrics-port`` serves Prometheus text at ``/metrics``
 while the run is in flight, ``--trace-out`` records Chrome-trace spans of
@@ -28,7 +31,7 @@ import json
 import time
 
 from repro_torch import resolve_device
-from repro_torch.config import get_config
+from repro_torch.config import get_config, list_configs
 from repro_torch.core.cascade import (
     ARScheduler,
     HCScheduler,
@@ -61,7 +64,7 @@ MODES = ("chain_fused", "legacy", "tree_fused", "cascade_fused")
 
 def parse_mesh(spec: str) -> dict:
     """``"model=K,data=D"`` -> ``{"model": K, "data": D}``. Only the
-    one-device mesh runs: mesh serving is not ported (ROADMAP A.6)."""
+    one-device mesh runs: mesh serving is not ported (ROADMAP queue A)."""
     shape = {"model": 1, "data": 1}
     for part in spec.split(","):
         name, _, size = part.partition("=")
@@ -71,7 +74,8 @@ def parse_mesh(spec: str) -> dict:
     if shape != {"model": 1, "data": 1}:
         raise NotImplementedError(
             f"--mesh {spec}: serving over a mesh of more than one device is not ported yet "
-            "(ROADMAP A.6); --mesh model=1,data=1 runs the batched server on one device")
+            "(ROADMAP queue A, the mesh); --mesh model=1,data=1 runs the batched server on "
+            "one device")
     return shape
 
 
@@ -143,7 +147,7 @@ def run_batched(cfg, params, args, device, mesh_shape: dict) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="vicuna-7b")
+    ap.add_argument("--arch", default="vicuna-7b", choices=list_configs())
     ap.add_argument("--reduced", action="store_true",
                     help="the config's reduced width, with 8 layers")
     ap.add_argument("--device", default="cuda",

@@ -3,6 +3,9 @@ with its flags and its printed lines, on the card.
 
   python -m repro_torch.launch.train --steps 60 --batch 8 --seq 96 --ckpt ckpt/
   python -m repro_torch.launch.train --device cpu --reduced --steps 3
+  python -m repro_torch.launch.train --arch stablelm-1.6b --device cpu --reduced
+
+``--arch`` is any config the port registers (``list_configs()``).
 
 It runs on the card (``--device cuda``, the default; it raises when there
 is none); ``--device cpu`` runs on the CPU. ``--reduced`` trains the
@@ -24,7 +27,7 @@ import time
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.config import get_config
+from repro_torch.config import get_config, list_configs
 from repro_torch.data import lm_batches, synthetic_corpus
 from repro_torch.models import init_params
 from repro_torch.training import adamw_init, make_train_step, save_checkpoint
@@ -32,7 +35,7 @@ from repro_torch.training import adamw_init, make_train_step, save_checkpoint
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
-    ap.add_argument("--arch", default="vicuna-7b")
+    ap.add_argument("--arch", default="vicuna-7b", choices=list_configs())
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)

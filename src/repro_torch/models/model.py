@@ -306,6 +306,10 @@ def _attn_layer(
 
 
 def _host_gates(gates, n: int) -> List[float]:
+    """The gate vector as host floats. Gates given on the host (a sequence,
+    numpy array or CPU tensor) are read without a device sync, so a
+    captured CUDA graph may run mask exec; a CUDA tensor is copied back,
+    which capture refuses."""
     if gates is None:
         return [1.0] * n
     g = torch.as_tensor(gates).detach().cpu().reshape(-1).tolist()

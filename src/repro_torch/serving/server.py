@@ -102,9 +102,14 @@ device buffer of a single-round server at every telemetry drain; a
 mismatch raises. ``telemetry_totals()`` and ``metrics_summary()`` report
 it.
 
-Not ported yet (they raise ``NotImplementedError``; ROADMAP queue A): mesh
-serving (``mesh``) and single rounds over a non-homogeneous stack (mask
-exec reads the layer gates on the host).
+A draft runs the kept layers alone (slice exec) on a homogeneous stack and
+every layer under its 0/1 gate on a mixed one (mask exec, gemma3's
+sliding/global stack): a gated-off layer still runs and adds ``delta * 0``,
+as in the reference. The gates are fixed at build and kept on the host, so
+single rounds over a mixed stack capture as any other.
+
+Not ported yet (it raises ``NotImplementedError``; ROADMAP queue A): mesh
+serving (``mesh``).
 """
 from __future__ import annotations
 
@@ -281,7 +286,9 @@ class BatchedSpecServer:
             self.tree_bucket = tree_bucket or bucket_for(
                 1 + draft_k + tree_top_k * tree_expansions + extra)
         # the draft's layers: the kept ones (slice exec) on a homogeneous
-        # stack, else the gate vector (mask exec) — the same numbers
+        # stack, else the gate vector (mask exec) — the same numbers. The
+        # gates are fixed at build and read on the host per layer, so they
+        # stay a host tensor, which a captured round reads without a sync
         self._gates = self._layer_ids = None
         if draft_spec is not None:
             gates = draft_spec.gates_array(cfg.num_layers)
@@ -289,10 +296,7 @@ class BatchedSpecServer:
             if len(segs) == 1 and len(segs[0].unit) == 1:
                 self._layer_ids = [int(i) for i in np.flatnonzero(gates > 0)]
             else:
-                self._gates = torch.as_tensor(gates, device=self.device)
-                if self.round_mode == "single":
-                    raise _not_ported("round_mode='single' over a non-homogeneous stack "
-                                      "(mask exec reads the layer gates on the host)")
+                self._gates = torch.as_tensor(gates)
 
         self.pld = PromptLookup(max_draft=draft_k)
         self.acceptance = AcceptanceTracker()
@@ -381,7 +385,7 @@ class BatchedSpecServer:
             use_draft = draft_spec is not None
             kw = dict(use_draft=use_draft, adaptive=adaptive, min_obs=min_obs, t_min=float(t_min),
                       max_ngram=self.pld.max_ngram, min_ngram=self.pld.min_ngram)
-            draft_kw = dict(layer_ids=self._layer_ids, draft_kv=draft_kv)
+            draft_kw = dict(gates=self._gates, layer_ids=self._layer_ids, draft_kv=draft_kv)
             if mode == "chain_fused":
                 self._prologue_fn = functools.partial(chain_prologue, draft_k=draft_k, **kw)
                 if use_draft:
@@ -1001,9 +1005,9 @@ class BatchedSpecServer:
         return (cache, *(a.cpu().numpy() for a in walk))
 
     def _level_gates(self, lvl) -> Optional[torch.Tensor]:
-        """A bank level's gate vector on the device (mask exec), or None."""
+        """A bank level's gate vector on the host (mask exec), or None."""
         g = lvl.exec_gates
-        return None if g is None else torch.as_tensor(g, device=self.device)
+        return None if g is None else torch.as_tensor(g)
 
     # ------------------------------------------------------ single rounds
     def _plan(self):

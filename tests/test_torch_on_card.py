@@ -14,7 +14,10 @@ lengths over the whole cache is bitwise equal to a launch over the cache
 cut to that length on the host; the W8A8 kernel adds exact int32 partial
 sums and scales in the plain version's order, so it is bitwise equal
 (tolerance 0); the tree kernel with a carried segment is within 1e-4 of
-its plain version. The single-dispatch serving round, at vicuna-7b width
+its plain version. The attention kernels are held at head dims 64, 128 and
+288 and GQA reps 1 to 12, with a window mask over a cache four times the
+window and over a ring cache scanned whole; another head dim raises. The
+single-dispatch serving round, at vicuna-7b width
 and reduced depth, captured as segment graphs with the draft (and chunked
 prefill) behind conditional nodes: its replays equal eager rounds bitwise
 with carried or recomputed draft KV and with chunked prefill, an eager
@@ -80,17 +83,25 @@ def test_attention_kernels_match_plain_on_card(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rep,T,S", [
-    (1, 5, 300),       # R = 5: one padded 16-row tile; S not a multiple of the 32-slot key tile
-    (1, 16, 300),      # R = 16: one full row tile
-    (1, 32, 2048),     # R = 32: two m16 tiles in one CTA, the main path's verify
-    (8, 8, 300),       # R = 64 (GQA rep 8): two 32-row CTAs per head
+@pytest.mark.parametrize("hd,rep,T,S", [
+    (128, 1, 5, 300),       # R = 5: one padded 16-row tile; S not a multiple of the 32-slot key tile
+    (128, 1, 16, 300),      # R = 16: one full row tile
+    (128, 1, 32, 2048),     # R = 32: two m16 tiles in one CTA, the main path's verify
+    (128, 8, 8, 300),       # R = 64 (GQA rep 8): two 32-row CTAs per head
+    (128, 4, 8, 300),
+    (128, 6, 32, 300),      # internlm2-20b: GQA rep 6, R = 192
+    (128, 12, 32, 300),     # starcoder2-3b: GQA rep 12, R = 384
+    (64, 1, 5, 300),        # stablelm-1.6b: hd 64
+    (64, 1, 32, 2048),
+    (288, 4, 16, 300),      # gemma3-1b: hd 288, MQA rep 4, R = 64 in four 16-row CTAs
+    (288, 4, 5, 2048),      # R = 20
 ])
-def test_attention_kernels_at_tile_edges_on_card(dtype, rep, T, S):
-    """The tensor-core kernels at the row and key tiles' edges, with a fully
-    masked cache row and a fully masked tree row, against the plain twins."""
+def test_attention_kernels_at_tile_edges_on_card(dtype, hd, rep, T, S):
+    """The tensor-core kernels at the row and key tiles' edges, at every
+    instantiated head dim and the served GQA reps, with a fully masked
+    cache row and a fully masked tree row, against the plain twins."""
     dev = _card()
-    q, k, v, kv_pos, q_pos, kn, vn, tmask = attention_inputs(2, 2, rep, T, S, 128, pos=S - 21, seed=6)
+    q, k, v, kv_pos, q_pos, kn, vn, tmask = attention_inputs(2, 2, rep, T, S, hd, pos=S - 21, seed=6)
     tmask[1, 1] = False                                  # a fully masked tree row
     dt = getattr(torch, dtype)
     q, k, v, kn, vn = (a.to(dev, dt) for a in tensors(q, k, v, kn, vn))
@@ -187,6 +198,63 @@ def test_device_bound_equals_host_cut_on_card(dtype, B, T, n_pp, pos):
         assert torch.equal(got_m, want_m)
     close(want_m.cpu(), ref.ref_verify_attention(q, k, v, kv_pos, q_pos, kn, vn, tmask).cpu(),
           ATOL)
+
+
+# ------------------------------------------- head dims other than 128, windows
+def test_other_head_dims_raise_on_card():
+    dev = _card()
+    q, k, v, kv_pos, q_pos, kn, vn, tmask = tensors(*attention_inputs(1, 1, 1, 4, 64, 96, pos=40))
+    q, k, v, kn, vn, kv_pos, q_pos, tmask = (a.to(dev) for a in (q, k, v, kn, vn, kv_pos, q_pos,
+                                                                 tmask))
+    with pytest.raises(ValueError, match=r"head_dim in \(64, 128, 288\)"):
+        fd.flash_decode_partial(q, k, v, kv_pos, q_pos)
+    with pytest.raises(ValueError, match=r"head_dim in \(64, 128, 288\)"):
+        ta.tree_attention_partial(q, kn, vn, tmask)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,rep", [(288, 4), (64, 1), (128, 6)])
+def test_window_mask_past_the_window_on_card(dtype, hd, rep):
+    """The window kind over a cache four times longer than the window
+    (gemma3's sliding layers past 1024 tokens): dense and paged partials
+    against the plain twin, and paged bitwise equal to dense on the
+    gathered view."""
+    dev = _card()
+    x = paged_inputs(B=2, KV=1, rep=rep, T=8, hd=hd, P=64, n_pp=8, seed=8)
+    q, kp, vp = _paged(x, ("q", "k_pages", "v_pages"), dev, getattr(torch, dtype))
+    table, kv_pos, q_pos = _paged(x, ("table", "kv_pos", "q_pos"), dev)
+    kw = dict(kind="window", window=128)
+    got = fd.flash_decode_paged_partial(q, kp, vp, table, kv_pos, q_pos, **kw)
+    want = ref.flash_decode_paged_partial(q, kp, vp, table, kv_pos, q_pos, **kw)
+    close((got[0] / got[2][..., None]).cpu(), (want[0] / want[2][..., None]).cpu(), ATOL)
+    close(got[1].cpu(), want[1].cpu(), ATOL)
+    k, v = (ref.paged_gather(p, table).transpose(1, 2) for p in (kp, vp))
+    for g, w in zip(got, fd.flash_decode_partial(q, k, v, kv_pos, q_pos, **kw)):
+        assert torch.equal(g, w)
+    assert float(want[2][0, 0, -1]) < 129                # the window cut the visible slots
+
+
+@pytest.mark.parametrize("hd", [64, 288])
+def test_ring_decode_attention_on_card(hd):
+    """A ring cache of window slots (a sliding layer's ``ring_window``
+    cache), scanned whole by the flash-decode kernel: equal to the CPU's
+    plain scan within 1e-4."""
+    from repro_torch.models import attention as attn
+
+    dev = _card()
+    rng = np.random.default_rng(9)
+    B, T, H, KV, W = 2, 8, 4, 1, 64
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    q, kn, vn, kc, vc = f(B, T, H, hd), f(B, T, KV, hd), f(B, T, KV, hd), f(B, W, KV, hd), f(B, W, KV, hd)
+    cache_pos = torch.tensor([200, 70], dtype=torch.int32)
+    q_pos = cache_pos[:, None] + torch.tensor([0, 1, 1, 2, 2, 3, 4, 5], dtype=torch.int32)
+    tm = torch.tril(torch.ones(T, T, dtype=torch.bool))
+    tm[3, 2] = False
+    args = (q, kc, vc, cache_pos, kn, vn, q_pos)
+    kw = dict(kind="window", window=W, ring=True)
+    want = attn.decode_attention(*args, tree_mask=tm, **kw)
+    got = attn.decode_attention(*(a.to(dev) for a in args), tree_mask=tm.to(dev), **kw)
+    close(got.cpu(), want, ATOL)
 
 
 # ------------------------------------------------------------- serving rounds
