@@ -54,10 +54,17 @@ DyTC single stream and the batched server in single rounds, every stream
 equal to AR; gemma3 also paged, with chunked prefill and past its
 1024-token window; starcoder2's cascade on the W8A8 kernel; internlm2 at
 all 48 layers in bfloat16. Phase 2 also holds and times the attention
-kernels at those models' shapes. Each phase prints its seconds and the
+kernels at those models' shapes. Phase 13 serves the MoE models at full
+width through the grouped expert GEMM of the dropless dispatch:
+qwen2-moe-a2.7b at all 24 layers in float32 (AR, DyTC, ``tree_fused``
+single dense and paged, ``chain_fused`` split; every stream equal to AR)
+and in bfloat16, and mixtral-8x22b cut to 4 layers (AR, DyTC,
+``tree_fused`` single); phase 2 holds that kernel against its plain
+version at both models' expert shapes (bitwise batch-invariant too) and
+times it beside three yardsticks. Each phase prints its seconds and the
 memory left allocated after it. The last line is the JSON device record;
 the line before it lists the kernels, with the launches of phases 3 and
-5-12 (graph launches counted by the server, a gated segment's only in the
+5-13 (graph launches counted by the server, a gated segment's only in the
 rounds that ran it).
 Exits non-zero,
 with no result, when any phase fails or when no CUDA device (or no
@@ -81,7 +88,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
-TOL = {"attention": 1e-4, "int8": 0.0, "int8_decode_logits": 1e-3}
+TOL = {"attention": 1e-4, "int8": 0.0, "int8_decode_logits": 1e-3, "moe": 1e-4}
 MAIN_PATH_S = 160                  # longest live cache prefix of phases 3-4
 
 
@@ -231,6 +238,8 @@ def phase_env(torch) -> dict:
                     info.get("spill_stores", 0) or info.get("spill_loads", 0)
                     or info.get("IMMA", 1) == 0 or info.get("LDGSTS", 1) == 0):
                 raise AssertionError(f"{func}: spills, or no IMMA / LDGSTS in its SASS: {info}")
+            if name == "moe_grouped" and "grouped_kernel" in func and info.get("LDGSTS", 1) == 0:
+                raise AssertionError(f"{func}: no LDGSTS (cp.async) in its SASS: {info}")
     return {"smi": smi}
 
 
@@ -812,6 +821,9 @@ def phase_kernels(torch, results: dict) -> None:
 
     # --- W8A8 (#3)
     results["int8_matmul"] = _w8a8_kernel(torch, gen, flush_buf)
+
+    # --- the grouped expert GEMM of the MoE dispatch (not a TPU kernel)
+    results["moe_grouped"] = _moe_kernel(torch, gen, flush)
     del flush_buf
 
 
@@ -936,6 +948,158 @@ def _set_cond_kernel(torch, flush) -> dict:
                 library_ms=None, launches=0)
 
 
+# the experts of phase 13's models: (model, d, F, E, K)
+MOE_SHAPES = (("qwen2-moe-a2.7b", 2048, 1408, 60, 4), ("mixtral-8x22b", 6144, 16384, 8, 2))
+MOE_TOKENS = (1, 4, 16, 64, 128)
+MOE_TIMED = (4, 16, 64)            # the single stream's verifies, the server's B=4 verify
+
+
+def _moe_route(torch, gen, N, K, E, d, dtype, pool=None):
+    """N token rows (N, d) and K distinct experts for each (N, K), drawn
+    from ``pool`` (default: all E)."""
+    scores = torch.rand(N, E, generator=gen, device="cuda")
+    if pool is not None:
+        keep = torch.zeros(E, dtype=torch.bool, device="cuda")
+        keep[list(pool)] = True
+        scores = torch.where(keep, scores, -1.0)
+    return torch.randn(N, d, generator=gen, device="cuda").to(dtype), scores.topk(K, dim=-1).indices
+
+
+def _moe_sort(torch, x, ids, E):
+    """The dispatch's rows, as ``models/moe.py`` sorts them: (x_s (N*K, d),
+    offs (E + 1,) int32, order: the flat (token, k) index of each row)."""
+    sorted_e, order = torch.sort(ids.reshape(-1), stable=True)
+    offs = torch.searchsorted(sorted_e, torch.arange(E + 1, device="cuda"), out_int32=True)
+    return x.index_select(0, order // ids.shape[1]), offs, order
+
+
+def _moe_kernel(torch, gen, flush) -> dict:
+    """The grouped expert GEMM (``moe_grouped``: the gated up projection and
+    the down projection of one MoE layer, two launches) against its plain
+    version, at qwen2-moe's and mixtral's expert shapes, in float32 (within
+    TOL["moe"]) and bfloat16 (within one bfloat16 ulp of the value plus
+    TOL["moe"]: both round float32 sums), at N = 1-128 tokens and with most
+    experts empty; the first tokens' rows bitwise equal whatever else is
+    batched; timed by CUDA events and graph replay beside the bound (the
+    bytes of the experts hit and of the rows, or the operations), the plain
+    version and three yardsticks: a loop of one matmul per expert that reads
+    the group sizes on the host, the fixed-shape product of every expert
+    over every token (einsum, E / K times the operations) and, in bfloat16,
+    ``torch._grouped_mm`` where the card's torch has it."""
+    from repro_torch.kernels import moe_grouped as mg
+    from repro_torch.kernels import ref
+
+    F_ = torch.nn.functional
+    worst, out = 0.0, None
+    for model, d, F, E, K in MOE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            w_gate, w_up = (torch.randn(E, d, F, generator=gen, device="cuda").mul_(d ** -0.5)
+                            .to(dtype) for _ in range(2))
+            w_down = torch.randn(E, F, d, generator=gen, device="cuda").mul_(F ** -0.5).to(dtype)
+
+            def kernel(x_s, offs):
+                h = mg.moe_grouped(x_s, w_gate, offs, act="silu", w_mul=w_up)
+                return mg.moe_grouped(h, w_down, offs)
+
+            def plain(x_s, offs):
+                h = ref.ref_moe_grouped(x_s, w_gate, offs, act="silu", w_mul=w_up)
+                return ref.ref_moe_grouped(h, w_down, offs)
+
+            # and 64 tokens routed to K experts only: most experts get no row
+            cases = [(N, None) for N in MOE_TOKENS] + [(64, tuple(range(0, E, E // K))[:K])]
+            errs = []
+            for N, pool in cases:
+                x_s, offs, _ = _moe_sort(torch, *_moe_route(torch, gen, N, K, E, d, dtype, pool), E)
+                h = mg.moe_grouped(x_s, w_gate, offs, act="silu", w_mul=w_up)
+                got = mg.moe_grouped(h, w_down, offs)
+                pairs = ((h, ref.ref_moe_grouped(x_s, w_gate, offs, act="silu", w_mul=w_up)),
+                         (got, ref.ref_moe_grouped(h, w_down, offs)))
+                torch.cuda.synchronize()
+                for a, b in pairs:
+                    ulp = 0.0 if dtype == torch.float32 else 2 ** -7 * b.float().abs()
+                    if bool(((a.float() - b.float()).abs() > TOL["moe"] + ulp).any()):
+                        raise AssertionError(f"moe_grouped {model} {name} N={N}: err abs "
+                                             f"{_err(a, b):.3e} past the tolerance")
+                    errs.append(_err(a, b))
+                hit = int((offs[1:] > offs[:-1]).sum())
+                print(f"[phase 2] moe_grouped {model} {name} N={N:3d} (P={N * K}, {hit} of {E} "
+                      f"experts hit{', routed to ' + str(len(pool)) if pool else ''}): err abs "
+                      f"h {errs[-2]:.3e}, out {errs[-1]:.3e}")
+            if dtype == torch.float32:
+                worst = max(worst, *errs)
+            # batch invariance: the rows of the first 4 tokens, alone and among 64
+            x, ids = _moe_route(torch, gen, 64, K, E, d, dtype)
+            rows = []
+            for n in (4, 64):
+                x_s, offs, order = _moe_sort(torch, x[:n], ids[:n], E)
+                rows.append(kernel(x_s, offs)[torch.argsort(order)][:4 * K])   # (token, k) order
+            torch.cuda.synchronize()
+            if not torch.equal(rows[0], rows[1]):
+                raise AssertionError(f"moe_grouped {model} {name}: the first 4 tokens' rows differ "
+                                     f"when 60 more tokens are batched with them")
+            print(f"[phase 2] moe_grouped {model} {name}: the first 4 tokens' {4 * K} rows bitwise "
+                  f"equal alone and among 64 tokens' {64 * K}")
+            for N in MOE_TIMED:
+                x, ids = _moe_route(torch, gen, N, K, E, d, dtype)
+                x_s, offs, order = _moe_sort(torch, x, ids, E)
+                sorted_e = torch.searchsorted(offs[1:].long(), torch.arange(N * K, device="cuda"),
+                                              right=True)
+                hit = int((offs[1:] > offs[:-1]).sum())
+                item = dtype.itemsize
+                nbytes = 2 * N * K * d * item + 3 * hit * d * F * item + offs.numel() * 4
+                bound, by = _bound_ms(nbytes, 6 * N * K * d * F, name)
+
+                def loop():
+                    sizes = offs.diff().tolist()               # the host read
+                    outs, a = [], 0
+                    for e, n in enumerate(sizes):
+                        if n:
+                            xe = x_s[a:a + n]
+                            outs.append((F_.silu(xe @ w_gate[e]) * (xe @ w_up[e])) @ w_down[e])
+                        a += n
+                    return torch.cat(outs)
+
+                def every():
+                    hs = F_.silu(torch.einsum("nd,edf->enf", x, w_gate)) * torch.einsum(
+                        "nd,edf->enf", x, w_up)
+                    return torch.einsum("enf,efd->end", hs, w_down)[sorted_e, order // K]
+
+                tm = dict(ms=_time_ms(lambda: kernel(x_s, offs), flush),
+                          graph_ms=_graph_ms(lambda: kernel(x_s, offs), flush),
+                          plain_ms=_time_ms(lambda: plain(x_s, offs), flush),
+                          loop_ms=_time_ms(loop, flush), every_ms=_time_ms(every, flush),
+                          every_graph_ms=_graph_ms(every, flush), bound_ms=bound, bound_by=by)
+                grouped = "absent"
+                if dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
+                    ends = offs[1:].contiguous()
+
+                    def lib():
+                        h = F_.silu(torch._grouped_mm(x_s, w_gate, offs=ends)) * torch._grouped_mm(
+                            x_s, w_up, offs=ends)
+                        return torch._grouped_mm(h, w_down, offs=ends)
+
+                    try:
+                        e = _err(lib(), kernel(x_s, offs))
+                        grouped = (f"{_time_ms(lib, flush):.4f} ms (graph replay "
+                                   f"{_graph_ms(lib, flush):.4f} ms, err abs {e:.3e})")
+                    except RuntimeError as exc:
+                        grouped = f"absent ({str(exc).splitlines()[0][:80]})"
+                print(f"[phase 2] moe_grouped {model} {name} N={N} (P={N * K}, {hit} experts hit): "
+                      f"kernel {tm['ms']:.4f} ms (graph replay {tm['graph_ms']:.4f} ms)  plain "
+                      f"{tm['plain_ms']:.4f} ms  bound {bound:.4f} ms ({by}), graph/bound "
+                      f"{tm['graph_ms'] / bound:.1f}x | yardsticks: per-expert matmul loop "
+                      f"(host read) {tm['loop_ms']:.4f} ms; every expert over every token "
+                      f"{tm['every_ms']:.4f} ms (graph replay {tm['every_graph_ms']:.4f} ms); "
+                      f"torch._grouped_mm {grouped}")
+                if (model, name, N) == ("qwen2-moe-a2.7b", "float32", 64):
+                    out = tm
+            del w_gate, w_up, w_down
+            torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, ms=out["ms"], plain_ms=out["plain_ms"], bound_ms=out["bound_ms"],
+                bound_by=out["bound_by"], library_ms=None, launches=0)
+
+
 # ------------------------------------------------------------------ phases 3-5
 GEN_TOKENS = 32
 SEED = 0
@@ -952,13 +1116,14 @@ def _prompts(vocab: int):
 
 def _counters():
     """Kernel name -> (module, the module integer its wrapper counts in)."""
-    from repro_torch.kernels import flash_decode, graph_cond, int8_matmul, tree_attention
+    from repro_torch.kernels import flash_decode, graph_cond, int8_matmul, moe_grouped, tree_attention
 
     return {"flash_decode": (flash_decode, "launches"),
             "flash_decode_paged": (flash_decode, "paged_launches"),
             "tree_attention": (tree_attention, "launches"),
             "int8_matmul": (int8_matmul, "launches"),
-            "set_cond": (graph_cond, "launches")}
+            "set_cond": (graph_cond, "launches"),
+            "moe_grouped": (moe_grouped, "launches")}
 
 
 def _reset_counts() -> None:
@@ -2421,7 +2586,8 @@ def _first_divergence(a: list, b: list):
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
-def _single_stream(torch, cfg, params, prompts, label: str, exact: bool = True) -> list:
+def _single_stream(torch, cfg, params, prompts, label: str, exact: bool = True,
+                   phase: int = 12) -> list:
     """AR and DyTC (LS0.5 over PLD: ``SpecEngine``) on each prompt,
     GEN_TOKENS each. Prints tokens a round, ms a token and the draft's cost
     coefficient c (the engine's measured draft / target latency); with
@@ -2454,7 +2620,7 @@ def _single_stream(torch, cfg, params, prompts, label: str, exact: bool = True) 
         # c measured: a draft call's mean wall time over a target call's
         c_ms = (st["draft_time"] / st["draft_calls"] / (st["verify_time"] / st["target_calls"])
                 if st["draft_calls"] else float("nan"))
-        print(f"[phase 12] {label} prompt {i} ({len(prompt)} tokens): AR "
+        print(f"[phase {phase}] {label} prompt {i} ({len(prompt)} tokens): AR "
               f"{ar_wall / GEN_TOKENS * 1e3:.2f} ms a token | DyTC {st['rounds']} rounds, "
               f"{st['accepted_tokens'] / st['rounds']:.2f} tokens a round, "
               f"{dy_wall / GEN_TOKENS * 1e3:.2f} ms a token, {st['draft_calls']} {spec.name} draft "
@@ -2468,10 +2634,11 @@ def _single_stream(torch, cfg, params, prompts, label: str, exact: bool = True) 
 
 
 def _serve_single(torch, cfg, params, prompts, ar_streams, label: str, launches: dict,
-                  **kw) -> dict:
+                  phase: int = 12, **kw) -> dict:
     """One BatchedSpecServer run in single rounds (LS0.5, phase 6's
-    settings unless ``kw`` overrides them): every stream equal to AR, one
-    graph launch and one host sync a round."""
+    settings unless ``kw`` overrides them): every stream equal to AR (none
+    held with ``ar_streams`` None), one graph launch and one host sync a
+    round."""
     from repro_torch.core import layer_sparsity
     from repro_torch.serving import BatchedSpecServer
 
@@ -2485,7 +2652,8 @@ def _serve_single(torch, cfg, params, prompts, ar_streams, label: str, launches:
     _check_launches(label, rec["launches"], srv.paged)
     exec_text = (f"slice exec, {len(srv._layer_ids)} layers" if srv._layer_ids is not None
                  else f"mask exec, {int(srv._gates.sum())} of {cfg.num_layers} gates open")
-    print(f"[phase 12] {label}: {rec['requests']} requests identical to AR | " + _line(rec)
+    held = "identical to AR" if ar_streams is not None else "not held to AR"
+    print(f"[phase {phase}] {label}: {rec['requests']} requests {held} | " + _line(rec)
           + f", {rec['draft_rounds']} rounds drafted ({exec_text}), "
           f"{rec['graph_replays'] / rec['rounds']:.2f} graph launches and "
           f"{rec['host_syncs'] / rec['rounds']:.2f} host syncs a round, capture "
@@ -2555,8 +2723,8 @@ def phase_models(torch, results: dict) -> None:
         params = init_params(cfg, SEED)
         torch.cuda.synchronize()
         n = sum(t.numel() for t in tree_leaves(params))
-        # init_params draws each stacked leaf in float32 and scales it: its
-        # peak holds two float32 copies of the largest leaf
+        # init_params draws in place, one layer at a time: its peak is the
+        # params plus at most one 2^26-element float32 temporary
         print(f"[phase 12] {name} {dtype}, {cfg.num_layers} layers, d {cfg.d_model}, heads "
               f"{cfg.num_heads} / kv {cfg.num_kv_heads}, hd {cfg.resolved_head_dim()}, d_ff "
               f"{cfg.d_ff}{'' if cfg.mlp_gated else ' (2-matrix MLP)'}, vocab {cfg.vocab_size}: "
@@ -2632,6 +2800,124 @@ def phase_models(torch, results: dict) -> None:
     print(f"[phase 12] {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------------ phase 13
+# the MoE models at full width, random weights from seed 0: qwen2-moe-a2.7b
+# at all 24 layers (14.3 B parameters, ~53 GiB in float32), then the same in
+# bfloat16; mixtral-8x22b cut to 4 of its 56 layers in float32 (a layer holds
+# 2.5 B parameters, 10 GB: 4 layers take ~39 GiB)
+MOE_MODELS = (("qwen2-moe-a2.7b", "float32", {}), ("qwen2-moe-a2.7b", "bfloat16", {}),
+              ("mixtral-8x22b", "float32", dict(num_layers=4)))
+
+
+def _largest_layer_leaf(params) -> int:
+    """Bytes of the largest one-layer slice of a stacked leaf."""
+    from repro_torch.models.model import tree_leaves
+
+    return max(t[0].numel() * t.element_size() for seg in params["segments"] for unit in seg
+               for t in tree_leaves(unit))
+
+
+def phase_moe(torch, results: dict) -> None:
+    """The MoE models at full width, one at a time (each freed before the
+    next), every MoE layer through the grouped expert GEMM:
+
+    (a) qwen2-moe-a2.7b, 24 layers, float32: AR and DyTC (LS0.5 over PLD)
+        on phase 3's three prompts; ``tree_fused`` single, B=4, dense and
+        paged (pages of 64), and ``chain_fused`` paged in split rounds, on
+        phase 6's four prompts; every stream equal to AR, one graph launch a
+        single round;
+    (b) the same model in bfloat16: AR and DyTC, ``tree_fused`` single, not
+        held to AR (as phase 4): the first divergence is printed;
+    (c) mixtral-8x22b at 4 layers, float32: AR and DyTC, ``tree_fused``
+        single B=4, every stream equal to AR.
+
+    Each model prints its parameters, GiB, the draw's peak memory above the
+    params (at most one layer's largest leaf), the draft's cost ratio c, ms
+    a round and the grouped GEMM's launches a round."""
+    import numpy as np
+
+    from repro_torch.config import get_config
+    from repro_torch.core import layer_sparsity
+    from repro_torch.models import init_params
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.serving import BatchedSpecServer
+
+    t_phase = time.perf_counter()
+    print(f"[phase 13] memory allocated at the start: {_gib(torch.cuda.memory_allocated())}")
+    launches = dict.fromkeys(_counters(), 0)
+
+    def count(fn, *args, **kw):
+        _reset_counts()
+        out = fn(*args, **kw)
+        for k, v in _read_counts().items():
+            launches[k] += v
+        return out
+
+    rng = np.random.default_rng(SEED + 2)
+    for name, dtype, kw in MOE_MODELS:
+        cfg = dataclasses.replace(get_config(name), dtype=dtype, **kw)
+        label = f"{name} {dtype}" + (f" ({cfg.num_layers} layers)" if kw else "")
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(cfg, SEED)
+        torch.cuda.synchronize()
+        leaves = tree_leaves(params)
+        n = sum(t.numel() for t in leaves)
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        over, largest = torch.cuda.max_memory_allocated() - base - nbytes, _largest_layer_leaf(params)
+        m = cfg.moe
+        shared = f", a shared block of {m.d_ff_shared}" if m.num_shared_experts else ""
+        print(f"[phase 13] {label}: {cfg.num_layers} layers, d {cfg.d_model}, heads "
+              f"{cfg.num_heads} / kv {cfg.num_kv_heads}, {m.num_experts} experts top-{m.top_k} of "
+              f"d_ff {m.d_ff_expert}{shared}, vocab {cfg.vocab_size}: {n / 1e9:.3f} B parameters, "
+              f"{_gib(nbytes)} in {time.perf_counter() - t0:.1f} s; the draw's peak memory is "
+              f"{_gib(over)} above the params (one layer's largest leaf: {_gib(largest)})")
+        if over > largest:
+            raise AssertionError(f"{label}: the draw's peak exceeds the params by more than one "
+                                 f"layer's largest leaf")
+        exact = dtype == "float32"
+        prompts = _prompts(cfg.vocab_size)
+        ar = count(_single_stream, torch, cfg, params, prompts, label, exact=exact, phase=13)
+        long_prompt = np.tile(rng.integers(0, cfg.vocab_size, size=50), 4).astype(np.int32)
+        prompts = prompts + [long_prompt]
+        ar = ar + [count(_generate, torch, cfg, params, long_prompt, False)[0]]
+        rec = _serve_single(torch, cfg, params, prompts, ar if exact else None,
+                            f"{label} tree_fused dense single", launches, phase=13)
+        if not exact:
+            divs = [_first_divergence(s[:GEN_TOKENS], ar[i][:GEN_TOKENS]) for i, s in rec["streams"]]
+            print(f"[phase 13] {label} tree_fused dense single against AR: first divergence per "
+                  f"request {divs} (None: identical)")
+        if name == "qwen2-moe-a2.7b" and exact:
+            _serve_single(torch, cfg, params, prompts, ar, f"{label} tree_fused paged single",
+                          launches, phase=13, paged=True)
+            srv = BatchedSpecServer(cfg, params, draft_spec=layer_sparsity(cfg, 0.5),
+                                    mode="chain_fused", round_mode="split", paged=True,
+                                    page_size=PAGE, **SERVER)
+            rec = _serve(torch, srv, prompts, ar)
+            _check_launches(f"{label} chain_fused paged split", rec["launches"], True)
+            print(f"[phase 13] {label} chain_fused paged split: {rec['requests']} requests "
+                  f"identical to AR | " + _line(rec) + ", launches per round: "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in rec["launches_per_round"].items()))
+            for k, v in rec["launches"].items():
+                launches[k] += v
+            del srv
+        del params, leaves
+        torch.cuda.synchronize()
+        print(f"[phase 13] {label}: peak memory serving {_gib(torch.cuda.max_memory_allocated())}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[phase 13] kernel launches: {launches}")
+    for name in ("flash_decode", "tree_attention", "flash_decode_paged", "set_cond", "moe_grouped"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 13: {name} was not launched")
+    for k, v in launches.items():
+        results[k]["launches"] += v
+    print(f"[phase 13] {time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -2672,6 +2958,7 @@ def main() -> int:
     timed("phase 10 CLI", phase_cli, torch)
     timed("phase 11", phase_training, torch, results)
     timed("phase 12", phase_models, torch, results)
+    timed("phase 13", phase_moe, torch, results)
     print(f"[chip_smoke] all phases in {time.perf_counter() - t_all:.1f} s")
     kernels = []
     for name, src, replaces in (
@@ -2681,6 +2968,8 @@ def main() -> int:
         ("flash_decode_paged", "src/repro_torch/csrc/flash_decode.cu", "src/repro/kernels/flash_decode.py:98"),
         # the counterpart of the reference's lax.cond skips, not of a Pallas kernel
         ("set_cond", "src/repro_torch/csrc/graph_cond.cu", "src/repro/core/engine.py:1083"),
+        # the counterpart of the reference's lax.ragged_dot dispatch, not of a Pallas kernel
+        ("moe_grouped", "src/repro_torch/csrc/moe_grouped.cu", "src/repro/models/moe.py:143"),
     ):
         r = results[name]
         kernels.append({

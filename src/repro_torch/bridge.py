@@ -7,7 +7,9 @@ the reference's ``init_params``, or a checkpoint directory in the
 reference's format (``params_from_checkpoint``); this module imports
 neither JAX nor the reference package. bfloat16 leaves (numpy's
 ``ml_dtypes.bfloat16``) pass through float32, which holds every bfloat16
-value exactly.
+value exactly. A leaf the reference keeps in float32 whatever the model's
+type (the MoE router, ``models.moe.FLOAT32_LEAVES``) stays float32 when
+``dtype`` asks for another type.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.config.base import ModelConfig
 from repro_torch.models.model import init_params, tree_map
-from repro_torch.training.checkpoint import read_npz
+from repro_torch.models.moe import keeps_float32
+from repro_torch.training.checkpoint import map_with_path, read_npz
 
 
 def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -35,9 +38,11 @@ def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 def params_from_jax(params, *, device="cuda", dtype: Optional[torch.dtype] = None) -> dict:
     """Reference params (nested numpy) -> port params on ``device``; float
-    leaves become ``dtype`` (default: the leaf's own float type)."""
+    leaves become ``dtype`` (default: the leaf's own float type), except
+    those the reference keeps in float32."""
     dev = resolve_device(device)
-    return tree_map(lambda a: _leaf(a, dev, dtype), params)
+    return map_with_path(lambda key, a: _leaf(a, dev, None if keeps_float32(key) else dtype),
+                         params)
 
 
 def cache_from_jax(cache, *, device="cuda") -> dict:

@@ -257,8 +257,9 @@ DRAFT_KV_MODES = ("recompute", "carry")
 
 
 def _check_draft_kv(draft_kv: str, who: str) -> None:
-    # the port's stacks are attention-only (models.model._check_stack), so
-    # both modes apply to every stack it builds
+    # every stack the port builds is made of attention blocks (MoE layers are
+    # attention blocks with an MoE MLP; models.model._check_stack), so both
+    # modes apply to all of them
     if draft_kv not in DRAFT_KV_MODES:
         raise ValueError(f"{who}: unknown draft_kv {draft_kv!r}; pick one of {DRAFT_KV_MODES}")
 

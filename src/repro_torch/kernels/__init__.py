@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels (``csrc/*.cu``) with their plain PyTorch versions."""
 from typing import Dict
 
-from repro_torch.kernels import flash_decode, graph_cond, int8_matmul, tree_attention
+from repro_torch.kernels import flash_decode, graph_cond, int8_matmul, moe_grouped, tree_attention
 from repro_torch.kernels.ops import paged_verify_attention, quantized_matmul, verify_attention
 
 __all__ = ["launch_counts", "paged_verify_attention", "quantized_matmul", "verify_attention"]
@@ -15,4 +15,5 @@ def launch_counts() -> Dict[str, int]:
             "flash_decode_paged": flash_decode.paged_launches,
             "tree_attention": tree_attention.launches,
             "int8_matmul": int8_matmul.launches,
-            "set_cond": graph_cond.launches}
+            "set_cond": graph_cond.launches,
+            "moe_grouped": moe_grouped.launches}

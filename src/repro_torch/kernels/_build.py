@@ -19,7 +19,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("flash_decode", "tree_attention", "int8_matmul", "graph_cond")
+SOURCES = ("flash_decode", "tree_attention", "int8_matmul", "graph_cond", "moe_grouped")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -170,3 +170,37 @@ def ref_int8_matmul(x_q, w_q, x_scale, w_scale) -> torch.Tensor:
     products run on every device (integer matmul does not)."""
     acc = (x_q.double() @ w_q.double()).float()
     return acc * x_scale * w_scale
+
+
+def _expert_act(x: torch.Tensor, act: str) -> torch.Tensor:
+    """The expert activation by name: "silu", "gelu" (the tanh
+    approximation, ``jax.nn.gelu``'s default) or "none"."""
+    if act == "silu":
+        return torch.nn.functional.silu(x)
+    if act == "gelu":
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    if act == "none":
+        return x
+    raise ValueError(f"unknown expert activation {act!r}")
+
+
+def ref_moe_grouped(x_s, w, offs, *, act: str = "none", w_mul=None) -> torch.Tensor:
+    """Plain version of kernels/moe_grouped.py::moe_grouped: the rows
+    ``[offs[e], offs[e+1])`` of ``x_s`` (P, K), sorted by expert, times
+    expert e's ``w[e]`` (K, N), one ``torch.matmul`` per expert with rows
+    (the explicit rule of ``tests/test_moe.py::
+    test_dropless_equals_explicit_topk``): ``act(x w[e]) * (x w_mul[e])``
+    with ``w_mul``, else ``act(x w[e])``, in float32, rounded once to the
+    rows' type. Reads the offsets on the host."""
+    out = torch.zeros((x_s.shape[0], w.shape[2]), dtype=x_s.dtype, device=x_s.device)
+    o = offs.tolist()
+    for e in range(w.shape[0]):
+        a, b = o[e], o[e + 1]
+        if a == b:
+            continue
+        xe = x_s[a:b].float()
+        y = _expert_act(torch.matmul(xe, w[e].float()), act)
+        if w_mul is not None:
+            y = y * torch.matmul(xe, w_mul[e].float())
+        out[a:b] = y.to(out.dtype)
+    return out

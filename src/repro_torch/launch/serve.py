@@ -8,7 +8,8 @@ with its flags and its last line.
 
 ``--arch`` is any config the port registers (``repro_torch.config.
 list_configs()``: vicuna-7b, the default, internlm2-20b, starcoder2-3b,
-stablelm-1.6b, gemma3-1b). It runs on the card (``--device cuda``, the
+stablelm-1.6b, gemma3-1b, and the MoE models qwen2-moe-a2.7b and
+mixtral-8x22b). It runs on the card (``--device cuda``, the
 default; it raises when there is none). ``--device cpu --reduced`` runs the
 kernels' plain versions on the CPU, at the reduced width with 8 layers.
 ``--mesh model=1,data=1`` serves the requests through ``ServeLoop`` and

@@ -5,7 +5,8 @@ with its flags and its printed lines, on the card.
   python -m repro_torch.launch.train --device cpu --reduced --steps 3
   python -m repro_torch.launch.train --arch stablelm-1.6b --device cpu --reduced
 
-``--arch`` is any config the port registers (``list_configs()``).
+``--arch`` is any config the port registers (``list_configs()``); the MoE
+configs raise ``NotImplementedError`` (MoE training is ROADMAP A.4).
 
 It runs on the card (``--device cuda``, the default; it raises when there
 is none); ``--device cpu`` runs on the CPU. ``--reduced`` trains the

@@ -1,6 +1,9 @@
 """Primitive layers: norms, RoPE, MLPs, embeddings — plain functions on tensors."""
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
 
@@ -34,7 +37,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class Init:
+    """How one parameter leaf is drawn: a standard normal times ``scale``,
+    or zeros when ``scale`` is None (``models.model.init_params`` draws it)."""
+
+    shape: Tuple[int, ...]
+    scale: Optional[float]
+    dtype: torch.dtype
+
+
 # ----------------------------------------------------------------------- MLP
+def mlp_init(d_model: int, d_ff: int, gated: bool, dtype: torch.dtype) -> dict:
+    """The leaves of the reference's ``layers.mlp_init``: names, shapes and
+    scales."""
+    p = {"w_up": Init((d_model, d_ff), d_model ** -0.5, dtype),
+         "w_down": Init((d_ff, d_model), d_ff ** -0.5, dtype)}
+    if gated:
+        p["w_gate"] = Init((d_model, d_ff), d_model ** -0.5, dtype)
+    return p
+
+
 def _mm(x: torch.Tensor, w, quantize) -> torch.Tensor:
     """(..., d) @ (d, f), optionally through the W8A8 kernel
     (``quantize="int8"``: dynamic per-row activation / per-column weight

@@ -43,8 +43,9 @@ Carried staged KV (``decode_step(staged_kv=...)``, the engine's
 ``draft_kv="carry"``): the T new tokens attend over [committed cache ++
 carried rows ++ themselves]; the returned staged rows are the new ones.
 
-Off the port so far (they raise): MoE and SSM blocks, codebook and image
-inputs and context-parallel ``seq_axes``.
+MoE layers (``models/moe.py``) serve through the dropless dispatch; MoE
+training raises (ROADMAP A.4). Off the port so far (they raise): SSM
+blocks, codebook and image inputs and context-parallel ``seq_axes``.
 """
 from __future__ import annotations
 
@@ -57,7 +58,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.config.base import AttentionKind, BlockKind, ModelConfig
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.layers import apply_rope, embed_tokens, mlp_apply, rms_norm, unembed
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.layers import (
+    Init,
+    apply_rope,
+    embed_tokens,
+    mlp_apply,
+    mlp_init,
+    rms_norm,
+    unembed,
+)
 
 Cache = Dict[str, Any]
 
@@ -127,19 +137,51 @@ def layout(cfg: ModelConfig) -> List[Segment]:
 
 
 def _check_stack(cfg: ModelConfig) -> None:
-    """This slice ports the attention-only dense text stack."""
+    """The port serves attention blocks with dense or MoE MLPs over text."""
     for i in range(cfg.num_layers):
         if cfg.block_kind(i) is not BlockKind.ATTENTION:
             raise NotImplementedError(f"layer {i}: SSM (mamba) blocks are not ported yet")
-        if cfg.is_moe_layer(i):
-            raise NotImplementedError(f"layer {i}: MoE blocks are not ported yet")
     if cfg.num_codebooks or cfg.num_image_tokens:
         raise NotImplementedError("codebook and image inputs are not ported yet")
 
 
 # ======================================================================= init
-def _normal(gen, shape, scale, dtype, device) -> torch.Tensor:
-    return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+DRAW_CHUNK = 1 << 26            # elements drawn at once: a 256 MiB float32 temporary at most
+
+
+def _layer_init(cfg: ModelConfig, spec: LayerSpec, dtype: torch.dtype) -> dict:
+    """The leaves of one layer (the reference's ``_layer_init``)."""
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    p: dict = {
+        "norm1": Init((d,), None, dtype),
+        "attn": {
+            "wq": Init((d, H, hd), d ** -0.5, dtype),
+            "wk": Init((d, KV, hd), d ** -0.5, dtype),
+            "wv": Init((d, KV, hd), d ** -0.5, dtype),
+            "wo": Init((H, hd, d), (H * hd) ** -0.5, dtype),
+        },
+    }
+    if spec.has_mlp:
+        p["norm2"] = Init((d,), None, dtype)
+        if spec.is_moe:
+            p["moe"] = moe_lib.moe_init(d, cfg.moe, cfg.mlp_gated, dtype)
+        else:
+            p["mlp"] = mlp_init(d, cfg.d_ff, cfg.mlp_gated, dtype)
+    return p
+
+
+def _draw(t: torch.Tensor, init: Init, gen) -> None:
+    """Fill ``t`` in place: a standard normal times ``init.scale``, or zeros.
+    float32 is drawn straight into ``t``; another type through a float32
+    temporary of at most ``DRAW_CHUNK`` elements."""
+    if init.scale is None:
+        t.zero_()
+        return
+    for part in t.view(-1).split(DRAW_CHUNK):
+        if part.dtype == torch.float32:
+            part.normal_(generator=gen).mul_(init.scale)
+        else:
+            part.copy_(torch.randn(part.shape, generator=gen, device=part.device).mul_(init.scale))
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
@@ -147,42 +189,34 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the
     numbers differ from the reference's ``jax.random`` draws; the bridge
     carries the reference's own params across when they must agree).
-    ``device="meta"`` gives the names and shapes alone, allocating nothing."""
+    Every stacked leaf is allocated first and drawn in place, one layer at
+    a time, so the draw's peak memory is the params plus at most one
+    ``DRAW_CHUNK`` temporary (none in float32). ``device="meta"`` gives the
+    names and shapes alone, allocating nothing."""
     _check_stack(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
-    d, V, H, KV = cfg.d_model, cfg.padded_vocab, cfg.num_heads, cfg.num_kv_heads
-    hd = cfg.resolved_head_dim()
-    params: dict = {
-        "embed": _normal(gen, (V, d), d ** -0.5, dtype, dev),
-        "final_norm": torch.zeros((d,), dtype=dtype, device=dev),
-    }
+    d, V = cfg.d_model, cfg.padded_vocab
+    top = {"embed": Init((V, d), d ** -0.5, dtype), "final_norm": Init((d,), None, dtype)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = _normal(gen, (d, V), d ** -0.5, dtype, dev)
+        top["lm_head"] = Init((d, V), d ** -0.5, dtype)
+    params: dict = {}
+    for name, init in top.items():
+        params[name] = torch.empty(init.shape, dtype=init.dtype, device=dev)
+        if gen is not None:
+            _draw(params[name], init, gen)
     segs = []
     for seg in layout(cfg):
         R = seg.repeats
-        unit = []
-        for spec in seg.unit:
-            p = {
-                "norm1": torch.zeros((R, d), dtype=dtype, device=dev),
-                "attn": {
-                    "wq": _normal(gen, (R, d, H, hd), d ** -0.5, dtype, dev),
-                    "wk": _normal(gen, (R, d, KV, hd), d ** -0.5, dtype, dev),
-                    "wv": _normal(gen, (R, d, KV, hd), d ** -0.5, dtype, dev),
-                    "wo": _normal(gen, (R, H, hd, d), (H * hd) ** -0.5, dtype, dev),
-                },
-            }
-            if spec.has_mlp:
-                p["norm2"] = torch.zeros((R, d), dtype=dtype, device=dev)
-                p["mlp"] = {
-                    "w_up": _normal(gen, (R, d, cfg.d_ff), d ** -0.5, dtype, dev),
-                    "w_down": _normal(gen, (R, cfg.d_ff, d), cfg.d_ff ** -0.5, dtype, dev),
-                }
-                if cfg.mlp_gated:
-                    p["mlp"]["w_gate"] = _normal(gen, (R, d, cfg.d_ff), d ** -0.5, dtype, dev)
-            unit.append(p)
+        inits = [_layer_init(cfg, spec, dtype) for spec in seg.unit]
+        unit = [tree_map(lambda i: torch.empty((R, *i.shape), dtype=i.dtype, device=dev), p)
+                for p in inits]
+        if gen is not None:
+            for r in range(R):
+                for p, init in zip(unit, inits):
+                    for t, i in zip(tree_leaves(p), tree_leaves(init)):
+                        _draw(t[r], i, gen)
         segs.append(unit)
     params["segments"] = segs
     return params
@@ -401,7 +435,18 @@ def _layer_fn(cfg, p_l, spec, gate, q_pos, mode, lc=None, tree_mask=None, attn_o
         h = h + _gated(delta, gate)
         if spec.has_mlp:
             x = rms_norm(h, p_l["norm2"], cfg.norm_eps)
-            h = h + _gated(mlp_apply(p_l["mlp"], x, cfg.act, cfg.mlp_gated, quantize=quantize), gate)
+            if spec.is_moe:
+                # the dropless dispatch (the reference's prefill and decode;
+                # forward_train refuses MoE stacks); the expert products stay
+                # in the model's type: ActivationQuant quantizes the dense MLP
+                # only, as the reference does
+                grouped = mode == "prefill" and not cfg.moe.prefill_dropless
+                moe_mode = "infer_grouped" if grouped else "infer"
+                y, _ = moe_lib.moe_apply(p_l["moe"], x, cfg.moe, cfg.act, cfg.mlp_gated,
+                                         mode=moe_mode, with_aux=False)
+            else:
+                y = mlp_apply(p_l["mlp"], x, cfg.act, cfg.mlp_gated, quantize=quantize)
+            h = h + _gated(y, gate)
         return (h, st) if staged else h
     return body
 
@@ -430,9 +475,12 @@ def forward_train(
     remat: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full causal forward over ``batch["tokens"]`` (B, S), differentiable,
-    writing no cache. Returns (logits (B, S, V) float32, moe_aux): the
-    attention-only stack has no MoE auxiliary loss, so it is a float32 zero.
-    ``remat=True`` recomputes each layer's activations in the backward pass."""
+    writing no cache. Returns (logits (B, S, V) float32, moe_aux): a stack
+    of dense MLPs has no MoE auxiliary loss, so it is a float32 zero; an MoE
+    stack raises (MoE training, ROADMAP A.4). ``remat=True`` recomputes each
+    layer's activations in the backward pass."""
+    if any(spec.is_moe for seg in layout(cfg) for spec in seg.unit):
+        raise NotImplementedError(moe_lib.TRAINING_NOT_PORTED.format(mode="train"))
     tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
     h = _embed(params, tokens)
     q_pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)

@@ -1,0 +1,137 @@
+"""Mixture-of-Experts layer, serving path: the port of the reference's
+``src/repro/models/moe.py``.
+
+Only the dropless dispatch (``mode="infer"``, the reference's
+``_dropless_ragged``) is ported: exact top-k with no capacity drops, so a
+token's output never depends on the tokens batched with it, which lossless
+speculative verification needs. The grouped-capacity dispatch
+(``mode="train"`` and ``"infer_grouped"``) raises: MoE training is ROADMAP
+A.4.
+
+The dispatch reads nothing on the host, so a captured CUDA round holds it:
+a stable sort of the flat expert ids, the experts' row offsets by
+``searchsorted``, two launches of the grouped expert GEMM
+(``kernels/moe_grouped.py``: the gated up projection, then the down
+projection) and a gathered combine that adds each token's K weighted
+expert rows in top-k order (no float atomics, whose order changes between
+runs and with the batch).
+
+Shared experts (Qwen2-MoE) are an always-on MLP scaled by a float32
+sigmoid gate. The router weights stay float32 whatever the model's type,
+and routing runs in float32, as in the reference.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.config.base import MoEConfig
+from repro_torch.kernels.moe_grouped import moe_grouped
+from repro_torch.models.layers import Init, mlp_apply, mlp_init
+
+# leaves the reference keeps in float32 whatever the model's type
+FLOAT32_LEAVES = ("w_router",)
+
+TRAINING_NOT_PORTED = ("MoE training (the grouped-capacity dispatch, mode={mode!r}, and its "
+                       "aux losses) is not ported yet: ROADMAP A.4")
+
+
+def moe_init(d_model: int, moe: MoEConfig, gated: bool, dtype: torch.dtype) -> dict:
+    """The leaves of one MoE layer, as the reference's ``moe_init`` (l.32)
+    makes them: names, shapes and scales (``Init``); ``w_router`` is
+    float32 whatever ``dtype``."""
+    E, F = moe.num_experts, moe.d_ff_expert
+    scale_in, scale_out = d_model ** -0.5, F ** -0.5
+    p = {
+        "w_router": Init((d_model, E), scale_in, torch.float32),
+        "w_up": Init((E, d_model, F), scale_in, dtype),
+        "w_down": Init((E, F, d_model), scale_out, dtype),
+    }
+    if gated:
+        p["w_gate"] = Init((E, d_model, F), scale_in, dtype)
+    if moe.num_shared_experts:
+        f_sh = moe.d_ff_shared or moe.d_ff_expert * moe.num_shared_experts
+        p["shared"] = mlp_init(d_model, f_sh, gated, dtype)
+        p["w_shared_gate"] = Init((d_model, 1), scale_in, dtype)
+    return p
+
+
+def keeps_float32(key: str) -> bool:
+    """Whether the leaf at checkpoint key ``key`` (``['a']/['b']`` form)
+    stays float32 whatever type the model's other leaves take."""
+    return any(key.endswith(f"['{name}']") for name in FLOAT32_LEAVES)
+
+
+def _router(params: dict, xf: torch.Tensor, moe: MoEConfig, with_aux: bool):
+    """float32 routing: softmax over the router logits, top-k, the weights
+    renormalised (floor 1e-9). Returns (top_w (N, K) float32, top_ids (N, K)
+    int64, aux or None)."""
+    logits = xf.float() @ params["w_router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_ids = torch.topk(probs, moe.top_k, dim=-1)
+    top_w = top_w / torch.clamp_min(top_w.sum(dim=-1, keepdim=True), 1e-9)
+    if not with_aux:
+        return top_w, top_ids, None
+    E = moe.num_experts
+    # the top-k ids of a row are distinct: the one-hot sum over k is a 0/1 scatter
+    hit = torch.zeros_like(probs).scatter_(1, top_ids, 1.0)
+    density = hit.mean(dim=0) / moe.top_k
+    aux = {
+        "load_balance": E * torch.sum(density * probs.mean(dim=0)) * moe.load_balance_loss,
+        "router_z": torch.mean(torch.logsumexp(logits, dim=-1) ** 2) * moe.router_z_loss,
+    }
+    return top_w, top_ids, aux
+
+
+def _dropless(params: dict, xf: torch.Tensor, top_w, top_ids, moe: MoEConfig, act: str,
+              gated: bool) -> torch.Tensor:
+    """The reference's ``_dropless_ragged`` (l.143) without a host read:
+    rows sorted by expert (stable), offsets by ``searchsorted``, the grouped
+    expert GEMM, then each token's K rows gathered back and added in top-k
+    order."""
+    N, d = xf.shape
+    E, K = moe.num_experts, moe.top_k
+    flat_e = top_ids.reshape(N * K)
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    experts = torch.arange(E + 1, device=xf.device, dtype=sorted_e.dtype)
+    offs = torch.searchsorted(sorted_e, experts, out_int32=True)
+    xs = xf.index_select(0, torch.div(order, K, rounding_mode="floor"))
+    kind = "silu" if act == "silu" else "gelu"
+    if gated:
+        h = moe_grouped(xs, params["w_gate"], offs, act=kind, w_mul=params["w_up"])
+    else:
+        h = moe_grouped(xs, params["w_up"], offs, act=kind)
+    eo_sorted = moe_grouped(h, params["w_down"], offs)
+    # the inverse permutation: a scatter of distinct indices, exact on every device
+    inv = torch.empty_like(order).scatter_(0, order, torch.arange(N * K, device=xf.device))
+    eo = eo_sorted.index_select(0, inv).view(N, K, d)
+    w = top_w.to(xf.dtype)
+    y = eo[:, 0] * w[:, :1]
+    for k in range(1, K):
+        y = y + eo[:, k] * w[:, k:k + 1]
+    return y
+
+
+def moe_apply(
+    params: dict,
+    x: torch.Tensor,                    # (B, S, d)
+    moe: MoEConfig,
+    act: str,
+    gated: bool,
+    *,
+    mode: str = "infer",
+    with_aux: bool = True,
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Returns (output (B, S, d), aux losses, or None without ``with_aux``).
+    ``mode="infer"`` (the dropless dispatch) is the only mode ported."""
+    if mode != "infer":
+        raise NotImplementedError(TRAINING_NOT_PORTED.format(mode=mode))
+    B, S, d = x.shape
+    xf = x.reshape(B * S, d)
+    top_w, top_ids, aux = _router(params, xf, moe, with_aux)
+    y = _dropless(params, xf, top_w, top_ids, moe, act, gated)
+    if "shared" in params:
+        gate = torch.sigmoid(xf.float() @ params["w_shared_gate"].float()).to(x.dtype)
+        y = y + mlp_apply(params["shared"], xf, act, gated) * gate
+    return y.reshape(B, S, d), aux

@@ -139,7 +139,12 @@ class DraftBank:
 
     def _quantized(self, params: dict, runs) -> dict:
         """``params`` with the MLP weights of the layers ``runs`` replaced by
-        ``QuantStack``s, each layer's weight quantized once for the bank."""
+        ``QuantStack``s, each layer's weight quantized once for the bank.
+        Only dense MLPs are quantized: an MoE layer's experts, its shared
+        expert and its router stay in the model's type, as in the reference
+        (``src/repro/models/model.py::_mlp_layer``), so on an MoE stack the
+        level quantizes nothing and ``param_bytes`` is 0, as the reference's
+        kernel execution reports."""
         out = dict(params, segments=[])
         for si, seg in enumerate(M.layout(self.cfg)):
             unit = []

@@ -226,8 +226,9 @@ class BatchedSpecServer:
                 "verify rides the last rescore dispatch instead)")
         self.round_mode = round_mode
         self.sync_every = max(int(sync_every or 1), 1)
-        # carry: the reference's auto choice on attention-only stacks, the only
-        # stacks the port builds (models.model._check_stack)
+        # carry: the reference's auto choice on attention-block stacks (MoE
+        # layers count as attention blocks, src/repro/serving/server.py:343),
+        # the only stacks the port builds (models.model._check_stack)
         draft_kv = "carry" if draft_kv == "auto" else draft_kv
         _check_draft_kv(draft_kv, "BatchedSpecServer")
         if sampling is not None and not isinstance(sampling, SamplingParams):

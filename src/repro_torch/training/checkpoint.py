@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models.moe import keeps_float32
 
 
 def map_with_path(fn: Callable[[str, Any], Any], tree, path: str = ""):
@@ -63,8 +64,9 @@ def save_checkpoint(path: str, params: Any, opt_state: Any = None, step: int = 0
 
 def read_npz(file: str, template, device: torch.device, dtype: Optional[torch.dtype] = None):
     """The tree of ``template`` with every leaf read from ``file`` onto
-    ``device`` (float leaves as ``dtype`` when given). The template gives
-    only names and shapes (meta tensors will do)."""
+    ``device`` (float leaves as ``dtype`` when given, except those the
+    reference keeps in float32: ``models.moe.FLOAT32_LEAVES``). The template
+    gives only names and shapes (meta tensors will do)."""
     with np.load(file, allow_pickle=False) as data:
         def read(key, leaf):
             if key not in data:
@@ -75,7 +77,8 @@ def read_npz(file: str, template, device: torch.device, dtype: Optional[torch.dt
             if tuple(t.shape) != tuple(leaf.shape):
                 raise ValueError(f"leaf {key}: checkpoint shape {tuple(t.shape)}, "
                                  f"expected {tuple(leaf.shape)}")
-            return t.to(device=device, dtype=dtype if dtype and t.is_floating_point() else None)
+            cast = dtype and t.is_floating_point() and not keeps_float32(key)
+            return t.to(device=device, dtype=dtype if cast else None)
 
         return map_with_path(read, template)
 

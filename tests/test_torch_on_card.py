@@ -31,7 +31,13 @@ sync, and a sampled build's segments launch the greedy build's kernels,
 leaving a greedy build's segments as they were. Round telemetry: the
 buffer a captured round adds to equals the eager rounds' bitwise, and
 telemetry on or off launches and syncs alike. Training: two train steps
-on the card within 1e-4 of the same steps on the CPU.
+on the card within 1e-4 of the same steps on the CPU. The grouped expert
+GEMM of the MoE dispatch: within 1e-4 of its plain version in float32 and
+within one bfloat16 ulp of the output (2^-7 of the value, plus 1e-4: the
+float32 sums' order) in bfloat16, at qwen2-moe's shape and at ragged
+shapes, with most experts empty; the rows of N1 tokens bitwise equal
+when more tokens are batched with them; a captured single round of
+qwen2-moe at full width equal to eager rounds bitwise.
 """
 import dataclasses
 import functools
@@ -51,6 +57,9 @@ from torch_inputs import (  # noqa: E402
     bounded_inputs,
     close,
     int8_inputs,
+    moe_routing,
+    moe_sorted,
+    moe_weights,
     paged_inputs,
     tensors,
     warp_cases,
@@ -699,3 +708,101 @@ def test_train_steps_on_card_match_cpu():
         assert float(m_card["lr"]) == float(m_cpu["lr"])
     for got, want in zip(tree_leaves((card, o_card)), tree_leaves((cpu, o_cpu))):
         close(got.cpu(), want, 1e-4)
+
+
+# ------------------------------------------------------------- MoE experts
+def _moe_case(N, K, E, d, F, dtype, experts=None, seed=0):
+    dev = _card()
+    x, ids = moe_routing(N, K, E, d, seed=seed, experts=experts)
+    x_s, offs, order = moe_sorted(x, ids, E)
+    x_s, offs = (t.to(dev) for t in tensors(x_s, offs))
+    w = moe_weights(E, d, F, getattr(torch, dtype), dev, seed)
+    return x_s.to(getattr(torch, dtype)), offs, order, w
+
+
+def _moe_close(got, want, dtype):
+    if dtype == "float32":
+        close(got.cpu(), want.cpu(), ATOL)
+    else:
+        # float32 sums within 1e-4, then rounded to bfloat16: one ulp apart
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= 2 ** -7 * want.float().abs() + ATOL).all()), float(err.max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,K,E,d,F,experts", [
+    (1, 4, 60, 2048, 1408, None), (16, 4, 60, 2048, 1408, None), (128, 4, 60, 2048, 1408, None),
+    (64, 4, 60, 2048, 1408, (3, 17, 41, 58)),  # most experts get no row
+    (5, 2, 8, 264, 136, None),                 # k and n past the 32 x 64 tiles
+    (40, 2, 8, 96, 40, (1, 2)),                # several row tiles for one expert
+])
+def test_moe_grouped_matches_plain_on_card(dtype, N, K, E, d, F, experts):
+    from repro_torch.kernels import moe_grouped as mg
+
+    x_s, offs, _, (w_gate, w_up, w_down) = _moe_case(N, K, E, d, F, dtype, experts)
+    before = mg.launches
+    h = mg.moe_grouped(x_s, w_gate, offs, act="silu", w_mul=w_up)
+    out = mg.moe_grouped(h, w_down, offs)
+    h_plain = ref.ref_moe_grouped(x_s, w_gate, offs, act="silu", w_mul=w_up)
+    _moe_close(h, h_plain, dtype)
+    _moe_close(out, ref.ref_moe_grouped(h, w_down, offs), dtype)
+    two = mg.moe_grouped(x_s, w_up, offs, act="gelu")              # a 2-matrix expert
+    _moe_close(two, ref.ref_moe_grouped(x_s, w_up, offs, act="gelu"), dtype)
+    torch.cuda.synchronize()
+    assert mg.launches == before + 3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_grouped_is_batch_invariant_on_card(dtype):
+    """The (token, expert) rows of the first N1 tokens are bitwise equal
+    whether 0 or N2 more tokens are batched with them (their rows then sit
+    at other positions among more rows of the same experts)."""
+    from repro_torch.kernels import moe_grouped as mg
+
+    N1, N2, K, E, d, F = 5, 75, 4, 60, 2048, 1408
+    dev = _card()
+    x, ids = moe_routing(N1 + N2, K, E, d, seed=3)
+    w_gate, w_up, w_down = moe_weights(E, d, F, getattr(torch, dtype), dev, 3)
+    rows = []
+    for n in (N1, N1 + N2):
+        x_s, offs, order = moe_sorted(x[:n], ids[:n], E)
+        x_s, offs = (t.to(dev) for t in tensors(x_s, offs))
+        h = mg.moe_grouped(x_s.to(w_up.dtype), w_gate, offs, act="silu", w_mul=w_up)
+        out = mg.moe_grouped(h, w_down, offs)
+        inv = np.argsort(order)
+        rows.append(out[torch.from_numpy(inv[:N1 * K]).to(dev)])
+    assert torch.equal(rows[0], rows[1])
+
+
+def test_moe_single_round_replay_equals_eager_on_card():
+    """qwen2-moe-a2.7b at full width, 2 layers, float32: the captured
+    single round (the dispatch and both grouped launches per layer inside
+    the graph) equals eager rounds bitwise, one graph launch a round."""
+    from repro_torch.config import get_config
+    from repro_torch.core.dsia import DraftSpec
+    from repro_torch.kernels import moe_grouped as mg
+    from repro_torch.models import init_params
+    from repro_torch.serving import BatchedSpecServer
+
+    _card()
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=2, dtype="float32")
+    params = init_params(cfg, 0)
+    spec = DraftSpec("self_draft", gates=(1, 1), prior_alpha=0.6, prior_c=0.2)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (40, 100, 7, 64)]
+    servers = []
+    for _ in range(2):
+        srv = BatchedSpecServer(cfg, params, mode="tree_fused", draft_spec=spec, max_batch=4,
+                                max_len=256, draft_k=4, tree_expansions=5, adaptive=True,
+                                min_obs=1, round_mode="single")
+        for b, p in enumerate(prompts):
+            srv.add_request(b, p)
+        servers.append(srv)
+    graph, eager = servers
+    assert graph._graph is not None
+    # two launches an MoE layer: the draft's two layers and the verify's two
+    assert graph.segment_launches["draft"]["moe_grouped"] > 0
+    assert graph.segment_launches["tail"]["moe_grouped"] == 4
+    _assert_replays_equal_eager(graph, eager, 4)
+    assert graph.stats["graph_replays"] == 4
+    assert mg.launches > 0

@@ -292,10 +292,11 @@ def test_cli_trains_and_its_checkpoint_serves_equal_to_ar(monkeypatch, capsys, t
 
 MOE_CFG = dataclasses.replace(CFG, family="moe", moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64))
 MOE_CASES = {
-    "init_params": lambda: M.init_params(MOE_CFG, device="cpu"),
     "forward_train": lambda: M.forward_train(MOE_CFG, _params(), _batch()),
     "train_step": lambda: T.make_train_step(MOE_CFG)(_params(), T.adamw_init(_params()), _batch()),
-    "params_from_checkpoint": lambda: bridge.params_from_checkpoint("unused", MOE_CFG, device="cpu"),
+    "forward_train, MoE params": lambda: M.forward_train(
+        MOE_CFG, M.init_params(MOE_CFG, device="cpu"), _batch()),
+    "loss_fn": lambda: T.loss_fn(MOE_CFG, M.init_params(MOE_CFG, device="cpu"), _batch()),
 }
 
 

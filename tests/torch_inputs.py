@@ -130,3 +130,34 @@ def warp_cases(B=5, T=3, V=64, seed=4):
     top_p = np.ones(B, np.float32)
     top_p[:4] = (0.9, 1.0, 0.25, 0.6)
     return logits, temp, top_k, top_p
+
+
+def moe_routing(N, K, E, d, seed=0, experts=None):
+    """N token rows (N, d) float32 and K distinct experts for each (N, K)
+    int64, drawn from ``experts`` (default: all E)."""
+    rng = np.random.default_rng(seed)
+    pool = np.arange(E) if experts is None else np.asarray(experts)
+    ids = np.stack([rng.choice(pool, size=K, replace=False) for _ in range(N)]).astype(np.int64)
+    return rng.standard_normal((N, d)).astype(np.float32), ids
+
+
+def moe_sorted(x, ids, E):
+    """The dispatch's rows, as ``repro_torch.models.moe`` builds them: the
+    (token, k) rows of ``x`` sorted stably by expert, the experts' offsets
+    (E + 1,) int32 and the sort order (row i of the sorted rows is flat
+    (token, k) pair ``order[i]``)."""
+    K = ids.shape[1]
+    order = np.argsort(ids.reshape(-1), kind="stable")
+    offs = np.searchsorted(ids.reshape(-1)[order], np.arange(E + 1)).astype(np.int32)
+    return np.ascontiguousarray(x[order // K]), offs, order
+
+
+def moe_weights(E, d, F, dtype, device, seed=0):
+    """Expert weights at the reference's scales on ``device``: w_gate and
+    w_up (E, d, F), w_down (E, F, d)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(shape, scale):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+    return draw((E, d, F), d ** -0.5), draw((E, d, F), d ** -0.5), draw((E, F, d), F ** -0.5)
