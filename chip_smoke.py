@@ -61,11 +61,17 @@ single dense and paged, ``chain_fused`` split; every stream equal to AR)
 and in bfloat16, and mixtral-8x22b cut to 4 layers (AR, DyTC,
 ``tree_fused`` single); phase 2 holds that kernel against its plain
 version at both models' expert shapes (bitwise batch-invariant too) and
-times it beside three yardsticks. Each phase prints its seconds and the
-memory left allocated after it. The last line is the JSON device record;
-the line before it lists the kernels, with the launches of phases 3 and
-5-13 (graph launches counted by the server, a gated segment's only in the
-rounds that ran it).
+times it beside three yardsticks. Phase 14 serves the Mamba-2 stacks at
+full width, mamba2-130m at all 24 layers and jamba-v0.1-52b cut to one
+8-layer unit, float32 then bfloat16: AR, PLD and SD single stream (with an
+1100-token prompt whose SSD prefill spans five chunks), ``chain_fused``
+single dense and paged, split and ``legacy`` on four slots, every float32
+stream equal to AR, the tree schedulers and ``tree_fused`` refused; it
+times one mamba layer's prefill and T=5 decode. Each phase prints its
+seconds and the memory left allocated after it. The last line is the
+JSON device record; the line before it lists the kernels, with the
+launches of phases 3 and 5-14 (graph launches counted by the server, a
+gated segment's only in the rounds that ran it).
 Exits non-zero,
 with no result, when any phase fails or when no CUDA device (or no
 repro_torch beside this script) is present.
@@ -2918,6 +2924,261 @@ def phase_moe(torch, results: dict) -> None:
     print(f"[phase 13] {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------------ phase 14
+# the Mamba-2 stacks at full width, random weights from seed 0: mamba2-130m at
+# all 24 layers (0.129 B parameters, 0.48 GiB in float32) and jamba-v0.1-52b
+# cut to one whole 8-layer unit, so its 7:1 mamba/attention interleave and
+# its MoE period survive (7 mamba layers, the attention layer at offset 4,
+# MoE on the 4 odd layers: 13.3 B parameters, ~49.4 GiB in float32; one MoE
+# layer holds 2.82 B, so all 32 layers, ~52 B, do not fit one card)
+SSM_MODELS = (("mamba2-130m", {}), ("jamba-v0.1-52b", dict(num_layers=8)))
+SSM_SERVED = (("chain_fused dense single", dict(mode="chain_fused", round_mode="single")),
+              ("chain_fused paged single", dict(mode="chain_fused", round_mode="single",
+                                                paged=True)),
+              ("chain_fused dense split", dict(mode="chain_fused", round_mode="split")),
+              ("legacy dense split", dict(mode="legacy")))
+
+
+def _ssm_prompts(vocab: int):
+    """Phase 3's three prompts and one of 1100 tokens (a 100-token motif 11
+    times), whose SSD prefill spans five chunks of 256."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 5)
+    return _prompts(vocab) + [np.tile(rng.integers(0, vocab, size=100), 11).astype(np.int32)]
+
+
+def _ssm_single_stream(torch, cfg, params, prompts, label: str, exact: bool) -> list:
+    """AR, PLD (k 8) and SD (LS0.5, k 5) through ``SpecEngine`` on each
+    prompt, GEN_TOKENS each; with ``exact`` every stream must equal AR, else
+    the first divergence is printed. ``DyTCScheduler`` must refuse the
+    stack. Prints ms a token, tokens a round and SD's cost ratio c (a draft
+    call's mean wall time over a target call's). Returns the AR streams."""
+    from repro_torch.core import (ARScheduler, DyTCScheduler, PLDScheduler, SDScheduler,
+                                  SpecEngine, build_hierarchy, layer_sparsity)
+
+    spec = layer_sparsity(cfg, 0.5)
+    makers = {"AR": ARScheduler, "PLD": lambda e: PLDScheduler(e, k=8),
+              "SD": lambda e: SDScheduler(e, spec, k=5)}
+    ar_streams = []
+    for i, prompt in enumerate(prompts):
+        runs = {}
+        for name, make in makers.items():
+            eng = SpecEngine(cfg, params)
+            eng.start(prompt)
+            sched = make(eng)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sched.generate(GEN_TOKENS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if not bool(torch.isfinite(eng.last_logits).all()):
+                raise AssertionError(f"{label}: prompt {i}: non-finite logits ({name})")
+            runs[name] = (out, dict(eng.stats), wall)
+            if i == 0 and name == "AR":
+                try:
+                    DyTCScheduler(eng, build_hierarchy(cfg))
+                except ValueError as e:
+                    print(f"[phase 14] {label}: DyTCScheduler refused: {e}")
+                else:
+                    raise AssertionError(f"{label}: DyTCScheduler accepted a stack with mamba "
+                                         "layers")
+            del eng, sched
+        ar = runs["AR"][0]
+        ar_streams.append(ar)
+        parts = []
+        for name, (out, st, wall) in runs.items():
+            div = _first_divergence(ar, out)
+            text = (f"{name} {wall / GEN_TOKENS * 1e3:.2f} ms a token, "
+                    f"{st['accepted_tokens'] / st['rounds']:.2f} tokens a round")
+            if st["draft_calls"]:
+                c = (st["draft_time"] / st["draft_calls"]) / (st["verify_time"] / st["target_calls"])
+                text += f", {st['draft_calls']} {spec.name} draft calls, c {c:.3f}"
+            text += "" if div is None else f", first divergence at token {div}"
+            parts.append(text)
+            if exact and div is not None:
+                raise AssertionError(f"{label}: prompt {i}: {name} left AR at token {div}:\n"
+                                     f"AR {ar}\n{name} {out}")
+        held = "every stream identical to AR" if exact else "not held to AR"
+        print(f"[phase 14] {label} prompt {i} ({len(prompt)} tokens), {held}: " + " | ".join(parts))
+    return ar_streams
+
+
+def _ssm_layer_times(torch, cfg, params, label: str) -> None:
+    """One mamba layer of ``cfg`` alone (the stack's first, B=1 prefill at
+    200 and 1100 tokens, B=4 decode of T=5): ms by CUDA events (L2 flushed),
+    the T=5 decode also by graph replay, and the kernels one decode
+    launches (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import ssm
+
+    s, d = cfg.ssm, cfg.d_model
+    dtype = getattr(torch, cfg.dtype)
+    p_l = {k: v[0] for k, v in params["segments"][0][0]["mamba"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    parts = []
+    for S in (200, 1100):
+        h = torch.randn((1, S, d), generator=gen, device="cuda").to(dtype)
+        st0 = ssm.init_state(d, s, 1, dtype, "cuda")
+        ms = _time_ms(lambda: ssm.mamba_forward(p_l, h, d, s, st0, mode="prefill"), flush, iters=10)
+        parts.append(f"prefill S={S} {ms:.3f} ms")
+    h = torch.randn((4, 5, d), generator=gen, device="cuda").to(dtype)
+    st0 = ssm.init_state(d, s, 4, dtype, "cuda")
+    fn = lambda: ssm.mamba_forward(p_l, h, d, s, st0, mode="decode")  # noqa: E731
+    ev = _time_ms(fn, flush, iters=10)
+    gr = _graph_ms(fn, flush, iters=10)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0)
+    del flush_buf
+    print(f"[phase 14] {label}: one mamba layer (d_inner {s.d_inner(d)}, {s.num_heads(d)} heads of "
+          f"{s.head_dim}, d_state {s.d_state}, chunk {s.chunk_size}), ms by CUDA events: "
+          + ", ".join(parts) + f"; decode B=4 T=5 {ev:.3f} (graph replay {gr:.3f}), "
+          f"{kernels} kernel launches (profiler)")
+
+
+def phase_ssm(torch, results: dict) -> None:
+    """The Mamba-2 stacks at full width, one at a time (each freed before
+    the next), through every path that serves them: mamba2-130m at all 24
+    layers, then jamba-v0.1-52b at one 8-layer unit, each in float32 and
+    then in bfloat16 (not held to AR, as phase 4):
+
+    (a) single stream: AR, PLD and SD (LS0.5) on phase 3's three prompts
+        and an 1100-token one (the SSD prefill over five chunks), every
+        float32 stream equal to AR; ``DyTCScheduler`` refused;
+    (b) the batched server, B=4, phase 6's four prompts, recomputed draft
+        KV (``draft_kv="auto"``): ``chain_fused`` in single rounds, dense
+        and paged, in split rounds, and ``legacy``; every float32 stream
+        equal to AR; one graph launch and one host sync a single round;
+        ``tree_fused`` refused;
+    (c) one mamba layer alone: its prefill at 200 and 1100 tokens and its
+        T=5 decode recurrence by CUDA events, and the decode's kernels.
+
+    jamba's runs must launch ``flash_decode``, ``tree_attention``, the
+    paged split and ``moe_grouped``. bfloat16 runs the single stream on
+    phase 3's prompts and the dense single round."""
+    import numpy as np
+
+    from repro_torch.config import get_config
+    from repro_torch.core import layer_sparsity
+    from repro_torch.models import init_params
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.serving import BatchedSpecServer
+
+    t_phase = time.perf_counter()
+    print(f"[phase 14] memory allocated at the start: {_gib(torch.cuda.memory_allocated())}")
+    launches = dict.fromkeys(_counters(), 0)
+    mamba_launches: dict = {}
+
+    def count(fn, *args, **kw):
+        _reset_counts()
+        out = fn(*args, **kw)
+        for k, v in _read_counts().items():
+            launches[k] += v
+        return out
+
+    for name, kw in SSM_MODELS:
+        for dtype in ("float32", "bfloat16"):
+            exact = dtype == "float32"
+            cfg = dataclasses.replace(get_config(name), dtype=dtype, **kw)
+            label = f"{name} {dtype}" + (f" ({cfg.num_layers} layers)" if kw else "")
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params = init_params(cfg, SEED)
+            torch.cuda.synchronize()
+            leaves = tree_leaves(params)
+            n = sum(t.numel() for t in leaves)
+            nbytes = sum(t.numel() * t.element_size() for t in leaves)
+            over = torch.cuda.max_memory_allocated() - base - nbytes
+            kinds = "".join("A" if cfg.block_kind(i).value == "attention" else "M"
+                            for i in range(cfg.num_layers))
+            moe = [i for i in range(cfg.num_layers) if cfg.is_moe_layer(i)]
+            s = cfg.ssm
+            cut = (f"cut from {get_config(name).num_layers} to {cfg.num_layers} layers (one whole "
+                   f"unit of {cfg.attn_layer_period})" if kw else f"all {cfg.num_layers} layers")
+            print(f"[phase 14] {label}: {cut}, layers {kinds} (A attention, M mamba), MoE on "
+                  f"{moe or 'none'}, d {cfg.d_model}, d_inner {s.d_inner(cfg.d_model)}, "
+                  f"{s.num_heads(cfg.d_model)} SSM heads of {s.head_dim}, d_state {s.d_state}, "
+                  f"vocab {cfg.vocab_size}: {n / 1e9:.3f} B parameters, {_gib(nbytes)} in "
+                  f"{time.perf_counter() - t0:.1f} s; the draw's peak memory is {_gib(over)} above "
+                  f"the params")
+            prompts = _ssm_prompts(cfg.vocab_size) if exact else _prompts(cfg.vocab_size)
+            ar = count(_ssm_single_stream, torch, cfg, params, prompts, label, exact)
+            # phase 6's prompts: phase 3's three and a 200-token one
+            served = _prompts(cfg.vocab_size)
+            long_prompt = np.tile(np.random.default_rng(SEED + 2).integers(
+                0, cfg.vocab_size, size=50), 4).astype(np.int32)
+            served = served + [long_prompt]
+            served_ar = ar[:3] + [count(_generate, torch, cfg, params, long_prompt, False)[0]]
+            try:
+                BatchedSpecServer(cfg, params, draft_spec=layer_sparsity(cfg, 0.5),
+                                  mode="tree_fused", **SERVER)
+            except ValueError as e:
+                print(f"[phase 14] {label}: tree_fused refused: {e}")
+            else:
+                raise AssertionError(f"{label}: tree_fused accepted a stack with mamba layers")
+            for run, srv_kw in (SSM_SERVED if exact else SSM_SERVED[:1]):
+                srv = BatchedSpecServer(cfg, params, draft_spec=layer_sparsity(cfg, 0.5),
+                                        page_size=PAGE, **dict(SERVER, **srv_kw))
+                if srv.draft_kv != "recompute":
+                    raise AssertionError(f"{label}: draft_kv resolved to {srv.draft_kv!r}")
+                if srv.round_mode == "single" and srv._graph is None:
+                    raise AssertionError(f"{label}: no CUDA graph was captured")
+                rec = _serve(torch, srv, served, served_ar if exact else None)
+                if srv.round_mode == "single":
+                    _check_single(f"{label} {run}", rec, srv)
+                exec_text = (f"slice exec, {len(srv._layer_ids)} layers"
+                             if srv._layer_ids is not None
+                             else f"mask exec, {int(srv._gates.sum())} of {cfg.num_layers} gates open")
+                held = "identical to AR" if exact else "not held to AR"
+                divs = "" if exact else " | first divergence per request " + str(
+                    [_first_divergence(st[:GEN_TOKENS], served_ar[i][:GEN_TOKENS])
+                     for i, st in rec["streams"]])
+                print(f"[phase 14] {label} {run}: {rec['requests']} requests {held} | " + _line(rec)
+                      + f", {rec['draft_rounds'] if srv.round_mode == 'single' else rec['draft_dispatches']}"
+                      f" {'rounds drafted' if srv.round_mode == 'single' else 'draft passes'} "
+                      f"({exec_text}), {rec['graph_replays'] / rec['rounds']:.2f} graph launches and "
+                      f"{rec['host_syncs'] / rec['rounds']:.2f} host syncs a round"
+                      + (f", capture {srv.capture_s * 1e3:.1f} ms" if srv.round_mode == "single" else "")
+                      + " | launches per round: "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in rec["launches_per_round"].items())
+                      + divs)
+                for k, v in rec["launches"].items():
+                    launches[k] += v
+                del srv
+                torch.cuda.empty_cache()
+            if exact:
+                _ssm_layer_times(torch, cfg, params, label)
+            del params, leaves
+            torch.cuda.synchronize()
+            print(f"[phase 14] {label}: peak memory serving {_gib(torch.cuda.max_memory_allocated())}")
+            gc.collect()
+            torch.cuda.empty_cache()
+        if name == "mamba2-130m":
+            mamba_launches = dict(launches)
+    print(f"[phase 14] kernel launches: {launches}")
+    jamba = {k: launches[k] - mamba_launches[k] for k in launches}
+    print(f"[phase 14] jamba's kernel launches: flash_decode {jamba['flash_decode']}, tree_attention "
+          f"{jamba['tree_attention']}, flash_decode_paged {jamba['flash_decode_paged']}, moe_grouped "
+          f"{jamba['moe_grouped']}, set_cond {jamba['set_cond']}")
+    for k in ("flash_decode", "tree_attention", "flash_decode_paged", "moe_grouped", "set_cond"):
+        if jamba[k] <= 0:
+            raise AssertionError(f"phase 14: jamba launched no {k}")
+    for k, v in launches.items():
+        results[k]["launches"] += v
+    print(f"[phase 14] {time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -2959,6 +3220,7 @@ def main() -> int:
     timed("phase 11", phase_training, torch, results)
     timed("phase 12", phase_models, torch, results)
     timed("phase 13", phase_moe, torch, results)
+    timed("phase 14", phase_ssm, torch, results)
     print(f"[chip_smoke] all phases in {time.perf_counter() - t_all:.1f} s")
     kernels = []
     for name, src, replaces in (

@@ -8,8 +8,9 @@ reference's format (``params_from_checkpoint``); this module imports
 neither JAX nor the reference package. bfloat16 leaves (numpy's
 ``ml_dtypes.bfloat16``) pass through float32, which holds every bfloat16
 value exactly. A leaf the reference keeps in float32 whatever the model's
-type (the MoE router, ``models.moe.FLOAT32_LEAVES``) stays float32 when
-``dtype`` asks for another type.
+type (the MoE router, ``models.moe.FLOAT32_LEAVES``; a Mamba-2 block's
+``A_log``, ``D`` and ``dt_bias``, ``models.ssm.FLOAT32_LEAVES``) stays
+float32 when ``dtype`` asks for another type.
 """
 from __future__ import annotations
 

@@ -14,6 +14,9 @@ These are the paper's comparison points (Fig. 3):
 Every scheduler builds a DraftTree on the host from the engine's draft
 logits and PLD, and verifies through the same engine, so every baseline is
 lossless by construction and differs only in scheduling.
+The tree baselines (Tree, Tr+VC) and DyTC branch, so they refuse a stack
+with Mamba-2 blocks at construction (``engine.check_tree_stack``); AR, PLD,
+SD, VC, HC and VC+HC draft chains and serve every stack.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import numpy as np
 
 from repro_torch.core import verify as verify_lib
 from repro_torch.core.dsia import PLD_SPEC, DraftSpec
-from repro_torch.core.engine import SpecEngine
+from repro_torch.core.engine import SpecEngine, check_tree_stack
 from repro_torch.core.tree import DraftTree
 
 
@@ -178,6 +181,7 @@ class TreeScheduler(SDScheduler):
 
     def __init__(self, engine: SpecEngine, spec: DraftSpec, depth: int = 4,
                  top_k: int = 2, max_tree: int = 16):
+        check_tree_stack(engine.cfg, type(self).__name__)
         super().__init__(engine, spec, k=depth)
         self.top_k, self.max_tree = top_k, max_tree
 

@@ -24,7 +24,7 @@ import numpy as np
 
 from repro_torch.core import verify as verify_lib
 from repro_torch.core.dsia import DraftSpec, PLD_SPEC
-from repro_torch.core.engine import SpecEngine
+from repro_torch.core.engine import SpecEngine, check_tree_stack
 from repro_torch.core.ewif import best_dytc_k
 from repro_torch.core.tree import DraftTree
 
@@ -55,6 +55,9 @@ class DyTCScheduler:
         hierarchy: Sequence[DraftSpec],
         cfg: Optional[DyTCConfig] = None,
     ):
+        # DyTC grows branching trees: refused at the start of a run on a
+        # stack with Mamba-2 blocks, not midway at its first branch
+        check_tree_stack(engine.cfg, "DyTCScheduler")
         self.engine = engine
         self.cfg = cfg or DyTCConfig()
         self.bottom = next((s for s in hierarchy if s.kind == "retrieval"), PLD_SPEC)

@@ -95,7 +95,10 @@ def fake_quant_int8(params: dict) -> dict:
 
 
 class SpecEngine:
-    """Single-sequence (B=1) speculative engine."""
+    """Single-sequence (B=1) speculative engine. On a stack with Mamba-2
+    blocks it verifies chains only: a branching tree raises ``ValueError``
+    (``check_tree_stack``), where the reference's engine would commit a
+    state built from the node's siblings."""
 
     def __init__(
         self,
@@ -119,6 +122,7 @@ class SpecEngine:
         if draft_exec == "slice" and not homogeneous:
             raise ValueError("slice exec requires a homogeneous layer stack")
         self.draft_exec = draft_exec
+        self._recurrent = M.has_mamba(cfg)
         self.pld = PromptLookup()
         self.acceptance = AcceptanceTracker()
         self.costs = CostTracker()
@@ -178,7 +182,12 @@ class SpecEngine:
 
     def _run_nodes(self, variant: str, tokens: np.ndarray, rel_pos: np.ndarray, mask: np.ndarray):
         n = len(tokens)
-        T = bucket_for(n)
+        # the reference pads every call to a tree bucket (one compiled shape
+        # per bucket). A Mamba-2 block steps through the staged tokens one at
+        # a time, and padding nodes come after the real ones and change none
+        # of their logits or states, so a stack with mamba layers runs the
+        # real nodes alone
+        T = n if self._recurrent else bucket_for(n)
         toks = np.zeros(T, np.int32)
         toks[:n] = tokens
         rel = np.zeros(T, np.int32)
@@ -216,8 +225,10 @@ class SpecEngine:
 
     # verification: full model over the tree, then commit the accepted path
     def verify_and_commit(self, tree: DraftTree) -> List[int]:
-        tokens, rel, mask, _ = tree.flatten()
         n = len(tree)
+        if any(tree.parents[i] != i - 1 for i in range(1, n)):
+            check_tree_stack(self.cfg, "verifying a branching tree")
+        tokens, rel, mask, _ = tree.flatten()
         t0 = time.perf_counter()
         logits, staged, T = self._run_nodes("full", tokens[:n], rel[:n], mask[:n, :n])
         next_argmax = logits[0, :n].argmax(dim=-1).cpu().numpy()
@@ -256,12 +267,29 @@ class SpecEngine:
 DRAFT_KV_MODES = ("recompute", "carry")
 
 
-def _check_draft_kv(draft_kv: str, who: str) -> None:
-    # every stack the port builds is made of attention blocks (MoE layers are
-    # attention blocks with an MoE MLP; models.model._check_stack), so both
-    # modes apply to all of them
+def _check_draft_kv(cfg: ModelConfig, draft_kv: str, who: str) -> None:
+    """``draft_kv`` is one of ``DRAFT_KV_MODES``, and ``"carry"`` needs an
+    attention-only stack (MoE layers are attention blocks with an MoE MLP):
+    a Mamba-2 block's per-step states are cumulative, so they cannot be
+    carried row by row (the reference's ``core/engine.py:87-103``)."""
     if draft_kv not in DRAFT_KV_MODES:
         raise ValueError(f"{who}: unknown draft_kv {draft_kv!r}; pick one of {DRAFT_KV_MODES}")
+    if draft_kv == "carry" and M.has_mamba(cfg):
+        raise ValueError(
+            f"{who}: draft_kv='carry' requires an attention-only text stack — SSM per-step "
+            "states are cumulative (not row-scatterable) and codebook tokens are not scalar; "
+            "use draft_kv='recompute'")
+
+
+def check_tree_stack(cfg: ModelConfig, who: str) -> None:
+    """Refuse token trees on a stack with Mamba-2 blocks: a block's decode is
+    one recurrence over the staged tokens in order, so a branching tree would
+    give each node a state built from its siblings. The reference's batched
+    server refuses them in these words (``serving/server.py:402-409``); its
+    single-stream engine does not, and then leaves AR."""
+    if M.has_mamba(cfg):
+        raise ValueError(f"{who} requires an attention-only text stack: staged SSM states are "
+                         "chain-ordered and cannot follow tree paths")
 
 
 def chain_draft_scan(
@@ -289,7 +317,7 @@ def chain_draft_scan(
     rows 0..j]. Returns (chains, have) with ``have = max(have, min(limit,
     steps))``. ``quantize`` and ``attn_override`` reach every draft decode
     (a cascade level's DSIA execution)."""
-    _check_draft_kv(draft_kv, "chain_draft_scan")
+    _check_draft_kv(cfg, draft_kv, "chain_draft_scan")
     dsia = dict(gates=gates, layer_ids=layer_ids, quantize=quantize, attn_override=attn_override)
     B, K = chains.shape
     toks = torch.cat([pending[:, None], chains], dim=1).to(torch.int32)
@@ -373,7 +401,7 @@ def tree_draft_scan(
     draft decode. Returns (tokens, parents, depth, p_acc, mask, count,
     first_neural (B,) int32, -1 if none).
     """
-    _check_draft_kv(draft_kv, "tree_draft_scan")
+    _check_draft_kv(cfg, draft_kv, "tree_draft_scan")
     dsia = dict(gates=gates, layer_ids=layer_ids, quantize=quantize, attn_override=attn_override)
     B, N = tokens.shape
     dev = tokens.device

@@ -6,7 +6,8 @@ with its flags and its printed lines, on the card.
   python -m repro_torch.launch.train --arch stablelm-1.6b --device cpu --reduced
 
 ``--arch`` is any config the port registers (``list_configs()``); the MoE
-configs raise ``NotImplementedError`` (MoE training is ROADMAP A.4).
+configs and the stacks with Mamba-2 blocks (mamba2-130m, jamba-v0.1-52b)
+raise ``NotImplementedError`` (training them is ROADMAP A.4).
 
 It runs on the card (``--device cuda``, the default; it raises when there
 is none); ``--device cpu`` runs on the CPU. ``--reduced`` trains the

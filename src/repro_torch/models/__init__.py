@@ -1,4 +1,4 @@
-"""Model stack of the port (attention-only dense subset, dense or paged KV cache)."""
+"""Model stack of the port: attention and Mamba-2 blocks, dense or MoE MLPs, dense or paged caches."""
 from repro_torch.models.model import (
     commit_cache,
     decode_commit_token,

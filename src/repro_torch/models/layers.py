@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,11 +40,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 @dataclasses.dataclass(frozen=True)
 class Init:
     """How one parameter leaf is drawn: a standard normal times ``scale``,
-    or zeros when ``scale`` is None (``models.model.init_params`` draws it)."""
+    or zeros when ``scale`` is None (``models.model.init_params`` draws it);
+    a leaf with ``fixed`` takes ``fixed(numel, device)``, a deterministic
+    value, instead."""
 
     shape: Tuple[int, ...]
     scale: Optional[float]
     dtype: torch.dtype
+    fixed: Optional[Callable[[int, torch.device], torch.Tensor]] = None
 
 
 # ----------------------------------------------------------------------- MLP

@@ -1,5 +1,5 @@
-"""Decoder assembly, attention-only subset: layout, init, training forward,
-prefill, decode, commit.
+"""Decoder assembly: layout, init, training forward, prefill, decode,
+commit, over attention and Mamba-2 blocks.
 
 Layouts are the reference's (``src/repro/models/model.py``), so that params
 and caches convert one-to-one (``repro_torch.bridge``):
@@ -11,7 +11,10 @@ and caches convert one-to-one (``repro_torch.bridge``):
     one shared pool per layer, ``k_pages``/``v_pages`` of shape
     ``(R, NP, P, KV, hd)``, and a top-level ``page_table`` (B, max_len // P)
     int32 (-1 = unallocated): position t of slot b lives at row t % P of
-    page ``page_table[b, t // P]``.
+    page ``page_table[b, t // P]``;
+  - a Mamba-2 layer's cache is its per-slot state ``{"ssm", "conv_x",
+    "conv_B", "conv_C"}`` (``models/ssm.py``), each ``(R, B, ...)``; it
+    stays dense in a paged cache (the reference's ``init_cache``).
 Layers run one at a time over views of those stacks (PyTorch runs eagerly:
 there is no scan to lower). ``forward_train`` takes its views with one
 ``torch.unbind`` per stacked leaf, whose backward writes the stack's
@@ -20,8 +23,10 @@ gradient once; ``remat=True`` recomputes each layer in the backward pass
 ``jax.checkpoint``).
 
 Cache semantics: stage-then-commit. ``decode_step`` never writes the cache;
-it returns logits plus per-layer staged K/V, and ``commit_cache`` writes
-the accepted path afterwards. Unlike the reference, whose arrays are
+it returns logits plus per-layer staged K/V (a Mamba-2 layer: its state
+after each of the T tokens), and ``commit_cache`` writes the accepted path
+afterwards (a Mamba-2 layer: the state after the accepted prefix, so the
+T tokens must be a chain). Unlike the reference, whose arrays are
 immutable, ``prefill``, ``write_slot`` and ``commit_cache`` update the
 cache tensors, ``pos`` included, in place (a 32-layer vicuna-7b cache is
 gigabytes, and a captured CUDA graph reads the tensors it was captured
@@ -43,9 +48,11 @@ Carried staged KV (``decode_step(staged_kv=...)``, the engine's
 ``draft_kv="carry"``): the T new tokens attend over [committed cache ++
 carried rows ++ themselves]; the returned staged rows are the new ones.
 
-MoE layers (``models/moe.py``) serve through the dropless dispatch; MoE
-training raises (ROADMAP A.4). Off the port so far (they raise): SSM
-blocks, codebook and image inputs and context-parallel ``seq_axes``.
+MoE layers (``models/moe.py``) serve through the dropless dispatch, and
+Mamba-2 blocks (``models/ssm.py``) through the chunked scan in prefill and
+the per-token recurrence in decode; training either raises (ROADMAP A.4).
+Off the port so far (they raise): codebook and image inputs and
+context-parallel ``seq_axes``.
 """
 from __future__ import annotations
 
@@ -59,6 +66,7 @@ from repro_torch import resolve_device
 from repro_torch.config.base import AttentionKind, BlockKind, ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     Init,
     apply_rope,
@@ -137,12 +145,17 @@ def layout(cfg: ModelConfig) -> List[Segment]:
 
 
 def _check_stack(cfg: ModelConfig) -> None:
-    """The port serves attention blocks with dense or MoE MLPs over text."""
-    for i in range(cfg.num_layers):
-        if cfg.block_kind(i) is not BlockKind.ATTENTION:
-            raise NotImplementedError(f"layer {i}: SSM (mamba) blocks are not ported yet")
+    """The port serves attention and Mamba-2 blocks, with dense or MoE MLPs,
+    over text."""
     if cfg.num_codebooks or cfg.num_image_tokens:
         raise NotImplementedError("codebook and image inputs are not ported yet")
+
+
+def has_mamba(cfg: ModelConfig) -> bool:
+    """Whether any layer of the stack is a Mamba-2 block (whose per-step
+    states follow one chain of tokens: no trees, no carried draft KV)."""
+    return any(cfg.block_kind(i) is BlockKind.MAMBA for i in range(cfg.num_layers))
+
 
 
 # ======================================================================= init
@@ -152,15 +165,16 @@ DRAW_CHUNK = 1 << 26            # elements drawn at once: a 256 MiB float32 temp
 def _layer_init(cfg: ModelConfig, spec: LayerSpec, dtype: torch.dtype) -> dict:
     """The leaves of one layer (the reference's ``_layer_init``)."""
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
-    p: dict = {
-        "norm1": Init((d,), None, dtype),
-        "attn": {
+    p: dict = {"norm1": Init((d,), None, dtype)}
+    if spec.block is BlockKind.ATTENTION:
+        p["attn"] = {
             "wq": Init((d, H, hd), d ** -0.5, dtype),
             "wk": Init((d, KV, hd), d ** -0.5, dtype),
             "wv": Init((d, KV, hd), d ** -0.5, dtype),
             "wo": Init((H, hd, d), (H * hd) ** -0.5, dtype),
-        },
-    }
+        }
+    else:
+        p["mamba"] = ssm_lib.ssm_init(d, cfg.ssm, dtype)
     if spec.has_mlp:
         p["norm2"] = Init((d,), None, dtype)
         if spec.is_moe:
@@ -171,9 +185,12 @@ def _layer_init(cfg: ModelConfig, spec: LayerSpec, dtype: torch.dtype) -> dict:
 
 
 def _draw(t: torch.Tensor, init: Init, gen) -> None:
-    """Fill ``t`` in place: a standard normal times ``init.scale``, or zeros.
-    float32 is drawn straight into ``t``; another type through a float32
-    temporary of at most ``DRAW_CHUNK`` elements."""
+    """Fill ``t`` in place: a standard normal times ``init.scale``, zeros, or
+    the leaf's fixed value. float32 is drawn straight into ``t``; another
+    type through a float32 temporary of at most ``DRAW_CHUNK`` elements."""
+    if init.fixed is not None:
+        t.copy_(init.fixed(t.numel(), t.device).view(t.shape))
+        return
     if init.scale is None:
         t.zero_()
         return
@@ -244,9 +261,11 @@ def init_cache(
     ``sliding_window`` slots (a ring buffer) for sliding layers.
 
     ``paged=True`` allocates one shared pool of ``num_pages`` pages of
-    ``page_size`` tokens per layer (default: ``batch * max_len / page_size``,
-    the dense capacity) and a page table of -1; ``max_len`` must be a
-    multiple of ``page_size``, and ring caches page nothing."""
+    ``page_size`` tokens per attention layer (default: ``batch * max_len /
+    page_size``, the dense capacity) and a page table of -1; ``max_len``
+    must be a multiple of ``page_size``, and ring caches page nothing.
+    A Mamba-2 layer holds its per-slot state (the SSM state float32, the
+    conv tails in ``dtype``), dense either way."""
     _check_stack(cfg)
     if paged:
         if ring_window:
@@ -262,6 +281,12 @@ def init_cache(
     for seg in layout(cfg):
         unit_caches = []
         for spec in seg.unit:
+            if spec.block is BlockKind.MAMBA:
+                # per-slot states, dense in a paged cache too
+                st = ssm_lib.init_state(cfg.d_model, cfg.ssm, batch, dtype, dev)
+                unit_caches.append({n: a[None].repeat((seg.repeats,) + (1,) * a.ndim)
+                                    for n, a in st.items()})
+                continue
             if paged:
                 shape = (seg.repeats, num_pages, page_size, cfg.num_kv_heads, hd)
                 names = ("k_pages", "v_pages")
@@ -375,7 +400,9 @@ def _run_stack(
     staged_mask: Optional[torch.Tensor] = None,
     remat: bool = False,
 ):
-    """Returns (hidden, staged segments: [[{"k","v"}: (R_run, B, T, KV, hd)]]).
+    """Returns (hidden, staged segments: [[{leaf: (R_run, B, T, ...)}]]), the
+    staged leaves ``"k"``, ``"v"`` (B, T, KV, hd) of an attention layer or
+    the per-step states of a Mamba-2 layer (``ssm_lib.STATE_LEAVES``).
     ``staged_kv`` has the structure of a previous call's staged segments
     (one entry per layer run, in run order). ``mode="train"`` takes no
     cache and stages nothing (the staged segments are empty)."""
@@ -390,7 +417,7 @@ def _run_stack(
     for si, seg in enumerate(segs):
         p_seg = params["segments"][si]
         U = len(seg.unit)
-        staged = [{"k": [], "v": []} for _ in seg.unit]
+        staged = [{} for _ in seg.unit]
         # one unbind per leaf: its backward writes the stack's gradient once,
         # where a backward per ``a[r]`` would zero-fill the whole stack per layer
         views = [_unstack(p_seg[u], seg.repeats) for u in range(U)] if train else None
@@ -410,10 +437,10 @@ def _run_stack(
                 p_l = tree_map(lambda a, r=r: a[r], p_seg[u])          # views
                 h, st = _layer_fn(cfg, p_l, spec, gate, q_pos, mode, lc, tree_mask, attn_override,
                                   buf, staged_pos, staged_mask, quantize, staged=True)(h)
-                staged[u]["k"].append(st["k"])
-                staged[u]["v"].append(st["v"])
+                for n, a in st.items():
+                    staged[u].setdefault(n, []).append(a)
         if not train:
-            staged_segments.append([{n: torch.stack(s[n]) for n in ("k", "v")} for s in staged])
+            staged_segments.append([{n: torch.stack(v) for n, v in s.items()} for s in staged])
     return h, staged_segments
 
 
@@ -426,12 +453,17 @@ def _unstack(tree: dict, n: int) -> List[dict]:
 
 def _layer_fn(cfg, p_l, spec, gate, q_pos, mode, lc=None, tree_mask=None, attn_override=None,
               buf=None, staged_pos=None, staged_mask=None, quantize=None, staged=False):
-    """One layer (attention, then the MLP) as a function of the residual
-    stream: returns the new stream, and with ``staged`` also the layer's
-    staged K/V."""
+    """One layer (attention or Mamba-2, then the MLP) as a function of the
+    residual stream: returns the new stream, and with ``staged`` also the
+    layer's staged K/V or per-step states."""
     def body(h):
-        delta, st = _attn_layer(cfg, p_l, spec, h, q_pos, mode, lc, tree_mask, attn_override,
-                                buf, staged_pos, staged_mask)
+        if spec.block is BlockKind.MAMBA:
+            x = rms_norm(h, p_l["norm1"], cfg.norm_eps)
+            delta, st = ssm_lib.mamba_forward(p_l["mamba"], x, cfg.d_model, cfg.ssm, lc,
+                                              mode=mode)
+        else:
+            delta, st = _attn_layer(cfg, p_l, spec, h, q_pos, mode, lc, tree_mask, attn_override,
+                                    buf, staged_pos, staged_mask)
         h = h + _gated(delta, gate)
         if spec.has_mlp:
             x = rms_norm(h, p_l["norm2"], cfg.norm_eps)
@@ -477,8 +509,12 @@ def forward_train(
     """Full causal forward over ``batch["tokens"]`` (B, S), differentiable,
     writing no cache. Returns (logits (B, S, V) float32, moe_aux): a stack
     of dense MLPs has no MoE auxiliary loss, so it is a float32 zero; an MoE
-    stack raises (MoE training, ROADMAP A.4). ``remat=True`` recomputes each
-    layer's activations in the backward pass."""
+    stack or one with Mamba-2 blocks raises (training them is ROADMAP A.4).
+    ``remat=True`` recomputes each layer's activations in the backward
+    pass."""
+    if has_mamba(cfg):
+        raise NotImplementedError("training a stack with Mamba-2 blocks is not ported yet: "
+                                  "ROADMAP A.4")
     if any(spec.is_moe for seg in layout(cfg) for spec in seg.unit):
         raise NotImplementedError(moe_lib.TRAINING_NOT_PORTED.format(mode="train"))
     tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
@@ -517,8 +553,13 @@ def prefill(
 
 def _write_prefill(cfg: ModelConfig, cache: Cache, staged, S: int) -> None:
     for si, seg in enumerate(layout(cfg)):
-        for u in range(len(seg.unit)):
+        for u, spec in enumerate(seg.unit):
             c, st = cache["segments"][si][u], staged[si][u]
+            if spec.block is BlockKind.MAMBA:
+                # the final states carry a length-1 step axis: (R, B, 1, ...)
+                for name in ssm_lib.STATE_LEAVES:
+                    c[name].copy_(st[name][:, :, 0])
+                continue
             S_c = c["k"].shape[2]
             for name in ("k", "v"):
                 src = st[name].to(c[name].dtype)                   # (R, B, S, KV, hd)
@@ -595,6 +636,11 @@ def commit_cache(
     bounds and, on a paged cache, its page is allocated: a -1 page is never
     written through (clamped, it would land on page 0, which another slot
     may own). Rejected rows and the rest of the cache keep their values.
+
+    A Mamba-2 layer takes its staged state at step ``n_accept - 1`` of each
+    slot (so the T staged tokens must be a chain, and ``path_idx`` is not
+    read), and keeps its state where ``n_accept`` is 0: a gather and a
+    ``where`` of fixed shape, as the reference's l.895-905.
     """
     _check_stack(cfg)
     base = cache["pos"]
@@ -608,9 +654,18 @@ def commit_cache(
     accepted = step[None] < n_acc[:, None]                   # (B, T)
     dest = (base[:, None] + step[None]).long()
     b_i = torch.arange(B, device=dev)[:, None].expand(B, T)
+    last = torch.clamp(n_acc.long() - 1, 0, T - 1)             # (B,)
+    keep = n_acc == 0
     for si, seg in enumerate(layout(cfg)):
         for u, spec in enumerate(seg.unit):
             c, st = cache["segments"][si][u], staged[si][u]
+            if spec.block is BlockKind.MAMBA:
+                for name in ssm_lib.STATE_LEAVES:
+                    a, old = st[name], c[name]                  # (R, B, T, ...), (R, B, ...)
+                    new = a[:, torch.arange(B, device=dev), last]
+                    k = keep.view((1, B) + (1,) * (old.ndim - 2))
+                    old.copy_(torch.where(k, old, new.to(old.dtype)))
+                continue
             if "k_pages" in c:
                 rows, ok = _page_rows(cache["page_table"], c["k_pages"].shape[2], b_i, dest)
                 ok &= accepted
@@ -690,13 +745,18 @@ def write_slot(cfg: ModelConfig, cache: Cache, c1: Cache, slot: int) -> Cache:
     prompt's bucket): its rows land at the front of the slot, and rows past
     ``c1["pos"]`` are never read (kv_pos masking). On a paged cache the rows
     go through ``page_table[slot]``, which the caller sets first; rows whose
-    page is unallocated are not written.
+    page is unallocated are not written. A Mamba-2 layer's state is copied
+    into the slot as it is (it is per slot, dense in a paged cache too).
     """
     _check_stack(cfg)
     dev = cache["pos"].device
     for si, seg in enumerate(layout(cfg)):
-        for u in range(len(seg.unit)):
+        for u, spec in enumerate(seg.unit):
             dst, src = cache["segments"][si][u], c1["segments"][si][u]
+            if spec.block is BlockKind.MAMBA:
+                for name in ssm_lib.STATE_LEAVES:
+                    dst[name][:, slot] = src[name][:, 0].to(dst[name].dtype)
+                continue
             S_src = src["k"].shape[2]
             if "k_pages" in dst:
                 t = torch.arange(S_src, device=dev)

@@ -29,6 +29,7 @@ import torch
 from repro_torch.config.base import MoEConfig
 from repro_torch.kernels.moe_grouped import moe_grouped
 from repro_torch.models.layers import Init, mlp_apply, mlp_init
+from repro_torch.models.ssm import FLOAT32_LEAVES as SSM_FLOAT32_LEAVES
 
 # leaves the reference keeps in float32 whatever the model's type
 FLOAT32_LEAVES = ("w_router",)
@@ -59,8 +60,9 @@ def moe_init(d_model: int, moe: MoEConfig, gated: bool, dtype: torch.dtype) -> d
 
 def keeps_float32(key: str) -> bool:
     """Whether the leaf at checkpoint key ``key`` (``['a']/['b']`` form)
-    stays float32 whatever type the model's other leaves take."""
-    return any(key.endswith(f"['{name}']") for name in FLOAT32_LEAVES)
+    stays float32 whatever type the model's other leaves take: the MoE
+    router and a Mamba-2 block's ``A_log``, ``D`` and ``dt_bias``."""
+    return any(key.endswith(f"['{name}']") for name in FLOAT32_LEAVES + SSM_FLOAT32_LEAVES)
 
 
 def _router(params: dict, xf: torch.Tensor, moe: MoEConfig, with_aux: bool):

@@ -60,10 +60,15 @@ out at admission (``max_new_tokens`` bounds the reservation) and returned
 at ``release``, both host-side. Attention reads the pool through the table
 with the paged flash-decode kernel, so paged streams equal dense streams.
 
-``draft_kv="auto"`` resolves to ``"carry"``, as the reference's does on
-attention-only stacks (the only stacks the port builds): the draft scans
-decode the block once and then only the appended tokens against carried
-staged KV. ``prefill_chunk > 0`` (paged, single rounds) makes admission
+``draft_kv="auto"`` resolves as the reference's does: to ``"carry"`` on
+attention-only stacks, where the draft scans decode the block once and
+then only the appended tokens against carried staged KV, and to
+``"recompute"`` on stacks with Mamba-2 blocks, whose per-step states are
+cumulative. Those stacks (mamba2-130m, jamba-v0.1-52b) serve through
+``chain_fused`` and ``legacy`` only: ``tree_fused``, ``cascade_fused``,
+carried draft KV and chunked prefill raise, with the reference's words.
+A single round captures their recurrence in its graph like any other
+layer. ``prefill_chunk > 0`` (paged, single rounds) makes admission
 enqueue-only: each round consumes up to ``prefill_chunk`` prompt tokens per
 prefilling slot (``core.engine.prefill_chunk_stage``, behind a conditional
 node of its own), and slots still prefilling are dead for the decode half.
@@ -127,6 +132,7 @@ from repro_torch.core.acceptance import AcceptanceTracker, ema_init
 from repro_torch.core.dsia import PLD_SPEC, DraftSpec, build_hierarchy
 from repro_torch.core.engine import (
     _check_draft_kv,
+    check_tree_stack,
     cascade_rescore,
     cascade_rescore_verify,
     chain_draft,
@@ -194,7 +200,7 @@ class BatchedSpecServer:
         tree_top_k: int = 2,           # sibling candidates per expansion
         tree_top_p: float = 0.3,       # TOP-P sibling filter (P_tree)
         tree_bucket: Optional[int] = None,   # padded tree size (default: fit)
-        draft_kv: str = "auto",        # auto (= carry) | carry | recompute
+        draft_kv: str = "auto",        # auto (carry; SSM stacks recompute) | carry | recompute
         round_mode: str = "auto",      # auto (= single) | single | split
         sync_every: Optional[int] = None,   # single: drain every N rounds (default 1)
         sampling: Optional[SamplingParams] = None,   # None: greedy build
@@ -226,11 +232,13 @@ class BatchedSpecServer:
                 "verify rides the last rescore dispatch instead)")
         self.round_mode = round_mode
         self.sync_every = max(int(sync_every or 1), 1)
-        # carry: the reference's auto choice on attention-block stacks (MoE
-        # layers count as attention blocks, src/repro/serving/server.py:343),
-        # the only stacks the port builds (models.model._check_stack)
-        draft_kv = "carry" if draft_kv == "auto" else draft_kv
-        _check_draft_kv(draft_kv, "BatchedSpecServer")
+        # MoE layers count as attention blocks (src/repro/serving/server.py:343-352)
+        attention_only = not M.has_mamba(cfg)
+        if draft_kv == "auto":
+            # carry: O(top_k) new-token decodes per expansion step instead of
+            # the padded-block recompute, everywhere but on SSM stacks
+            draft_kv = "carry" if attention_only else "recompute"
+        _check_draft_kv(cfg, draft_kv, "BatchedSpecServer")
         if sampling is not None and not isinstance(sampling, SamplingParams):
             raise TypeError(f"sampling must be a SamplingParams or None, not "
                             f"{type(sampling).__name__}")
@@ -248,6 +256,10 @@ class BatchedSpecServer:
         if self.prefill_chunk and self.round_mode != "single":
             raise ValueError("prefill_chunk rides the single round: build with "
                              "round_mode='single'")
+        if self.prefill_chunk and not attention_only:
+            raise ValueError("prefill_chunk requires an attention-only text stack: chunked "
+                             "prompt commits address KV through the page table, and SSM "
+                             "per-step states are cumulative")
         if mesh is not None:
             raise _not_ported("mesh serving (mesh=...)")
         if draft_spec is not None:
@@ -277,6 +289,7 @@ class BatchedSpecServer:
         self.tree_bucket = tree_bucket
         self.bank: Optional[DraftBank] = None
         if mode in ("tree_fused", "cascade_fused"):
+            check_tree_stack(cfg, mode)
             # worst case: root + PLD chain + top_k children per expansion step,
             # and for a cascade one hedge sibling and one extension per rescorer
             extra = 0

@@ -65,7 +65,7 @@ def save_checkpoint(path: str, params: Any, opt_state: Any = None, step: int = 0
 def read_npz(file: str, template, device: torch.device, dtype: Optional[torch.dtype] = None):
     """The tree of ``template`` with every leaf read from ``file`` onto
     ``device`` (float leaves as ``dtype`` when given, except those the
-    reference keeps in float32: ``models.moe.FLOAT32_LEAVES``). The template
+    reference keeps in float32: ``models.moe.keeps_float32``). The template
     gives only names and shapes (meta tensors will do)."""
     with np.load(file, allow_pickle=False) as data:
         def read(key, leaf):

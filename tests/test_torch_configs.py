@@ -92,7 +92,8 @@ def test_config_equals_reference(arch):
 
 
 def test_registry_and_input_shapes_equal_reference():
-    assert config.list_configs() == sorted(("vicuna-7b", "qwen2-moe-a2.7b", "mixtral-8x22b") + NEW)
+    assert config.list_configs() == sorted(("vicuna-7b", "qwen2-moe-a2.7b", "mixtral-8x22b",
+                                            "mamba2-130m", "jamba-v0.1-52b") + NEW)
     assert set(config.list_configs()) <= set(j_config.list_configs())
     assert sorted(config.INPUT_SHAPES) == sorted(j_config.INPUT_SHAPES)
     for name in j_config.INPUT_SHAPES:
@@ -104,9 +105,9 @@ def test_registry_and_input_shapes_equal_reference():
     with pytest.raises(KeyError):
         config.get_shape("decode_64k")
     with pytest.raises(KeyError):
-        config.get_config("mamba2-130m")        # its SSM stack is not ported yet
+        config.get_config("musicgen-medium")    # its codebook inputs are not ported yet
     with pytest.raises(NotImplementedError):
-        M.init_params(j_config.get_config("mamba2-130m").reduced(), device="meta")
+        M.init_params(j_config.get_config("musicgen-medium").reduced(), device="meta")
 
 
 def test_full_width_shapes_of_the_new_models():
@@ -309,7 +310,7 @@ def test_clis_take_every_config(arch, capsys, tmp_path):
                 "--seq", "16"])
     assert "1 steps in" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        serve.build_parser().parse_args(["--arch", "mamba2-130m"])
+        serve.build_parser().parse_args(["--arch", "musicgen-medium"])
 
 
 # ------------------------------------------------------------ import isolation
@@ -327,6 +328,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.configs.starcoder2_3b", "repro_torch.configs.stablelm_1_6b",
                 "repro_torch.configs.qwen2_moe_a2_7b", "repro_torch.configs.mixtral_8x22b",
                 "repro_torch.models.moe", "repro_torch.kernels.moe_grouped",
+                "repro_torch.models.ssm", "repro_torch.configs.mamba2_130m",
+                "repro_torch.configs.jamba_v0_1_52b",
                 "repro_torch.config.shapes"} <= set(sys.modules), names
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"

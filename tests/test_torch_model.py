@@ -174,10 +174,12 @@ OFF_SLICE = {
     "decode_step seq_axes": lambda: M.decode_step(
         CFG, PARAMS, M.init_cache(CFG, 1, 16, device="cpu"), torch.zeros(1, 8, dtype=torch.int32),
         seq_axes=("data",)),
+    # mamba stacks are ported; their codebook (musicgen) and image (llava)
+    # inputs are not
     "init_params mamba": lambda: M.init_params(
-        dataclasses.replace(CFG, attention_pattern="none"), device="cpu"),
+        dataclasses.replace(CFG, attention_pattern="none", num_codebooks=4), device="cpu"),
     "init_cache hybrid": lambda: M.init_cache(
-        dataclasses.replace(CFG, attn_layer_period=2), 1, 16, device="cpu"),
+        dataclasses.replace(CFG, attn_layer_period=2, num_image_tokens=16), 1, 16, device="cpu"),
 }
 
 

@@ -37,7 +37,10 @@ within one bfloat16 ulp of the output (2^-7 of the value, plus 1e-4: the
 float32 sums' order) in bfloat16, at qwen2-moe's shape and at ragged
 shapes, with most experts empty; the rows of N1 tokens bitwise equal
 when more tokens are batched with them; a captured single round of
-qwen2-moe at full width equal to eager rounds bitwise.
+qwen2-moe at full width equal to eager rounds bitwise. The Mamba-2 stacks
+(mamba2-130m and jamba-v0.1-52b, reduced, 4 layers, float32): a captured
+``chain_fused`` single round, dense and paged, equals eager rounds bitwise,
+one graph launch a round, and its streams equal AR's on the card.
 """
 import dataclasses
 import functools
@@ -806,3 +809,58 @@ def test_moe_single_round_replay_equals_eager_on_card():
     _assert_replays_equal_eager(graph, eager, 4)
     assert graph.stats["graph_replays"] == 4
     assert mg.launches > 0
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-v0.1-52b"])
+def test_ssm_single_round_replay_equals_eager_on_card(arch, paged):
+    """The reduced stack at 4 layers, float32, random weights from seed 0:
+    the captured ``chain_fused`` single round (the mamba recurrence inside
+    the graph, recomputed draft KV) equals eager rounds bitwise, one graph
+    launch a round, and every stream is a prefix of AR's."""
+    from repro_torch.config import get_config
+    from repro_torch.core import SpecEngine
+    from repro_torch.core.dsia import DraftSpec
+    from repro_torch.models import init_params
+    from repro_torch.serving import BatchedSpecServer
+
+    _card()
+    cfg = dataclasses.replace(get_config(arch).reduced(), num_layers=4)
+    params = init_params(cfg, 0)
+    spec = DraftSpec("self_draft", gates=(1, 0, 1, 1), prior_alpha=0.6, prior_c=0.2)
+    rng = np.random.default_rng(1)
+    prompts = [np.tile(rng.integers(0, cfg.vocab_size, size=8), 4).astype(np.int32)] + [
+        rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (100, 7, 64)]
+    servers = []
+    for _ in range(2):
+        srv = BatchedSpecServer(cfg, params, mode="chain_fused", draft_spec=spec, max_batch=4,
+                                max_len=256, draft_k=4, adaptive=True, min_obs=1,
+                                round_mode="single", paged=paged, page_size=16)
+        for b, p in enumerate(prompts):
+            srv.add_request(b, p)
+        servers.append(srv)
+    graph, eager = servers
+    assert graph._graph is not None and graph.draft_kv == "recompute"
+    ar = []
+    for p in prompts:
+        eng = SpecEngine(cfg, params, max_len=256)
+        eng.start(p)
+        ar.append(eng.generate_ar(24))
+    eager._graph = None                         # step() runs the round eagerly
+    gen = {b: [] for b in range(4)}
+    for r in range(6):
+        out = graph.step()
+        assert out == eager.step(), f"round {r}"
+        for b, t in out.items():
+            gen[b].extend(t)
+    tail = graph.flush()
+    assert tail == eager.flush()
+    for b, t in tail.items():
+        gen[b].extend(t)
+    assert graph.stats["graph_replays"] == 6 and graph.stats["draft_rounds"] > 0
+    for name in graph.dstate:
+        assert torch.equal(graph.dstate[name], eager.dstate[name]), name
+    for a, b in zip(_cache_leaves(graph), _cache_leaves(eager)):
+        assert torch.equal(a, b)
+    for b, t in gen.items():
+        assert len(t) >= 6 and t == ar[b][:len(t)], f"slot {b} left AR"
