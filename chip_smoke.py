@@ -67,10 +67,20 @@ full width, mamba2-130m at all 24 layers and jamba-v0.1-52b cut to one
 1100-token prompt whose SSD prefill spans five chunks), ``chain_fused``
 single dense and paged, split and ``legacy`` on four slots, every float32
 stream equal to AR, the tree schedulers and ``tree_fused`` refused; it
-times one mamba layer's prefill and T=5 decode. Each phase prints its
+times one mamba layer's prefill and T=5 decode. Phase 15 drives the
+codebook and image stacks at full width and trains the MoE, Mamba-2 and
+codebook stacks: llava-next-mistral-7b at all 32 layers prefills 2880
+image positions and 128 text tokens, takes 32 greedy steps over the
+committed cache (held to fresh prefills; the flash decode held to its
+plain version at that length) and serves text through AR, DyTC,
+``tree_fused`` single dense and paged and the cascade, every stream equal
+to AR; musicgen-medium at all 48 layers decodes (B, T, 4) codes, a T=5
+joint decode equal to five single steps, and every speculative path
+refuses it; mamba2-130m, qwen2-moe-a2.7b at 4 layers and musicgen-medium
+each train 20 steps (finite losses, ce falling). Each phase prints its
 seconds and the memory left allocated after it. The last line is the
 JSON device record; the line before it lists the kernels, with the
-launches of phases 3 and 5-14 (graph launches counted by the server, a
+launches of phases 3 and 5-15 (graph launches counted by the server, a
 gated segment's only in the rounds that ran it).
 Exits non-zero,
 with no result, when any phase fails or when no CUDA device (or no
@@ -3179,6 +3189,400 @@ def phase_ssm(torch, results: dict) -> None:
     print(f"[phase 14] {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------------ phase 15
+# llava-next-mistral-7b at all 32 layers (7.24 B parameters, 27 GiB in
+# float32) with anyres's 2880 image positions; musicgen-medium at all 48
+# layers (1.38 B); training on the reference benchmarks' recipe, 20 steps:
+# mamba2-130m at all 24 layers, qwen2-moe-a2.7b cut to 4 of its 24 layers
+# (2.9 B parameters: 43 GiB of float32 params, gradients and AdamW moments;
+# all 24 layers, 14.3 B, would take 213 GiB) and musicgen-medium at all 48
+IMAGE_TEXT = 128                  # text tokens after the image positions
+IMAGE_STEPS = 32                  # greedy steps after the image prefill
+IMAGE_HELD = (1, 8, 32)           # steps whose logits a fresh prefill holds
+MUSIC_PROMPT = 200
+TRAIN15 = dict(steps=20, batch=8, seq=96, peak_lr=1e-3, warmup=10, corpus=60_000)
+TRAINED = (("mamba2-130m", {}), ("qwen2-moe-a2.7b", dict(num_layers=4)),
+           ("musicgen-medium", {}))
+
+
+def _load15(torch, name: str, **kw):
+    """The config in float32 (``kw`` cuts it), its seed-0 params, and a line
+    with its cut, parameters, GiB and the draw's peak above the params."""
+    from repro_torch.config import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.model import tree_leaves
+
+    cfg = dataclasses.replace(get_config(name), dtype="float32", **kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    n, nbytes = sum(t.numel() for t in leaves), sum(t.numel() * t.element_size() for t in leaves)
+    full = get_config(name).num_layers
+    cut = (f"cut from {full} to {cfg.num_layers} layers" if cfg.num_layers != full
+           else f"all {full} layers")
+    heads = (f", heads {cfg.num_heads} / kv {cfg.num_kv_heads}, hd {cfg.resolved_head_dim()}"
+             if cfg.num_heads else "")
+    print(f"[phase 15] {name} float32, {cut}, d {cfg.d_model}{heads}, vocab {cfg.vocab_size}"
+          + (f", {cfg.num_codebooks} codebooks" if cfg.num_codebooks else "")
+          + (f", {cfg.num_image_tokens} image positions" if cfg.num_image_tokens else "")
+          + f": {n / 1e9:.3f} B parameters, {_gib(nbytes)} in {time.perf_counter() - t0:.1f} s; "
+          f"the draw's peak is {_gib(torch.cuda.max_memory_allocated() - base - nbytes)} above "
+          "the params")
+    return cfg, params, n
+
+
+def _greedy_steps(torch, M, cfg, params, cache, first, n_steps: int, keep=()):
+    """``n_steps`` greedy steps through ``decode_step`` and ``commit_cache``
+    from the next tokens ``first`` (B, 1[, nc]), each codebook by its own
+    argmax. Returns (the tokens fed (B, n_steps[, nc]), {step k in
+    ``keep``: its logits}, ms a step by wall time, the next tokens)."""
+    B, dev = first.shape[0], first.device
+    path = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    one = torch.ones((B,), dtype=torch.int32, device=dev)
+    fed, held, nxt = [], {}, first
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(1, n_steps + 1):
+        fed.append(nxt)
+        logits, staged = M.decode_step(cfg, params, cache, nxt)
+        M.commit_cache(cfg, cache, staged, path, one)
+        if k in keep:
+            held[k] = logits[:, 0]
+        nxt = logits[:, -1:].argmax(-1)
+    torch.cuda.synchronize()
+    return torch.cat(fed, dim=1), held, (time.perf_counter() - t0) / n_steps * 1e3, nxt
+
+
+def _llava_image(torch, cfg, params, results: dict) -> dict:
+    """The image prefill (B=1: 2880 image positions from a seeded generator
+    times 0.02, then IMAGE_TEXT text tokens), IMAGE_STEPS greedy steps over
+    the committed cache, each held step's logits against a fresh prefill
+    of the extended batch (argmax equal, within 1e-3), and
+    ``flash_decode_partial`` at the longest live length against its plain
+    version. Returns the launch counts of the prefill and the steps."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    from repro_torch.models import model as M
+
+    Ti, d = cfg.num_image_tokens, cfg.d_model
+    S = Ti + IMAGE_TEXT
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    img = torch.randn((1, Ti, d), generator=gen, device="cuda") * 0.02
+    text = np.random.default_rng(SEED + 6).integers(0, cfg.vocab_size, size=(1, S))
+    batch = {"tokens": torch.as_tensor(text, dtype=torch.int32, device="cuda"),
+             "image_embeds": img,
+             "image_mask": (torch.arange(S, device="cuda") < Ti).to(torch.int32)[None]}
+    cache = M.init_cache(cfg, 1, 4096)
+    _reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    last, _ = M.prefill(cfg, params, batch, cache)
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    pre_peak = torch.cuda.max_memory_allocated()
+    fed, held, step_ms, _ = _greedy_steps(torch, M, cfg, params, cache,
+                                          last.argmax(-1)[:, None], IMAGE_STEPS, keep=IMAGE_HELD)
+    counts = _read_counts()
+    live = int(cache["pos"][0])
+    n = sum(t.numel() for t in M.tree_leaves(params))
+    print(f"[phase 15] llava image prefill, B=1, {Ti} image positions + {IMAGE_TEXT} text tokens "
+          f"(S = {S}): {pre_ms:.1f} ms wall (peak {_gib(pre_peak)}), "
+          f"{2 * n * S / (pre_ms / 1e3) / 1e12:.1f} TFLOP/s by 2 x parameters x positions; then "
+          f"{IMAGE_STEPS} greedy steps (decode_step + commit_cache, max_len 4096, the cache read "
+          f"at S = {S}-{live}): {step_ms:.2f} ms a step | launches {counts}")
+    worst = 0.0
+    for k in IMAGE_HELD:
+        ext = {"tokens": torch.cat([batch["tokens"], fed[:, :k]], dim=1), "image_embeds": img,
+               "image_mask": torch.nn.functional.pad(batch["image_mask"], (0, k))}
+        fresh, _ = M.prefill(cfg, params, ext, M.init_cache(cfg, 1, S + k))
+        e = _err(held[k], fresh)
+        same = bool(torch.equal(held[k].argmax(-1), fresh.argmax(-1)))
+        print(f"[phase 15] llava step {k} (the cache read at S = {S + k - 1}) against a fresh "
+              f"prefill of {S + k} positions: max abs logit err {e:.3e}, argmax equal {same}")
+        if e > 1e-3 or not same:
+            raise AssertionError(f"phase 15: llava's step {k} differs from a fresh prefill")
+        worst = max(worst, e)
+    # flash_decode_partial at the live length the steps reached
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    KV, rep, hd = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.resolved_head_dim()
+    q, kc, vc, kv_pos, q_pos, *_ = _attn_inputs(torch, gen, 1, KV, rep, 1, live, hd,
+                                                torch.float32, live)
+    q_pos[:, 0] = live                                    # every row sees the cache
+    k_, v_ = kc.transpose(1, 2), vc.transpose(1, 2)
+    got = fd.flash_decode_partial(q, k_, v_, kv_pos, q_pos)
+    want = ref.flash_decode_partial(q, k_, v_, kv_pos, q_pos)
+    e = _err(got[0] / got[2][..., None], want[0] / want[2][..., None])
+    bound, by = _bound_ms(_nbytes(q, k_, v_, kv_pos, q_pos) + 4 * (q.numel() + 2 * q.numel() // hd),
+                          4 * KV * rep * live * hd, "float32")
+    ev = _time_ms(lambda: fd.flash_decode_partial(q, k_, v_, kv_pos, q_pos), flush_buf.zero_)
+    gr = _graph_ms(lambda: fd.flash_decode_partial(q, k_, v_, kv_pos, q_pos), flush_buf.zero_)
+    pl = _time_ms(lambda: ref.flash_decode_partial(q, k_, v_, kv_pos, q_pos), flush_buf.zero_)
+    del flush_buf
+    print(f"[phase 15] flash_decode_partial float32 at llava's decode shape (B=1, KV {KV}, rep "
+          f"{rep}, hd {hd}, S = {live}): out err abs={e:.3e} | kernel {ev:.4f} ms (graph replay "
+          f"{gr:.4f}), plain {pl:.4f}, bound {bound:.4f} ms ({by})")
+    if e > TOL["attention"]:
+        raise AssertionError(f"phase 15: flash_decode_partial at S = {live} disagrees")
+    results["flash_decode"]["max_abs_err"] = max(results["flash_decode"]["max_abs_err"], e)
+    del cache
+    return counts
+
+
+def _musicgen_decode(torch, cfg, params) -> dict:
+    """B=4, a MUSIC_PROMPT-step prompt of (B, S, 4) codes, GEN_TOKENS greedy
+    steps; then five more greedy single steps against a T=5 joint decode of
+    the same codes and its commit at ``n_accept`` 5 a slot: the logits
+    within 1e-4 with equal argmax, the committed caches within 1e-4 and
+    the same ``pos``. Returns the launch counts."""
+    import numpy as np
+
+    from repro_torch.models import model as M
+    from repro_torch.models.model import tree_map
+
+    B, nc = 4, cfg.num_codebooks
+    codes = np.random.default_rng(SEED + 7).integers(0, cfg.vocab_size, size=(B, MUSIC_PROMPT, nc))
+    cache = M.init_cache(cfg, B, 256)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, _ = M.prefill(cfg, params, {"tokens": torch.as_tensor(codes, device="cuda")}, cache)
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    _, _, step_ms, nxt = _greedy_steps(torch, M, cfg, params, cache, last.argmax(-1)[:, None],
+                                       GEN_TOKENS)
+    # the sequential reference: five greedy single steps on a copy of the cache
+    seq_cache = tree_map(lambda a: a.clone(), cache)
+    t5, held, _, _ = _greedy_steps(torch, M, cfg, params, seq_cache, nxt, 5, keep=(1, 2, 3, 4, 5))
+    joint, staged = M.decode_step(cfg, params, cache, t5)
+    M.commit_cache(cfg, cache, staged, torch.arange(5, device="cuda"),
+                   torch.full((B,), 5, dtype=torch.int32, device="cuda"))
+    counts = _read_counts()
+    e_log = max(_err(joint[:, k - 1], held[k]) for k in held)
+    same = all(bool(torch.equal(joint[:, k - 1].argmax(-1), held[k].argmax(-1))) for k in held)
+    e_cache = max(_err(a, b) for a, b in zip(M.tree_leaves(cache), M.tree_leaves(seq_cache)))
+    print(f"[phase 15] musicgen B=4, a {MUSIC_PROMPT}-step prompt of (B, S, {nc}) codes: prefill "
+          f"{pre_ms:.1f} ms; {GEN_TOKENS} greedy steps (each codebook by its own argmax) "
+          f"{step_ms:.2f} ms a step | T=5 joint decode against five single steps: logits max abs "
+          f"err {e_log:.3e}, argmax equal {same}; after the commit at n_accept 5 a slot: cache "
+          f"max abs err {e_cache:.3e}, pos {cache['pos'].tolist()} / {seq_cache['pos'].tolist()} "
+          f"| launches {counts}")
+    if (e_log > 1e-4 or not same or e_cache > 1e-4
+            or not torch.equal(cache["pos"], seq_cache["pos"])):
+        raise AssertionError("phase 15: musicgen's joint decode differs from single steps")
+    return counts
+
+
+def _train_batches(torch, cfg):
+    """TRAIN15's batches from the synthetic corpus (numpy seed 0): text
+    windows (B, S); on a codebook stack the delay pattern over one corpus,
+    codebook c lagging c positions, (B, S, nc)."""
+    import numpy as np
+
+    from repro_torch.data import lm_batches, synthetic_corpus
+
+    nc, S = cfg.num_codebooks, TRAIN15["seq"]
+    it = lm_batches(synthetic_corpus(cfg.vocab_size, TRAIN15["corpus"]), TRAIN15["batch"],
+                    S + max(nc - 1, 0))
+    out = []
+    for _ in range(TRAIN15["steps"] + 1):
+        t = next(it)["tokens"]
+        if nc:
+            t = np.stack([t[:, nc - 1 - c: nc - 1 - c + S] for c in range(nc)], axis=-1)
+        out.append({"tokens": torch.as_tensor(t, device="cuda")})
+    return out
+
+
+def _dropped(torch, cfg, params, batch) -> tuple:
+    """One forward of ``loss_fn`` on ``batch`` that records, MoE layer by
+    layer, the share of (token, k) pairs the grouped dispatch drops.
+    Returns (the shares, G, C)."""
+    from repro_torch import training as T
+    from repro_torch.models import moe
+
+    shares, orig = [], moe._grouped_capacity
+
+    def counted(p, xf, top_w, top_ids, m_cfg, act, gated, cf):
+        _, keep, C = moe.capacity_slots(top_ids, m_cfg, cf)
+        shares.append((1 - keep.float().mean(), keep.shape[0], C))
+        return orig(p, xf, top_w, top_ids, m_cfg, act, gated, cf)
+
+    moe._grouped_capacity = counted
+    try:
+        with torch.no_grad():
+            T.loss_fn(cfg, params, batch, remat=False)
+    finally:
+        moe._grouped_capacity = orig
+    return [float(s) for s, _, _ in shares], shares[0][1], shares[0][2]
+
+
+def _train15(torch, name: str, kw: dict) -> None:
+    """TRAIN15's steps of ``make_train_step`` from seed-0 params: each step
+    by CUDA events, then one more split into forward, backward and the
+    optimizer; every loss and grad_norm finite and ce lower at the last
+    step than at the first. On an MoE stack the grouped dispatch's dropped
+    share of (token, k) pairs, layer by layer, in a forward before the
+    first step and one after the last (``_dropped``)."""
+    from repro_torch import training as T
+    from repro_torch.models import model as M
+
+    cfg, params, n = _load15(torch, name, **kw)
+    batches = _train_batches(torch, cfg)
+    drops0 = _dropped(torch, cfg, params, batches[0]) if cfg.moe is not None else None
+    torch.cuda.reset_peak_memory_stats()
+    opt = T.adamw_init(params)
+    step = T.make_train_step(cfg, peak_lr=TRAIN15["peak_lr"], warmup=TRAIN15["warmup"],
+                             total_steps=TRAIN15["steps"], remat=False)
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(TRAIN15["steps"])]
+    metrics = []
+    for i in range(TRAIN15["steps"]):
+        ev[i][0].record()
+        params, opt, m = step(params, opt, batches[i])
+        ev[i][1].record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = sorted(a.elapsed_time(b) for a, b in ev[2:])
+    med = ms[len(ms) // 2]
+    curve = {k: torch.stack([m[k] for m in metrics]).tolist()
+             for k in ("ce", "loss", "moe_aux", "grad_norm")}
+    params, opt, split, _ = _split_step(torch, T, M, cfg, params, opt, batches[-1])
+    drops = ""
+    if cfg.moe is not None:
+        shares, G, C = _dropped(torch, cfg, params, batches[-1])
+        drops = (f"; the grouped dispatch (capacity factor {cfg.moe.capacity_factor}, G {G}, C "
+                 f"{C} a group) drops, layer by layer, "
+                 + ", ".join(f"{x:.4f}" for x in drops0[0]) + " of the (token, k) pairs before "
+                 "the first step and " + ", ".join(f"{x:.4f}" for x in shares) + " after the last")
+    tokens = TRAIN15["batch"] * TRAIN15["seq"]
+    print(f"[phase 15] train {name} ({cfg.num_layers} layers, {n / 1e9:.3f} B parameters, "
+          f"{16 * n / 2**30:.1f} GiB of float32 params, gradients and AdamW moments): "
+          f"{TRAIN15['steps']} steps of {TRAIN15['batch']} x {TRAIN15['seq']}"
+          + (f" x {cfg.num_codebooks}" if cfg.num_codebooks else "")
+          + f" tokens, peak lr {TRAIN15['peak_lr']}, warm-up {TRAIN15['warmup']}: a step (CUDA "
+          f"events, steps 2-{TRAIN15['steps'] - 1}) median {med:.2f} ms, min {ms[0]:.2f}, max "
+          f"{ms[-1]:.2f}; one more split: forward {split[0]:.2f} ms, backward {split[1]:.2f}, "
+          f"optimizer {split[2]:.2f}; {tokens / med * 1e3:.0f} tokens/s; peak device memory "
+          f"{_gib(peak)}; ce {curve['ce'][0]:.4f} at step 0, {curve['ce'][-1]:.4f} at step "
+          f"{TRAIN15['steps'] - 1}; moe_aux {curve['moe_aux'][0]:.4f} / "
+          f"{curve['moe_aux'][-1]:.4f}; "
+          f"grad_norm {curve['grad_norm'][0]:.4f} / {curve['grad_norm'][-1]:.4f}" + drops)
+    bad = [i for i in range(TRAIN15["steps"])
+           if not all(math.isfinite(curve[k][i]) for k in ("loss", "grad_norm"))]
+    if bad or curve["ce"][-1] >= curve["ce"][0]:
+        raise AssertionError(f"phase 15: training {name}: steps {bad} not finite, or ce did not "
+                             f"fall ({curve['ce'][0]:.4f} -> {curve['ce'][-1]:.4f})")
+    if (curve["moe_aux"][0] > 0) != (cfg.moe is not None):
+        raise AssertionError(f"phase 15: training {name}: moe_aux {curve['moe_aux'][0]}")
+    del params, opt, metrics, batches
+
+
+def phase_media(torch, results: dict) -> None:
+    """The codebook and image stacks at full width, then MoE, Mamba-2 and
+    codebook training, float32, random weights from seed 0, one model at a
+    time (each freed before the next):
+
+    (a) llava-next-mistral-7b, all 32 layers: the image prefill and the
+        greedy steps after it, held to fresh prefills (``_llava_image``);
+        AR and DyTC (LS0.5 over PLD) on phase 3's prompts, ``tree_fused``
+        single B=4 dense and paged and ``cascade_fused`` mixing in split
+        rounds on phase 6's prompts, every stream equal to AR; #1-#4 each
+        launched, #3 by the cascade's int8 level;
+    (b) musicgen-medium, all 48 layers: the codebook decode and the T=5
+        joint decode against single steps (``_musicgen_decode``);
+        ``SpecEngine`` and every server mode refuse it;
+    (c) training (``_train15``): mamba2-130m, qwen2-moe-a2.7b at 4 layers,
+        musicgen-medium."""
+    import numpy as np
+
+    from repro_torch.core import SpecEngine
+    from repro_torch.serving import BatchedSpecServer
+
+    t_phase = time.perf_counter()
+    print(f"[phase 15] memory allocated at the start: {_gib(torch.cuda.memory_allocated())}")
+    launches = dict.fromkeys(_counters(), 0)
+
+    def count(fn, *args, **kw):
+        _reset_counts()
+        out = fn(*args, **kw)
+        for k, v in _read_counts().items():
+            launches[k] += v
+        return out
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # (a) llava
+    cfg, params, _ = _load15(torch, "llava-next-mistral-7b")
+    add(_llava_image(torch, cfg, params, results))
+    label = "llava-next-mistral-7b"
+    prompts = _prompts(cfg.vocab_size)
+    ar = count(_single_stream, torch, cfg, params, prompts, label, phase=15)
+    long_prompt = np.tile(np.random.default_rng(SEED + 2).integers(0, cfg.vocab_size, size=50),
+                          4).astype(np.int32)
+    prompts = prompts + [long_prompt]
+    ar = ar + [count(_generate, torch, cfg, params, long_prompt, False)[0]]
+    _serve_single(torch, cfg, params, prompts, ar, f"{label} tree_fused dense single", launches,
+                  phase=15)
+    _serve_single(torch, cfg, params, prompts, ar, f"{label} tree_fused paged single", launches,
+                  phase=15, paged=True)
+    srv = BatchedSpecServer(cfg, params, mode="cascade_fused", round_mode="split", paged=False,
+                            **SERVER)
+    if srv.bank.int8_exec != "kernel":
+        raise AssertionError(f"{label}: int8_exec resolved to {srv.bank.int8_exec!r}")
+    rec = _serve(torch, srv, prompts, ar)
+    disp = _check_dispatches(f"{label} cascade_fused", rec, srv)
+    _check_launches(f"{label} cascade_fused", rec["launches"], False)
+    print(f"[phase 15] {label} cascade_fused mixing dense split: {rec['requests']} requests "
+          f"identical to AR | " + _line(rec) + f", dispatches per round max {max(disp)} of "
+          f"{srv.expected_dispatches_per_round()} | W8A8 launches {rec['launches']['int8_matmul']} "
+          f"| launches per round: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in rec["launches_per_round"].items()))
+    if rec["launches"]["int8_matmul"] <= 0:
+        raise AssertionError(f"{label}: the cascade's int8 level launched no W8A8 kernel")
+    add(rec["launches"])
+    del srv, params
+    torch.cuda.synchronize()
+    print(f"[phase 15] {label}: peak memory serving {_gib(torch.cuda.max_memory_allocated())}")
+
+    # (b) musicgen
+    cfg, params, _ = _load15(torch, "musicgen-medium")
+    add(_musicgen_decode(torch, cfg, params))
+    for who in ("SpecEngine", "chain_fused", "legacy", "tree_fused", "cascade_fused"):
+        try:
+            if who == "SpecEngine":
+                SpecEngine(cfg, params)
+            else:
+                BatchedSpecServer(cfg, params, mode=who, **SERVER)
+        except ValueError as e:
+            print(f"[phase 15] musicgen-medium: {who} refused: {e}")
+        else:
+            raise AssertionError(f"phase 15: {who} accepted a codebook stack")
+    del params
+    print(f"[phase 15] kernel launches of the served runs: {launches}")
+    for name in ("flash_decode", "tree_attention", "flash_decode_paged", "int8_matmul"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 15: {name} was not launched")
+    for k, v in launches.items():
+        results[k]["launches"] += v
+
+    # (c) training
+    for name, kw in TRAINED:
+        _train15(torch, name, kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[phase 15] {time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -3221,6 +3625,7 @@ def main() -> int:
     timed("phase 12", phase_models, torch, results)
     timed("phase 13", phase_moe, torch, results)
     timed("phase 14", phase_ssm, torch, results)
+    timed("phase 15", phase_media, torch, results)
     print(f"[chip_smoke] all phases in {time.perf_counter() - t_all:.1f} s")
     kernels = []
     for name, src, replaces in (

@@ -94,11 +94,27 @@ def fake_quant_int8(params: dict) -> dict:
     return M.tree_map(q, params)
 
 
+def check_text_stack(cfg: ModelConfig, who: str) -> None:
+    """Refuse a codebook stack (musicgen) on a speculative serving path:
+    its tokens are (nc,) codes a position, not scalars, so there is nothing
+    for prompt lookup, the acceptance walk or the committed stream to
+    compare. The reference's paths fail on it by accident (a ``TypeError``
+    in its engine, a broadcast error in its server); the port serves such a
+    stack at the model level only (``models.model.prefill``,
+    ``decode_step``, ``commit_cache``)."""
+    if cfg.num_codebooks:
+        raise ValueError(
+            f"{who}: codebook tokens are not scalar ({cfg.name} has {cfg.num_codebooks} "
+            "codebooks); this path serves text stacks — decode a codebook stack with "
+            "models.model.decode_step and commit_cache")
+
+
 class SpecEngine:
-    """Single-sequence (B=1) speculative engine. On a stack with Mamba-2
-    blocks it verifies chains only: a branching tree raises ``ValueError``
-    (``check_tree_stack``), where the reference's engine would commit a
-    state built from the node's siblings."""
+    """Single-sequence (B=1) speculative engine over a text stack (a
+    codebook stack raises ``ValueError``: ``check_text_stack``). On a stack
+    with Mamba-2 blocks it verifies chains only: a branching tree raises
+    ``ValueError`` (``check_tree_stack``), where the reference's engine
+    would commit a state built from the node's siblings."""
 
     def __init__(
         self,
@@ -109,6 +125,7 @@ class SpecEngine:
         *,
         device="cuda",
     ):
+        check_text_stack(cfg, "SpecEngine")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, engine on {self.device}")
@@ -269,12 +286,13 @@ DRAFT_KV_MODES = ("recompute", "carry")
 
 def _check_draft_kv(cfg: ModelConfig, draft_kv: str, who: str) -> None:
     """``draft_kv`` is one of ``DRAFT_KV_MODES``, and ``"carry"`` needs an
-    attention-only stack (MoE layers are attention blocks with an MoE MLP):
-    a Mamba-2 block's per-step states are cumulative, so they cannot be
-    carried row by row (the reference's ``core/engine.py:87-103``)."""
+    attention-only text stack (MoE layers are attention blocks with an MoE
+    MLP): a Mamba-2 block's per-step states are cumulative, so they cannot
+    be carried row by row, and codebook tokens are not scalar (the
+    reference's ``core/engine.py:87-103``)."""
     if draft_kv not in DRAFT_KV_MODES:
         raise ValueError(f"{who}: unknown draft_kv {draft_kv!r}; pick one of {DRAFT_KV_MODES}")
-    if draft_kv == "carry" and M.has_mamba(cfg):
+    if draft_kv == "carry" and (cfg.num_codebooks or M.has_mamba(cfg)):
         raise ValueError(
             f"{who}: draft_kv='carry' requires an attention-only text stack — SSM per-step "
             "states are cumulative (not row-scatterable) and codebook tokens are not scalar; "
@@ -282,12 +300,13 @@ def _check_draft_kv(cfg: ModelConfig, draft_kv: str, who: str) -> None:
 
 
 def check_tree_stack(cfg: ModelConfig, who: str) -> None:
-    """Refuse token trees on a stack with Mamba-2 blocks: a block's decode is
-    one recurrence over the staged tokens in order, so a branching tree would
-    give each node a state built from its siblings. The reference's batched
-    server refuses them in these words (``serving/server.py:402-409``); its
+    """Refuse token trees on a stack that is not an attention-only text
+    stack: a Mamba-2 block's decode is one recurrence over the staged tokens
+    in order, so a branching tree would give each node a state built from
+    its siblings; codebook tokens are not scalar. The reference's batched
+    server refuses both in these words (``serving/server.py:402-409``); its
     single-stream engine does not, and then leaves AR."""
-    if M.has_mamba(cfg):
+    if cfg.num_codebooks or M.has_mamba(cfg):
         raise ValueError(f"{who} requires an attention-only text stack: staged SSM states are "
                          "chain-ordered and cannot follow tree paths")
 

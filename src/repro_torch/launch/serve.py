@@ -8,13 +8,16 @@ with its flags and its last line.
 
 ``--arch`` is any config the port registers (``repro_torch.config.
 list_configs()``: vicuna-7b, the default, internlm2-20b, starcoder2-3b,
-stablelm-1.6b, gemma3-1b, the MoE models qwen2-moe-a2.7b and
-mixtral-8x22b, and the Mamba-2 stacks mamba2-130m and jamba-v0.1-52b). On
-a stack with Mamba-2 blocks the tree schedulers (``--scheduler dytc``, the
-default, and ``tree``) exit with the engine's refusal: serve it with ``ar``,
-``pld``, ``swift``, ``vc``, ``hc`` or ``vchc``, or batched in ``chain_fused``
-or ``legacy``. It runs on the card (``--device cuda``, the
-default; it raises when there is none). ``--device cpu --reduced`` runs the
+stablelm-1.6b, gemma3-1b, the image stack llava-next-mistral-7b, served
+on text prompts, the MoE models qwen2-moe-a2.7b and mixtral-8x22b, the
+Mamba-2 stacks mamba2-130m and jamba-v0.1-52b, and the codebook stack
+musicgen-medium). On a stack with Mamba-2 blocks the tree schedulers
+(``--scheduler dytc``, the default, and ``tree``) exit with the engine's
+refusal: serve it with ``ar``, ``pld``, ``swift``, ``vc``, ``hc`` or
+``vchc``, or batched in ``chain_fused`` or ``legacy``. musicgen-medium
+exits with the engine's refusal whatever the flags: its codes are not
+scalar tokens (``core.engine.check_text_stack``). It runs on the card
+(``--device cuda``, the default; it raises when there is none). ``--device cpu --reduced`` runs the
 kernels' plain versions on the CPU, at the reduced width with 8 layers.
 ``--mesh model=1,data=1`` serves the requests through ``ServeLoop`` and
 ``BatchedSpecServer`` on the one device; a larger mesh raises
@@ -48,7 +51,7 @@ from repro_torch.core.cascade import (
 )
 from repro_torch.core.dsia import build_hierarchy, layer_sparsity
 from repro_torch.core.dytc import DyTCScheduler
-from repro_torch.core.engine import SpecEngine, check_tree_stack
+from repro_torch.core.engine import SpecEngine, check_text_stack, check_tree_stack
 from repro_torch.data import SPEC_TASKS, make_task_prompts
 from repro_torch.models import init_params
 from repro_torch.serving.exporters import JsonlSink, MetricsHTTPServer
@@ -200,14 +203,15 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), num_layers=8)
-    # a larger mesh, or a tree scheduler on a stack with Mamba-2 blocks, is
-    # refused before anything is built
+    # a larger mesh, a codebook stack, or a tree scheduler on a stack with
+    # Mamba-2 blocks is refused before anything is built
     mesh_shape = parse_mesh(args.mesh) if args.mesh else None
-    if mesh_shape is None and args.scheduler in TREE_SCHEDULERS:
-        try:
+    try:
+        check_text_stack(cfg, f"--arch {args.arch}")
+        if mesh_shape is None and args.scheduler in TREE_SCHEDULERS:
             check_tree_stack(cfg, f"--scheduler {args.scheduler}")
-        except ValueError as e:
-            raise SystemExit(f"error: {e}") from None
+    except ValueError as e:
+        raise SystemExit(f"error: {e}") from None
     params = init_params(cfg, 0, device=device)
     if mesh_shape is not None:
         run_batched(cfg, params, args, device, mesh_shape)

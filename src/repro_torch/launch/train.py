@@ -5,9 +5,13 @@ with its flags and its printed lines, on the card.
   python -m repro_torch.launch.train --device cpu --reduced --steps 3
   python -m repro_torch.launch.train --arch stablelm-1.6b --device cpu --reduced
 
-``--arch`` is any config the port registers (``list_configs()``); the MoE
-configs and the stacks with Mamba-2 blocks (mamba2-130m, jamba-v0.1-52b)
-raise ``NotImplementedError`` (training them is ROADMAP A.4).
+``--arch`` is any config the port registers (``list_configs()``): the MoE
+layers train through the grouped-capacity dispatch and add their auxiliary
+losses, the Mamba-2 blocks through the chunked scan. The CLI's corpus is
+text, (B, S) tokens, so the codebook stack (musicgen-medium) exits with a
+message: it trains on (B, S, nc) batches through
+``repro_torch.training.make_train_step``. llava-next-mistral-7b trains on
+the text alone.
 
 It runs on the card (``--device cuda``, the default; it raises when there
 is none); ``--device cpu`` runs on the CPU. ``--reduced`` trains the
@@ -53,6 +57,11 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.num_codebooks:
+        raise SystemExit(
+            f"error: --arch {args.arch}: this CLI trains on a text corpus of (B, S) tokens; a "
+            f"codebook stack ({cfg.num_codebooks} codebooks) trains on (B, S, "
+            f"{cfg.num_codebooks}) batches through repro_torch.training.make_train_step")
     if args.reduced:
         cfg = cfg.reduced()
     params = init_params(cfg, 0, device=device)

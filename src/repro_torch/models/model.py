@@ -48,11 +48,19 @@ Carried staged KV (``decode_step(staged_kv=...)``, the engine's
 ``draft_kv="carry"``): the T new tokens attend over [committed cache ++
 carried rows ++ themselves]; the returned staged rows are the new ones.
 
-MoE layers (``models/moe.py``) serve through the dropless dispatch, and
-Mamba-2 blocks (``models/ssm.py``) through the chunked scan in prefill and
-the per-token recurrence in decode; training either raises (ROADMAP A.4).
-Off the port so far (they raise): codebook and image inputs and
-context-parallel ``seq_axes``.
+MoE layers (``models/moe.py``) serve through the dropless dispatch and
+train through the grouped-capacity one, whose auxiliary losses
+``forward_train`` sums over the layers; Mamba-2 blocks (``models/ssm.py``)
+run the chunked scan in prefill and training (over a fresh zero state) and
+the per-token recurrence in decode.
+
+Inputs: text tokens (B, S); a codebook stack (``num_codebooks``, musicgen)
+takes (B, S, nc) codes, sums the nc codebook embeddings a position and
+returns (..., nc, V) logits from nc heads; an image stack
+(``num_image_tokens``, llava) splices ``batch["image_embeds"]`` (B, Ti, d)
+into the first Ti positions where ``batch["image_mask"]`` is 1, in
+``prefill`` and ``forward_train``. Context-parallel ``seq_axes`` is not
+ported (it raises).
 """
 from __future__ import annotations
 
@@ -144,13 +152,6 @@ def layout(cfg: ModelConfig) -> List[Segment]:
     return [Segment(0, 1, tuple(specs))]
 
 
-def _check_stack(cfg: ModelConfig) -> None:
-    """The port serves attention and Mamba-2 blocks, with dense or MoE MLPs,
-    over text."""
-    if cfg.num_codebooks or cfg.num_image_tokens:
-        raise NotImplementedError("codebook and image inputs are not ported yet")
-
-
 def has_mamba(cfg: ModelConfig) -> bool:
     """Whether any layer of the stack is a Mamba-2 block (whose per-step
     states follow one chain of tokens: no trees, no carried draft KV)."""
@@ -210,14 +211,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     a time, so the draw's peak memory is the params plus at most one
     ``DRAW_CHUNK`` temporary (none in float32). ``device="meta"`` gives the
     names and shapes alone, allocating nothing."""
-    _check_stack(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
-    d, V = cfg.d_model, cfg.padded_vocab
-    top = {"embed": Init((V, d), d ** -0.5, dtype), "final_norm": Init((d,), None, dtype)}
+    d, V, nc = cfg.d_model, cfg.padded_vocab, cfg.num_codebooks
+    # a codebook stack has one embedding table and one head a codebook
+    top = {"embed": Init((nc, V, d) if nc else (V, d), d ** -0.5, dtype),
+           "final_norm": Init((d,), None, dtype)}
     if not cfg.tie_embeddings:
-        top["lm_head"] = Init((d, V), d ** -0.5, dtype)
+        top["lm_head"] = Init((nc, d, V) if nc else (d, V), d ** -0.5, dtype)
     params: dict = {}
     for name, init in top.items():
         params[name] = torch.empty(init.shape, dtype=init.dtype, device=dev)
@@ -266,7 +268,6 @@ def init_cache(
     must be a multiple of ``page_size``, and ring caches page nothing.
     A Mamba-2 layer holds its per-slot state (the SSM state float32, the
     conv tails in ``dtype``), dense either way."""
-    _check_stack(cfg)
     if paged:
         if ring_window:
             raise ValueError("paged caches do not support ring_window")
@@ -400,13 +401,15 @@ def _run_stack(
     staged_mask: Optional[torch.Tensor] = None,
     remat: bool = False,
 ):
-    """Returns (hidden, staged segments: [[{leaf: (R_run, B, T, ...)}]]), the
-    staged leaves ``"k"``, ``"v"`` (B, T, KV, hd) of an attention layer or
-    the per-step states of a Mamba-2 layer (``ssm_lib.STATE_LEAVES``).
-    ``staged_kv`` has the structure of a previous call's staged segments
-    (one entry per layer run, in run order). ``mode="train"`` takes no
-    cache and stages nothing (the staged segments are empty)."""
-    _check_stack(cfg)
+    """Returns (hidden, staged segments: [[{leaf: (R_run, B, T, ...)}]],
+    moe_aux), the staged leaves ``"k"``, ``"v"`` (B, T, KV, hd) of an
+    attention layer or the per-step states of a Mamba-2 layer
+    (``ssm_lib.STATE_LEAVES``). ``staged_kv`` has the structure of a
+    previous call's staged segments (one entry per layer run, in run
+    order). ``mode="train"`` takes no cache and stages nothing (the staged
+    segments are empty); its ``moe_aux`` is the float32 sum of every MoE
+    layer's load-balance and router-z losses (0 without MoE layers, and
+    in the other modes)."""
     segs = layout(cfg)
     g_host = _host_gates(gates, cfg.num_layers)
     if layer_ids is not None and (len(segs) != 1 or len(segs[0].unit) != 1):
@@ -414,6 +417,7 @@ def _run_stack(
     train = mode == "train"
     table = None if train else cache.get("page_table")
     staged_segments = []
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for si, seg in enumerate(segs):
         p_seg = params["segments"][si]
         U = len(seg.unit)
@@ -427,7 +431,9 @@ def _run_stack(
                 gate = g_host[seg.start + r * U + u]
                 if train:
                     body = _layer_fn(cfg, views[u][r], spec, gate, q_pos, "train")
-                    h = checkpoint(body, h, use_reentrant=False) if remat else body(h)
+                    h, _, a = checkpoint(body, h, use_reentrant=False) if remat else body(h)
+                    if a is not None:
+                        aux = aux + a
                     continue
                 lc = {n: a[r] for n, a in cache["segments"][si][u].items()}
                 lc.update(_pos=cache["pos"], _table=table)
@@ -435,13 +441,13 @@ def _run_stack(
                 if staged_kv is not None:
                     buf = {n: staged_kv[si][u][n][i] for n in ("k", "v")}
                 p_l = tree_map(lambda a, r=r: a[r], p_seg[u])          # views
-                h, st = _layer_fn(cfg, p_l, spec, gate, q_pos, mode, lc, tree_mask, attn_override,
-                                  buf, staged_pos, staged_mask, quantize, staged=True)(h)
+                h, st, _ = _layer_fn(cfg, p_l, spec, gate, q_pos, mode, lc, tree_mask,
+                                     attn_override, buf, staged_pos, staged_mask, quantize)(h)
                 for n, a in st.items():
                     staged[u].setdefault(n, []).append(a)
         if not train:
             staged_segments.append([{n: torch.stack(v) for n, v in s.items()} for s in staged])
-    return h, staged_segments
+    return h, staged_segments, aux
 
 
 def _unstack(tree: dict, n: int) -> List[dict]:
@@ -452,10 +458,11 @@ def _unstack(tree: dict, n: int) -> List[dict]:
 
 
 def _layer_fn(cfg, p_l, spec, gate, q_pos, mode, lc=None, tree_mask=None, attn_override=None,
-              buf=None, staged_pos=None, staged_mask=None, quantize=None, staged=False):
+              buf=None, staged_pos=None, staged_mask=None, quantize=None):
     """One layer (attention or Mamba-2, then the MLP) as a function of the
-    residual stream: returns the new stream, and with ``staged`` also the
-    layer's staged K/V or per-step states."""
+    residual stream: returns (the new stream, the layer's staged K/V or
+    per-step states, its MoE auxiliary loss: a float32 0-d tensor in
+    ``mode="train"`` on an MoE layer, else None)."""
     def body(h):
         if spec.block is BlockKind.MAMBA:
             x = rms_norm(h, p_l["norm1"], cfg.norm_eps)
@@ -465,32 +472,65 @@ def _layer_fn(cfg, p_l, spec, gate, q_pos, mode, lc=None, tree_mask=None, attn_o
             delta, st = _attn_layer(cfg, p_l, spec, h, q_pos, mode, lc, tree_mask, attn_override,
                                     buf, staged_pos, staged_mask)
         h = h + _gated(delta, gate)
+        aux = None
         if spec.has_mlp:
             x = rms_norm(h, p_l["norm2"], cfg.norm_eps)
             if spec.is_moe:
-                # the dropless dispatch (the reference's prefill and decode;
-                # forward_train refuses MoE stacks); the expert products stay
-                # in the model's type: ActivationQuant quantizes the dense MLP
-                # only, as the reference does
-                grouped = mode == "prefill" and not cfg.moe.prefill_dropless
-                moe_mode = "infer_grouped" if grouped else "infer"
-                y, _ = moe_lib.moe_apply(p_l["moe"], x, cfg.moe, cfg.act, cfg.mlp_gated,
-                                         mode=moe_mode, with_aux=False)
+                # training: the grouped-capacity dispatch and its aux losses;
+                # serving: the dropless dispatch. The expert products stay in
+                # the model's type: ActivationQuant quantizes the dense MLP
+                # only, as the reference does (its _mlp_layer, l.397-417)
+                train = mode == "train"
+                if train:
+                    moe_mode = "train"
+                elif mode == "prefill" and not cfg.moe.prefill_dropless:
+                    moe_mode = "infer_grouped"
+                else:
+                    moe_mode = "infer"
+                y, a = moe_lib.moe_apply(p_l["moe"], x, cfg.moe, cfg.act, cfg.mlp_gated,
+                                         mode=moe_mode, with_aux=train)
+                if train:
+                    aux = a["load_balance"] + a["router_z"]
             else:
                 y = mlp_apply(p_l["mlp"], x, cfg.act, cfg.mlp_gated, quantize=quantize)
             h = h + _gated(y, gate)
-        return (h, st) if staged else h
+        return h, st, aux
     return body
 
 
-def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return embed_tokens(params["embed"], tokens.long())
+def _embed(cfg: ModelConfig, params: dict, batch: Dict[str, Any]) -> torch.Tensor:
+    """The input embeddings (B, S, d) of ``batch["tokens"]``: (B, S) text
+    tokens, or (B, S, nc) codes whose nc codebook embeddings are summed.
+    On an image stack, ``batch["image_embeds"]`` (B, Ti, d), where given,
+    replaces the first Ti positions where ``batch["image_mask"]`` (B, S) is
+    1, with the reference's arithmetic (``e * (1 - mask) + img * mask``)."""
+    embed = params["embed"]
+    tokens = torch.as_tensor(batch["tokens"], device=embed.device).long()
+    if cfg.num_codebooks:
+        e = embed_tokens(embed[0], tokens[..., 0])
+        for c in range(1, cfg.num_codebooks):
+            e = e + embed_tokens(embed[c], tokens[..., c])
+    else:
+        e = embed_tokens(embed, tokens)
+    if cfg.num_image_tokens and "image_embeds" in batch:
+        mask = torch.as_tensor(batch["image_mask"], device=e.device)[..., None].to(e.dtype)
+        img = torch.as_tensor(batch["image_embeds"], device=e.device).to(e.dtype)
+        B, S, d = e.shape
+        img_full = torch.cat([img, img.new_zeros((B, S - img.shape[1], d))], dim=1)
+        e = e * (1 - mask) + img_full * mask
+    return e
 
 
 def _head(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+    """Logits in float32: (..., V), or (..., nc, V) on a codebook stack, the
+    padded vocabulary masked to -1e30."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = unembed(h, head)
+    if cfg.num_codebooks:
+        heads = params["embed"].transpose(1, 2) if cfg.tie_embeddings else params["lm_head"]
+        logits = torch.einsum("btd,cdv->btcv", h.float(), heads.float())
+    else:
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        logits = unembed(h, head)
     if cfg.padded_vocab != cfg.vocab_size:
         ids = torch.arange(cfg.padded_vocab, device=logits.device)
         logits = torch.where(ids < cfg.vocab_size, logits, torch.full_like(logits, -1e30))
@@ -506,23 +546,19 @@ def forward_train(
     gates=None,
     remat: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full causal forward over ``batch["tokens"]`` (B, S), differentiable,
-    writing no cache. Returns (logits (B, S, V) float32, moe_aux): a stack
-    of dense MLPs has no MoE auxiliary loss, so it is a float32 zero; an MoE
-    stack or one with Mamba-2 blocks raises (training them is ROADMAP A.4).
-    ``remat=True`` recomputes each layer's activations in the backward
-    pass."""
-    if has_mamba(cfg):
-        raise NotImplementedError("training a stack with Mamba-2 blocks is not ported yet: "
-                                  "ROADMAP A.4")
-    if any(spec.is_moe for seg in layout(cfg) for spec in seg.unit):
-        raise NotImplementedError(moe_lib.TRAINING_NOT_PORTED.format(mode="train"))
-    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
-    h = _embed(params, tokens)
+    """Full causal forward over ``batch`` (``_embed``: tokens (B, S) or
+    (B, S, nc), image embeddings where given), differentiable, writing no
+    cache. Returns (logits (B, S, [nc,] V) float32, moe_aux): the float32
+    sum over the MoE layers of their load-balance and router-z losses (0 on
+    a stack without MoE layers). MoE layers dispatch through the grouped
+    capacity (``moe_apply(mode="train")``), Mamba-2 blocks run the chunked
+    scan over a fresh zero state. ``remat=True`` recomputes each layer's
+    activations in the backward pass."""
+    h = _embed(cfg, params, batch)
     q_pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
-    h, _ = _run_stack(cfg, params, h, mode="train", cache=None, gates=gates, q_pos=q_pos,
-                      tree_mask=None, remat=remat)
-    return _head(cfg, params, h), torch.zeros((), dtype=torch.float32, device=h.device)
+    h, _, aux = _run_stack(cfg, params, h, mode="train", cache=None, gates=gates, q_pos=q_pos,
+                           tree_mask=None, remat=remat)
+    return _head(cfg, params, h), aux
 
 
 def prefill(
@@ -533,19 +569,19 @@ def prefill(
     *,
     gates=None,
 ) -> Tuple[torch.Tensor, Cache]:
-    """Process the prompt and write it into ``cache`` (in place). Returns
-    (last-token logits (B, V) float32, cache)."""
+    """Process the prompt (``_embed``: tokens, and image embeddings where
+    given) and write it into ``cache`` (in place). Returns (last-token
+    logits (B, [nc,] V) float32, cache)."""
     if "page_table" in cache:
         raise NotImplementedError(
             "prefill writes a dense cache; paged serving prefills a dense B=1 cache "
             "and scatters it with write_slot"
         )
-    tokens = batch["tokens"]
-    h = _embed(params, tokens)
+    h = _embed(cfg, params, batch)
     B, S, _ = h.shape
     q_pos = torch.arange(S, dtype=torch.int32, device=h.device)
-    h, staged = _run_stack(cfg, params, h, mode="prefill", cache=cache, gates=gates,
-                           q_pos=q_pos, tree_mask=None)
+    h, staged, _ = _run_stack(cfg, params, h, mode="prefill", cache=cache, gates=gates,
+                              q_pos=q_pos, tree_mask=None)
     _write_prefill(cfg, cache, staged, S)
     logits = _head(cfg, params, h[:, -1:])
     return logits[:, 0], cache
@@ -577,7 +613,7 @@ def decode_step(
     cfg: ModelConfig,
     params: dict,
     cache: Cache,
-    tokens: torch.Tensor,             # (B, T)
+    tokens: torch.Tensor,             # (B, T), or (B, T, nc) codes
     *,
     gates=None,
     tree_mask: Optional[torch.Tensor] = None,   # (T, T) or (B, T, T) ancestor-or-self
@@ -592,7 +628,8 @@ def decode_step(
 ) -> Tuple[torch.Tensor, Any]:
     """Stage-only decode of T tokens against a frozen cache.
 
-    Returns (logits (B, T, V) float32, staged) — commit with ``commit_cache``.
+    Returns (logits (B, T, [nc,] V) float32, staged) — commit with
+    ``commit_cache``; a codebook step is one position of the cache.
     ``quantize="int8"`` runs the dense-MLP matmuls through the W8A8 kernel.
     With ``staged_kv`` (the structure a previous call returned as staged,
     per layer (R_run, B, N_s, KV, hd); its layers in the same run order),
@@ -606,16 +643,16 @@ def decode_step(
     if any(given) and not all(given):
         raise ValueError("decode_step: staged_kv requires staged_pos and staged_mask")
     tokens = torch.as_tensor(tokens, device=cache["pos"].device)
-    h = _embed(params, tokens)
+    h = _embed(cfg, params, {"tokens": tokens})
     B, T = tokens.shape[:2]
     if q_pos is None:
         q_pos = cache["pos"][:, None] + torch.arange(T, dtype=torch.int32, device=h.device)[None]
     elif q_pos.ndim == 1:
         q_pos = q_pos[None].expand(B, T)
-    h, staged = _run_stack(cfg, params, h, mode="decode", cache=cache, gates=gates,
-                           q_pos=q_pos, tree_mask=tree_mask, attn_override=attn_override,
-                           quantize=quantize, layer_ids=layer_ids, staged_kv=staged_kv,
-                           staged_pos=staged_pos, staged_mask=staged_mask)
+    h, staged, _ = _run_stack(cfg, params, h, mode="decode", cache=cache, gates=gates,
+                              q_pos=q_pos, tree_mask=tree_mask, attn_override=attn_override,
+                              quantize=quantize, layer_ids=layer_ids, staged_kv=staged_kv,
+                              staged_pos=staged_pos, staged_mask=staged_mask)
     return _head(cfg, params, h), staged
 
 
@@ -642,7 +679,6 @@ def commit_cache(
     read), and keeps its state where ``n_accept`` is 0: a gather and a
     ``where`` of fixed shape, as the reference's l.895-905.
     """
-    _check_stack(cfg)
     base = cache["pos"]
     B, dev = base.shape[0], base.device
     path_idx = torch.as_tensor(path_idx, device=dev).long()
@@ -748,7 +784,6 @@ def write_slot(cfg: ModelConfig, cache: Cache, c1: Cache, slot: int) -> Cache:
     page is unallocated are not written. A Mamba-2 layer's state is copied
     into the slot as it is (it is per slot, dense in a paged cache too).
     """
-    _check_stack(cfg)
     dev = cache["pos"].device
     for si, seg in enumerate(layout(cfg)):
         for u, spec in enumerate(seg.unit):

@@ -1,15 +1,23 @@
-"""Mixture-of-Experts layer, serving path: the port of the reference's
-``src/repro/models/moe.py``.
+"""Mixture-of-Experts layer: the port of the reference's
+``src/repro/models/moe.py``, with its two dispatch paths.
 
-Only the dropless dispatch (``mode="infer"``, the reference's
-``_dropless_ragged``) is ported: exact top-k with no capacity drops, so a
-token's output never depends on the tokens batched with it, which lossless
-speculative verification needs. The grouped-capacity dispatch
-(``mode="train"`` and ``"infer_grouped"``) raises: MoE training is ROADMAP
-A.4.
+Dropless (``mode="infer"``, the reference's ``_dropless_ragged``, serving):
+exact top-k with no capacity drops, so a token's output never depends on
+the tokens batched with it, which lossless speculative verification needs.
 
-The dispatch reads nothing on the host, so a captured CUDA round holds it:
-a stable sort of the flat expert ids, the experts' row offsets by
+Grouped capacity (``mode="train"`` with ``capacity_factor``, and
+``"infer_grouped"`` with ``infer_capacity_factor``; the reference's
+``_grouped_capacity``): the N tokens split into G groups (``exec_groups``,
+halved until it divides N), each expert takes at most
+C = max(1, int(cf * N/G * K / E + 0.999)) rows a group, first come first
+served in token-major, k-minor order; the rows past C are dropped. The
+dispatch and the combine are gathers through a slot table, and the expert
+products are batched matmuls (``_expert_ffn``, ``torch.einsum``), as the
+reference computes them outside any Pallas kernel. Its auxiliary losses
+(load balance and router z) come from the router.
+
+The dropless dispatch reads nothing on the host, so a captured CUDA round
+holds it: a stable sort of the flat expert ids, the experts' row offsets by
 ``searchsorted``, two launches of the grouped expert GEMM
 (``kernels/moe_grouped.py``: the gated up projection, then the down
 projection) and a gathered combine that adds each token's K weighted
@@ -25,17 +33,17 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.config.base import MoEConfig
 from repro_torch.kernels.moe_grouped import moe_grouped
-from repro_torch.models.layers import Init, mlp_apply, mlp_init
+from repro_torch.models.layers import Init, _gelu_tanh, mlp_apply, mlp_init
 from repro_torch.models.ssm import FLOAT32_LEAVES as SSM_FLOAT32_LEAVES
 
 # leaves the reference keeps in float32 whatever the model's type
 FLOAT32_LEAVES = ("w_router",)
 
-TRAINING_NOT_PORTED = ("MoE training (the grouped-capacity dispatch, mode={mode!r}, and its "
-                       "aux losses) is not ported yet: ROADMAP A.4")
+MODES = ("train", "infer", "infer_grouped")
 
 
 def moe_init(d_model: int, moe: MoEConfig, gated: bool, dtype: torch.dtype) -> dict:
@@ -115,6 +123,71 @@ def _dropless(params: dict, xf: torch.Tensor, top_w, top_ids, moe: MoEConfig, ac
     return y
 
 
+def _expert_ffn(params: dict, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
+    """Every expert's MLP over its rows: x (E, C, d) or (G, E, C, d), one
+    batched product a matrix (the reference's l.67-90)."""
+    fn = F.silu if act == "silu" else _gelu_tanh
+    if x.ndim == 3:
+        eq_up, eq_dn = "ecd,edf->ecf", "ecf,efd->ecd"
+    else:
+        eq_up, eq_dn = "gecd,edf->gecf", "gecf,efd->gecd"
+    if gated:
+        h = fn(torch.einsum(eq_up, x, params["w_gate"])) * torch.einsum(eq_up, x, params["w_up"])
+    else:
+        h = fn(torch.einsum(eq_up, x, params["w_up"]))
+    return torch.einsum(eq_dn, h, params["w_down"])
+
+
+def capacity_slots(top_ids: torch.Tensor, moe: MoEConfig, cf: float):
+    """Where each (token, k) pair of ``top_ids`` (N, K) lands in the grouped
+    dispatch, as the reference computes it (l.93-112): the groups G
+    (``exec_groups`` halved until it divides N), each expert's capacity C a
+    group, and per group in token-major, k-minor order the pair's slot
+    ``expert * C + rank`` (its rank among the group's earlier pairs of that
+    expert: a cumsum over the one-hot ids), or ``E * C`` where the rank
+    reaches C (dropped). Returns (slot (G, N/G * K), keep (G, N/G * K)
+    bool, C)."""
+    N, K = top_ids.shape
+    E = moe.num_experts
+    G = moe.exec_groups
+    while N % G:
+        G //= 2
+    G = max(G, 1)
+    C = max(1, int(cf * (N // G) * K / E + 0.999))
+    ids_g = top_ids.reshape(G, N // G * K)
+    onehot = F.one_hot(ids_g, E)                                # (G, Ng*K, E)
+    pos_in_e = torch.cumsum(onehot, dim=1) - onehot
+    pos = pos_in_e.gather(2, ids_g[..., None])[..., 0]
+    keep = pos < C
+    return torch.where(keep, ids_g * C + pos, torch.full_like(pos, E * C)), keep, C
+
+
+def _grouped_capacity(params: dict, xf: torch.Tensor, top_w, top_ids, moe: MoEConfig, act: str,
+                      gated: bool, cf: float) -> torch.Tensor:
+    """The reference's ``_grouped_capacity`` (l.93-140): the slots of
+    ``capacity_slots``; a slot table (slot -> token; an empty slot reads a
+    zero row) gathers the (G, E, C, d) dispatch buffer, and each token
+    gathers its K expert rows back (a dropped pair reads the zero row,
+    weight 0) and adds them, weighted."""
+    N, d = xf.shape
+    E, K = moe.num_experts, moe.top_k
+    slot, keep, C = capacity_slots(top_ids, moe, cf)
+    G, Ng = slot.shape[0], N // slot.shape[0]
+    w_g = top_w.reshape(G, Ng * K)
+    tok_g = torch.arange(Ng, device=xf.device).repeat_interleave(K)[None].expand(G, Ng * K)
+    # the slot table: kept slots are distinct; the dropped ones all land on
+    # column E*C, which is cut off
+    idx_tab = torch.full((G, E * C + 1), Ng, dtype=torch.long, device=xf.device)
+    idx_tab.scatter_(1, slot, tok_g)
+    xg_pad = torch.cat([xf.reshape(G, Ng, d), xf.new_zeros((G, 1, d))], dim=1)
+    eb = xg_pad.gather(1, idx_tab[:, :E * C, None].expand(G, E * C, d)).reshape(G, E, C, d)
+    eo = _expert_ffn(params, eb, act, gated).reshape(G, E * C, d)
+    eo = torch.cat([eo, eo.new_zeros((G, 1, d))], dim=1)
+    gathered = eo.gather(1, slot[..., None].expand(G, Ng * K, d)).reshape(G, Ng, K, d)
+    w_nk = (w_g * keep).to(xf.dtype).reshape(G, Ng, K)
+    return (gathered * w_nk[..., None]).sum(dim=2).reshape(N, d)
+
+
 def moe_apply(
     params: dict,
     x: torch.Tensor,                    # (B, S, d)
@@ -126,13 +199,19 @@ def moe_apply(
     with_aux: bool = True,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Returns (output (B, S, d), aux losses, or None without ``with_aux``).
-    ``mode="infer"`` (the dropless dispatch) is the only mode ported."""
-    if mode != "infer":
-        raise NotImplementedError(TRAINING_NOT_PORTED.format(mode=mode))
+    ``mode``: ``"infer"`` the dropless dispatch; ``"train"`` and
+    ``"infer_grouped"`` the grouped capacity at ``capacity_factor`` and
+    ``infer_capacity_factor``."""
+    if mode not in MODES:
+        raise ValueError(f"moe_apply: unknown mode {mode!r}; pick one of {MODES}")
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
     top_w, top_ids, aux = _router(params, xf, moe, with_aux)
-    y = _dropless(params, xf, top_w, top_ids, moe, act, gated)
+    if mode == "infer":
+        y = _dropless(params, xf, top_w, top_ids, moe, act, gated)
+    else:
+        cf = moe.capacity_factor if mode == "train" else moe.infer_capacity_factor
+        y = _grouped_capacity(params, xf, top_w, top_ids, moe, act, gated, cf)
     if "shared" in params:
         gate = torch.sigmoid(xf.float() @ params["w_shared_gate"].float()).to(x.dtype)
         y = y + mlp_apply(params["shared"], xf, act, gated) * gate

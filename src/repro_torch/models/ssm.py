@@ -2,11 +2,11 @@
 ``src/repro/models/ssm.py``. [arXiv:2405.21060]
 
 Plain functions on tensors, as the reference computes all of this in
-``jnp`` outside any Pallas kernel: the chunked dual form for prefill
-(``ssd_chunked``: the intra-chunk quadratic product, per-chunk states and
-the inter-chunk recurrence) and the per-token recurrence for decode, whose
-conv windows, inputs and readouts run for all T tokens at once around a
-loop of state updates. Decode over T staged tokens returns *every*
+``jnp`` outside any Pallas kernel: the chunked dual form for prefill and
+training (``ssd_chunked``: the intra-chunk quadratic product, per-chunk
+states and the inter-chunk recurrence) and the per-token recurrence for
+decode, whose conv windows, inputs and readouts run for all T tokens at
+once around a loop of state updates. Decode over T staged tokens returns *every*
 per-step state, so a speculative verify can commit the state after the
 accepted prefix. The states are
 cumulative, so they follow one chain of tokens: tree drafts and carried
@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -187,16 +187,21 @@ def mamba_forward(
     h: torch.Tensor,           # (B, S, d) block input (after the norm)
     d_model: int,
     s: SSMConfig,
-    layer_cache: dict,         # {"ssm", "conv_x", "conv_B", "conv_C"}
+    layer_cache: Optional[dict],   # {"ssm", "conv_x", "conv_B", "conv_C"}; None to train
     *,
-    mode: str,                 # "prefill" | "decode"
+    mode: str,                 # "train" | "prefill" | "decode"
 ) -> Tuple[torch.Tensor, dict]:
     """Returns (out (B, S, d), staged). ``staged`` holds the per-step states
     (B, T, ...) in decode mode, for the speculative commit; in prefill it
-    holds the final states with a length-1 step axis."""
-    if mode not in ("prefill", "decode"):
+    holds the final states with a length-1 step axis. ``mode="train"`` is
+    the prefill path over a fresh zero state (the reference's
+    ``model._mamba_layer``, l.376-394), differentiable, staging nothing
+    (``staged`` is empty)."""
+    if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mamba_forward: unknown mode {mode!r}")
     B, S, _ = h.shape
+    if mode == "train":
+        layer_cache = init_state(d_model, s, B, h.dtype, h.device)
     nh, hd, din = s.num_heads(d_model), s.head_dim, s.d_inner(d_model)
     g, ds, K = s.ngroups, s.d_state, s.d_conv
 
@@ -216,14 +221,14 @@ def mamba_forward(
     x = xc.reshape(B, S, nh, hd).float()
     B_h, C_h = Bc.reshape(B, S, g, ds), Cc.reshape(B, S, g, ds)
 
-    if mode == "prefill":
-        y, final = ssd_chunked(x, dt, A, B_h, C_h, layer_cache["ssm"], s.chunk_size)
-        staged = {"ssm": final[:, None]}
-        tails = full[:, None, -(K - 1):]                      # (B, 1, K-1, C)
-    else:
+    if mode == "decode":
         y, states = _recurrence(x, dt, A, B_h, C_h, layer_cache["ssm"])
         staged = {"ssm": states}
         tails = full.unfold(1, K - 1, 1)[:, 1:].transpose(2, 3)   # (B, T, K-1, C)
+    else:
+        y, final = ssd_chunked(x, dt, A, B_h, C_h, layer_cache["ssm"], s.chunk_size)
+        staged = {"ssm": final[:, None]}
+        tails = full[:, None, -(K - 1):]                      # (B, 1, K-1, C)
     for n, tail in zip(STATE_LEAVES[1:], tails.split(widths, dim=-1)):
         staged[n] = tail.contiguous()
     y = y + D[None, None, :, None] * x
@@ -231,7 +236,7 @@ def mamba_forward(
     yf = y.reshape(B, S, din)
     yf = rms_norm(yf * F.silu(z.float()), params["norm_w"], 1e-5)
     out = yf.to(h.dtype) @ params["out_proj"]
-    return out, staged
+    return out, ({} if mode == "train" else staged)
 
 
 def _recurrence(x, dt, A, B_h, C_h, ssm0):

@@ -68,8 +68,11 @@ cumulative. Those stacks (mamba2-130m, jamba-v0.1-52b) serve through
 ``chain_fused`` and ``legacy`` only: ``tree_fused``, ``cascade_fused``,
 carried draft KV and chunked prefill raise, with the reference's words.
 A single round captures their recurrence in its graph like any other
-layer. ``prefill_chunk > 0`` (paged, single rounds) makes admission
-enqueue-only: each round consumes up to ``prefill_chunk`` prompt tokens per
+layer. A codebook stack (musicgen-medium) is not served: its tokens are not
+scalar, so every mode raises ``ValueError`` at construction
+(``chain_fused`` and ``legacy`` through ``engine.check_text_stack``, where
+the reference fails at admission with a broadcast error).
+``prefill_chunk > 0`` (paged, single rounds) makes admission enqueue-only: each round consumes up to ``prefill_chunk`` prompt tokens per
 prefilling slot (``core.engine.prefill_chunk_stage``, behind a conditional
 node of its own), and slots still prefilling are dead for the decode half.
 
@@ -132,6 +135,7 @@ from repro_torch.core.acceptance import AcceptanceTracker, ema_init
 from repro_torch.core.dsia import PLD_SPEC, DraftSpec, build_hierarchy
 from repro_torch.core.engine import (
     _check_draft_kv,
+    check_text_stack,
     check_tree_stack,
     cascade_rescore,
     cascade_rescore_verify,
@@ -233,12 +237,16 @@ class BatchedSpecServer:
         self.round_mode = round_mode
         self.sync_every = max(int(sync_every or 1), 1)
         # MoE layers count as attention blocks (src/repro/serving/server.py:343-352)
-        attention_only = not M.has_mamba(cfg)
+        attention_only = not cfg.num_codebooks and not M.has_mamba(cfg)
         if draft_kv == "auto":
             # carry: O(top_k) new-token decodes per expansion step instead of
-            # the padded-block recompute, everywhere but on SSM stacks
+            # the padded-block recompute, everywhere but on SSM and codebook stacks
             draft_kv = "carry" if attention_only else "recompute"
         _check_draft_kv(cfg, draft_kv, "BatchedSpecServer")
+        if mode in ("chain_fused", "legacy"):
+            # tree_fused and cascade_fused refuse a codebook stack in the
+            # reference's words, with the Mamba-2 stacks (check_tree_stack)
+            check_text_stack(cfg, f"BatchedSpecServer(mode={mode!r})")
         if sampling is not None and not isinstance(sampling, SamplingParams):
             raise TypeError(f"sampling must be a SamplingParams or None, not "
                             f"{type(sampling).__name__}")

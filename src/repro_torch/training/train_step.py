@@ -19,13 +19,16 @@ def loss_fn(
     remat: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy (the shift by one is inside) plus the MoE
-    auxiliary loss (0 on the attention-only stack). ``batch["tokens"]`` is
-    (B, S); an optional ``loss_mask`` (B, S-1) weights the targets.
-    Returns (loss, {"ce", "moe_aux", "loss"})."""
+    auxiliary loss (0 on a stack without MoE layers). ``batch["tokens"]``
+    is (B, S), or (B, S, nc) on a codebook stack, whose per-position NLL is
+    the mean over the codebooks; an optional ``loss_mask`` (B, S-1) weights
+    the targets. Returns (loss, {"ce", "moe_aux", "loss"})."""
     logits, aux = M.forward_train(cfg, params, batch, remat=remat)
     tokens = torch.as_tensor(batch["tokens"], device=logits.device).long()
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
-    nll = -logp.gather(-1, tokens[:, 1:, None])[..., 0]
+    nll = -logp.gather(-1, tokens[:, 1:, ..., None])[..., 0]
+    if cfg.num_codebooks:
+        nll = nll.mean(dim=-1)                       # (B, S-1, nc) -> (B, S-1)
     mask = batch.get("loss_mask")
     if mask is None:
         ce = nll.mean()

@@ -93,8 +93,9 @@ def test_config_equals_reference(arch):
 
 def test_registry_and_input_shapes_equal_reference():
     assert config.list_configs() == sorted(("vicuna-7b", "qwen2-moe-a2.7b", "mixtral-8x22b",
-                                            "mamba2-130m", "jamba-v0.1-52b") + NEW)
-    assert set(config.list_configs()) <= set(j_config.list_configs())
+                                            "mamba2-130m", "jamba-v0.1-52b", "musicgen-medium",
+                                            "llava-next-mistral-7b") + NEW)
+    assert config.list_configs() == j_config.list_configs()
     assert sorted(config.INPUT_SHAPES) == sorted(j_config.INPUT_SHAPES)
     for name in j_config.INPUT_SHAPES:
         assert dataclasses.asdict(config.get_shape(name)) == dataclasses.asdict(
@@ -105,9 +106,11 @@ def test_registry_and_input_shapes_equal_reference():
     with pytest.raises(KeyError):
         config.get_shape("decode_64k")
     with pytest.raises(KeyError):
-        config.get_config("musicgen-medium")    # its codebook inputs are not ported yet
-    with pytest.raises(NotImplementedError):
-        M.init_params(j_config.get_config("musicgen-medium").reduced(), device="meta")
+        config.get_config("musicgen-small")
+    # the codebook stack's tables: one embedding and one head a codebook
+    meta = M.init_params(config.get_config("musicgen-medium").reduced(), device="meta")
+    assert tuple(meta["embed"].shape) == (4, 512, 256)
+    assert tuple(meta["lm_head"].shape) == (4, 256, 512)
 
 
 def test_full_width_shapes_of_the_new_models():
@@ -309,8 +312,9 @@ def test_clis_take_every_config(arch, capsys, tmp_path):
     train.main(["--device", "cpu", "--reduced", "--arch", arch, "--steps", "1", "--batch", "2",
                 "--seq", "16"])
     assert "1 steps in" in capsys.readouterr().out
+    assert serve.build_parser().parse_args(["--arch", "musicgen-medium"]).arch == "musicgen-medium"
     with pytest.raises(SystemExit):
-        serve.build_parser().parse_args(["--arch", "musicgen-medium"])
+        serve.build_parser().parse_args(["--arch", "musicgen-small"])
 
 
 # ------------------------------------------------------------ import isolation
@@ -329,7 +333,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.configs.qwen2_moe_a2_7b", "repro_torch.configs.mixtral_8x22b",
                 "repro_torch.models.moe", "repro_torch.kernels.moe_grouped",
                 "repro_torch.models.ssm", "repro_torch.configs.mamba2_130m",
-                "repro_torch.configs.jamba_v0_1_52b",
+                "repro_torch.configs.jamba_v0_1_52b", "repro_torch.configs.musicgen_medium",
+                "repro_torch.configs.llava_next_mistral_7b",
                 "repro_torch.config.shapes"} <= set(sys.modules), names
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"

@@ -26,6 +26,7 @@ from repro_torch.config import get_config  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.serving import BatchedSpecServer  # noqa: E402
 
 J_CFG = dataclasses.replace(j_get_config("vicuna-7b").reduced(), num_layers=4)
 CFG = dataclasses.replace(get_config("vicuna-7b").reduced(), num_layers=4)
@@ -166,6 +167,7 @@ def test_commit_cache_partial_accept_leaves_rejected_rows():
         np.testing.assert_array_equal(g[:, 0, 10:13], staged[n][:, 0, [0, 2, 5]])
 
 
+MAMBA_CFG = get_config("mamba2-130m").reduced()
 OFF_SLICE = {
     "decode_attention seq_axes": lambda: attn.decode_attention(
         *[torch.zeros(s) for s in ((1, 8, 4, 64), (1, 16, 4, 64), (1, 16, 4, 64))], 0,
@@ -174,12 +176,15 @@ OFF_SLICE = {
     "decode_step seq_axes": lambda: M.decode_step(
         CFG, PARAMS, M.init_cache(CFG, 1, 16, device="cpu"), torch.zeros(1, 8, dtype=torch.int32),
         seq_axes=("data",)),
-    # mamba stacks are ported; their codebook (musicgen) and image (llava)
-    # inputs are not
-    "init_params mamba": lambda: M.init_params(
-        dataclasses.replace(CFG, attention_pattern="none", num_codebooks=4), device="cpu"),
-    "init_cache hybrid": lambda: M.init_cache(
-        dataclasses.replace(CFG, attn_layer_period=2, num_image_tokens=16), 1, 16, device="cpu"),
+    # codebook, image, mamba and hybrid stacks are ported; the mesh
+    # (context-parallel seq_axes, mesh serving) is not, on any stack
+    "init_params mamba": lambda: M.decode_step(
+        MAMBA_CFG, M.init_params(MAMBA_CFG, device="cpu"),
+        M.init_cache(MAMBA_CFG, 1, 16, device="cpu"), torch.zeros(1, 2, dtype=torch.int32),
+        seq_axes=("data",)),
+    "init_cache hybrid": lambda: BatchedSpecServer(
+        dataclasses.replace(CFG, attn_layer_period=2, num_image_tokens=16), {}, mesh=object(),
+        device="cpu"),
 }
 
 

@@ -127,9 +127,19 @@ def test_dropless_batch_invariance(seed, n1, n2):
 
 @pytest.mark.parametrize("mode", ["train", "infer_grouped"])
 def test_moe_training_modes_raise(mode):
-    cfg_moe, _, gated, _, params = _moe_params("gated")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        moe.moe_apply(params, torch.zeros(1, 2, D), cfg_moe, "silu", gated, mode=mode)
+    """The grouped-capacity modes (at ``capacity_factor`` 1.25 and
+    ``infer_capacity_factor`` 2.0) give the reference's output within 1e-5
+    and its aux losses within 1e-6. (The name is from when they raised.)"""
+    cfg_moe, j_moe, gated, j_params, params = _moe_params("gated, shared")
+    x = np.random.default_rng(2).standard_normal((2, 7, D)).astype(np.float32)
+    _no_ties(x, j_params["w_router"], cfg_moe.top_k)
+    jy, jaux = JMoE.moe_apply(j_params, jnp.asarray(x), j_moe, "silu", gated, mode=mode)
+    y, aux = moe.moe_apply(params, torch.from_numpy(x), cfg_moe, "silu", gated, mode=mode)
+    _close(y, jy, 1e-5)
+    for k in jaux:
+        _close(aux[k], jaux[k], 1e-6)
+    with pytest.raises(ValueError, match="unknown mode"):
+        moe.moe_apply(params, torch.from_numpy(x), cfg_moe, "silu", gated, mode="grouped")
 
 
 # ------------------------------------------------------- the grouped GEMM
@@ -275,13 +285,19 @@ def test_joint_decode_equals_commit_chain(arch):
     _close(last[:, 0], joint[:, 2], 1e-4)
 
 
-def test_training_an_moe_stack_raises():
-    cfg, _, _, params = _model("qwen2-moe-a2.7b")
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        M.forward_train(cfg, params, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        train.main(["--device", "cpu", "--reduced", "--arch", "qwen2-moe-a2.7b", "--steps", "1",
-                    "--batch", "1", "--seq", "8"])
+def test_training_an_moe_stack_raises(capsys):
+    """qwen2-moe's ``forward_train`` gives the reference's logits (1e-4) and
+    moe_aux (1e-6), and the train CLI takes a step. (The name is from when
+    MoE training raised.)"""
+    cfg, j_cfg, j_params, params = _model("qwen2-moe-a2.7b")
+    toks = _tokens(cfg, (1, 12), 4)
+    jl, jaux = JM.forward_train(j_cfg, j_params, {"tokens": jnp.asarray(toks)}, remat=False)
+    tl, aux = M.forward_train(cfg, params, {"tokens": torch.from_numpy(toks)})
+    _close(tl, jl, 1e-4)
+    _close(aux, jaux, 1e-6)
+    train.main(["--device", "cpu", "--reduced", "--arch", "qwen2-moe-a2.7b", "--steps", "1",
+                "--batch", "1", "--seq", "8"])
+    assert "1 steps in" in capsys.readouterr().out
 
 
 # ------------------------------------------------------------------- bridge

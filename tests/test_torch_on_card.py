@@ -40,7 +40,11 @@ when more tokens are batched with them; a captured single round of
 qwen2-moe at full width equal to eager rounds bitwise. The Mamba-2 stacks
 (mamba2-130m and jamba-v0.1-52b, reduced, 4 layers, float32): a captured
 ``chain_fused`` single round, dense and paged, equals eager rounds bitwise,
-one graph launch a round, and its streams equal AR's on the card.
+one graph launch a round, and its streams equal AR's on the card. The
+codebook stack (musicgen-medium, reduced): a joint T=3 decode equals two
+steps and a commit, then the third, within 1e-4, through the attention
+kernels. MoE and Mamba-2 training (qwen2-moe-a2.7b and mamba2-130m,
+reduced): five train steps give finite losses and a falling ce.
 """
 import dataclasses
 import functools
@@ -864,3 +868,61 @@ def test_ssm_single_round_replay_equals_eager_on_card(arch, paged):
         assert torch.equal(a, b)
     for b, t in gen.items():
         assert len(t) >= 6 and t == ar[b][:len(t)], f"slot {b} left AR"
+
+
+# ------------------------------------------- codebook decode, MoE / SSM training
+def test_musicgen_joint_decode_equals_commit_chain_on_card():
+    """Reduced musicgen-medium (4 codebooks, hd 64, MHA), float32, random
+    weights from seed 0, on the flash decode and tree kernels: a joint T=3
+    decode of (B, 3, 4) codes equals two steps, a commit, then the third,
+    within 1e-4, with the same argmax per codebook."""
+    from repro_torch.config import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models import model as M
+
+    _card()
+    cfg = get_config("musicgen-medium").reduced()
+    params = init_params(cfg, 0)
+    rng = np.random.default_rng(2)
+    cache = M.init_cache(cfg, 2, 64)
+    codes = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 19, 4)), device="cuda")
+    M.prefill(cfg, params, {"tokens": codes[:, :16]}, cache)
+    t3 = codes[:, 16:]
+    fd0, ta0 = fd.launches, ta.launches
+    joint, _ = M.decode_step(cfg, params, cache, t3)
+    _, st2 = M.decode_step(cfg, params, cache, t3[:, :2])
+    M.commit_cache(cfg, cache, st2, torch.arange(2, device="cuda"),
+                   torch.tensor(2, dtype=torch.int32, device="cuda"))
+    last, _ = M.decode_step(cfg, params, cache, t3[:, 2:])
+    assert joint.shape == (2, 3, 4, cfg.padded_vocab)
+    close(last[:, 0].cpu(), joint[:, 2].cpu(), ATOL)
+    assert torch.equal(last[:, 0].argmax(-1), joint[:, 2].argmax(-1))
+    assert fd.launches > fd0 and ta.launches > ta0
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-130m"])
+def test_moe_and_ssm_train_steps_on_card(arch):
+    """The reduced stack (qwen2-moe: the grouped-capacity dispatch and its
+    aux losses; mamba2: the chunked scan's backward), float32, 5
+    ``make_train_step`` steps on one repeated batch (peak lr 1e-2, warm-up
+    1) on the card: every loss and grad_norm finite, the MoE aux above 0,
+    and ce lower at the fifth step than at the first."""
+    from repro_torch import training as T
+    from repro_torch.config import get_config
+    from repro_torch.data import lm_batches, synthetic_corpus
+    from repro_torch.models import init_params
+
+    _card()
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, 0)
+    opt = T.adamw_init(params)
+    step = T.make_train_step(cfg, peak_lr=1e-2, warmup=1, total_steps=10, remat=False)
+    b = {"tokens": torch.as_tensor(next(lm_batches(synthetic_corpus(cfg.vocab_size, 5_000), 4, 32))
+                                   ["tokens"], device="cuda")}
+    ce = []
+    for _ in range(5):
+        params, opt, m = step(params, opt, b)
+        assert all(np.isfinite(float(m[k])) for k in ("loss", "grad_norm", "moe_aux"))
+        assert (float(m["moe_aux"]) > 0) == (cfg.moe is not None)
+        ce.append(float(m["ce"]))
+    assert ce[-1] < ce[0], ce
