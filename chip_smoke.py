@@ -77,7 +77,21 @@ plain version at that length) and serves text through AR, DyTC,
 to AR; musicgen-medium at all 48 layers decodes (B, T, 4) codes, a T=5
 joint decode equal to five single steps, and every speculative path
 refuses it; mamba2-130m, qwen2-moe-a2.7b at 4 layers and musicgen-medium
-each train 20 steps (finite losses, ce falling). Each phase prints its
+each train 20 steps (finite losses, ce falling). Every captured single
+round of phases 7, 9, 10 and 12-15 is held to its dispatch contracts
+(``repro_torch.analysis.contracts``: the round graph walked node by node,
+no host node or host transfer, each gated segment behind its IF node, each
+segment's hand kernels as their wrappers counted, no collective, the cache
+and state in place), and phase 10's telemetry on/off pair differs in the
+tail segment only. Phase 16 drives the analysis layer: every GEMM of a
+vicuna-7b layer and the unembedding at M = 1, 16, 64 and 128 in float32
+and bfloat16, one layer's decode_step at T = 1, 16 and 64 and the 32-layer
+target call at T = 16, each by graph replay beside its counted bound
+(``repro_torch.analysis.costs``, the H100's roofline) and share; the BLR
+latency predictor fitted on the target's and the LS0.5 draft's call times,
+predicting two held-out T; the draft's c by the roofline, by graph replay
+and by phase 3's wall time; and the contracts' summary. Phase 2's bounds
+come from ``analysis.costs`` too. Each phase prints its
 seconds and the memory left allocated after it. The last line is the
 JSON device record; the line before it lists the kernels, with the
 launches of phases 3 and 5-15 (graph launches counted by the server, a
@@ -88,6 +102,7 @@ repro_torch beside this script) is present.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -102,8 +117,6 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 TOL = {"attention": 1e-4, "int8": 0.0, "int8_decode_logits": 1e-3, "moe": 1e-4}
 MAIN_PATH_S = 160                  # longest live cache prefix of phases 3-4
 
@@ -203,16 +216,6 @@ def _busy_ms(fn, iters: int = 5) -> float:
     if total <= 0:
         raise AssertionError("the profiler recorded no device time")
     return total / iters / 1e3
-
-
-def _bound_ms(nbytes: float, ops: float, dtype: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _timings(kernel, plain, library, flush, bound: float, by: str) -> dict:
@@ -367,6 +370,7 @@ def _paged_kernel(torch, gen, flush, results: dict) -> None:
     """The paged flash decode (#4): against its plain version and bitwise
     against the dense kernel on the gathered view, at the agreement shapes
     and at the server's, where it is also timed."""
+    from repro_torch.analysis import costs as C
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ref
     from repro_torch.kernels import tree_attention as ta
@@ -451,10 +455,9 @@ def _paged_kernel(torch, gen, flush, results: dict) -> None:
 
             # the least work this data needs: each slot's live rows, read once
             live = sum(pos)
-            elt = q.element_size()
-            nbytes = (_nbytes(q, kv_pos, q_pos, table, *tree) + 2 * live * KV * hd * elt
-                      + 4 * q.numel())
-            bound, by = _bound_ms(nbytes, 4 * KV * T * live * hd, str(dtype)[6:])
+            cost = C.flash_decode(B, KV, T, hd, S, dtype, live=live, merge=True, pages=n_pp)
+            nbytes = cost.bytes_hbm
+            bound, by = cost.bound_ms()
             tm = _timings(run, plain, library, flush, bound, by)
             timing[(str(dtype)[6:], T, n_pp)] = tm
             del kd, vd
@@ -539,6 +542,7 @@ def _model_shape_kernels(torch, gen, flush) -> dict:
     counts the slots some row sees (the window's, not the whole cache) and
     each row's visible slots' products. Returns the largest error of each
     kernel."""
+    from repro_torch.analysis import costs as C
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ref
     from repro_torch.kernels import tree_attention as ta
@@ -559,7 +563,6 @@ def _model_shape_kernels(torch, gen, flush) -> dict:
                                  vp.index_select(0, idx).reshape(B, S, KV, hd))
                 run = lambda: fd.flash_decode_paged_merge(q, kp, vp, table, kv_pos, q_pos,  # noqa: E731
                                                           tree, **kw)
-                cache_bytes = _nbytes(table)
             else:
                 q, kc, vc, kv_pos, q_pos, kn, vn, tmask = _attn_inputs(
                     torch, gen, B, KV, R, T, S, hd, dtype, S - T)
@@ -567,7 +570,6 @@ def _model_shape_kernels(torch, gen, flush) -> dict:
                 k, v = kc.transpose(1, 2), vc.transpose(1, 2)
                 kc_fn = lambda: (kc, vc)  # noqa: E731
                 run = lambda: fd.flash_decode_merge(q, k, v, kv_pos, q_pos, tree, **kw)  # noqa: E731
-                cache_bytes = 0
             kt, vt = kn.transpose(1, 2), vn.transpose(1, 2)
             tree = ta.tree_attention_partial(q, kt, vt, tmask)
             want_t = ref.tree_attention_partial(q, kt, vt, tmask)
@@ -598,18 +600,15 @@ def _model_shape_kernels(torch, gen, flush) -> dict:
                 vs = torch.cat([vg, vn], dim=1).transpose(1, 2)
                 return F.scaled_dot_product_attention(q, ks, vs, attn_mask=am)
 
-            elt = q.element_size()
             seen = int(vis.any(dim=1).sum())                                # slots some row sees
-            nbytes = (_nbytes(q, kv_pos, q_pos, *tree) + cache_bytes + 2 * seen * KV * hd * elt
-                      + 4 * q.numel())
-            bound, by = _bound_ms(nbytes, 4 * KV * hd * int(vis.sum()), dt)
+            bound, by = C.flash_decode(B, KV, R, hd, S, dtype, live=seen, visible=int(vis.sum()),
+                                       merge=True, pages=n_pp).bound_ms()
             plain = lambda: ref.merge_partials(  # noqa: E731
                 ref.flash_decode_partial(q, k, v, kv_pos, q_pos, **kw), tree)
             tm = _timings(run, plain, library, flush, bound, by)
             print(f"[phase 2] {name}: flash_decode{'_paged' if n_pp else ''} merge "
                   + _timing_text(tm, "sdpa"))
-            tbytes = _nbytes(q, kt, vt, tmask) + 4 * q.numel() + 8 * q.numel() // hd
-            tbound, tby = _bound_ms(tbytes, 4 * KV * hd * rep * int(tmask.sum()), dt)
+            tbound, tby = C.tree_attention(B, KV, R, T, hd, dtype, pairs=int(tmask.sum())).bound_ms()
             ks_t, vs_t = kt.contiguous(), vt.contiguous()
             tt = _timings(lambda: ta.tree_attention_partial(q, kt, vt, tmask),
                           lambda: ref.tree_attention_partial(q, kt, vt, tmask),
@@ -655,6 +654,7 @@ def _w8a8_kernel(torch, gen, flush_buf) -> dict:
     by the profiler's kernel time after the usual flush (a 256 MB write, whose
     dirty lines the kernel's reads evict) and after a read of the buffer
     (clean L2)."""
+    from repro_torch.analysis import costs as C
     from repro_torch.kernels import int8_matmul as i8
     from repro_torch.kernels import ref
 
@@ -688,7 +688,7 @@ def _w8a8_kernel(torch, gen, flush_buf) -> dict:
         for M in W8A8_TIMED_ROWS:
             x_q, w_q, xs, ws = _int8_operands(torch, gen, M, K, N)
             x_lib = _int_mm_rows(torch, x_q, w_q)
-            bound, by = _bound_ms(_nbytes(x_q, w_q, xs, ws) + 4 * M * N, 2 * M * N * K, "int8")
+            bound, by = C.int8_matmul(M, K, N).bound_ms()
             tm = _timings(lambda: i8.int8_matmul(x_q, w_q, xs, ws),
                           lambda: ref.ref_int8_matmul(x_q, w_q, xs, ws),
                           lambda: torch._int_mm(x_lib, w_q)[:M].float() * xs * ws, flush, bound, by)
@@ -704,6 +704,7 @@ def _w8a8_kernel(torch, gen, flush_buf) -> dict:
 
 
 def phase_kernels(torch, results: dict) -> None:
+    from repro_torch.analysis import costs as C
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import int8_matmul as i8
     from repro_torch.kernels import ref
@@ -787,8 +788,7 @@ def phase_kernels(torch, results: dict) -> None:
             ks = torch.cat([kc, kn], dim=1).transpose(1, 2).contiguous()
             vs = torch.cat([vc, vn], dim=1).transpose(1, 2).contiguous()
             am = torch.cat([ref.visible(q_pos, kv_pos, "causal", 0, 0), tmask], dim=-1)[:, None]
-            nbytes = _nbytes(q, k, v, kv_pos, q_pos, *tree) + 4 * q.numel()
-            bound, by = _bound_ms(nbytes, 4 * B * KV * T * S_live * hd, str(dtype)[6:])
+            bound, by = C.flash_decode(B, KV, T, hd, S_live, dtype, merge=True).bound_ms()
             timing[name] = _timings(
                 lambda: fd.flash_decode_merge(q, k, v, kv_pos, q_pos, tree),
                 lambda: ref.merge_partials(ref.flash_decode_partial(q, k, v, kv_pos, q_pos), tree),
@@ -820,8 +820,8 @@ def phase_kernels(torch, results: dict) -> None:
                 name = str(dtype)[6:]
                 qs = q.reshape(B, KV, T, hd)
                 ks, vs = kt.contiguous(), vt.contiguous()
-                nbytes = _nbytes(q, kt, vt, tmask) + 4 * q.numel() + 8 * q.numel() // hd
-                bound, by = _bound_ms(nbytes, 4 * B * KV * T * T * hd, name)
+                bound, by = C.tree_attention(B, KV, T, T, hd, dtype,
+                                             pairs=int(tmask.sum())).bound_ms()
                 timing[name] = _timings(
                     lambda: ta.tree_attention_partial(q, kt, vt, tmask),
                     lambda: ref.tree_attention_partial(q, kt, vt, tmask),
@@ -851,6 +851,7 @@ def _carried_tree_kernel(torch, gen, flush, timing: dict) -> float:
     carried key; against the plain version, and timed at the tree step
     beside SDPA over [carried ++ new] with the explicit mask. Returns the
     worst error."""
+    from repro_torch.analysis import costs as C
     from repro_torch.kernels import ref
     from repro_torch.kernels import tree_attention as ta
 
@@ -881,8 +882,8 @@ def _carried_tree_kernel(torch, gen, flush, timing: dict) -> float:
             if T == 2:
                 kc, vc = torch.cat([ks, kt], dim=2).contiguous(), torch.cat([vs, vt], dim=2).contiguous()
                 am = torch.cat([smask, tmask], dim=-1)[:, None]
-                nbytes = _nbytes(q, kt, vt, ks, vs, tmask, smask) + 4 * q.numel() + 8 * q.numel() // hd
-                bound, by = _bound_ms(nbytes, 4 * B * KV * T * (N_s + T) * hd, str(dtype)[6:])
+                bound, by = C.tree_attention(B, KV, T, T, hd, dtype, pairs=int(tmask.sum()),
+                                             carried=N_s, carried_pairs=int(smask.sum())).bound_ms()
                 key = f"{str(dtype)[6:]}_carry"
                 timing[key] = _timings(
                     lambda: ta.tree_attention_partial(q, kt, vt, tmask, **seg2),
@@ -899,6 +900,7 @@ def _set_cond_kernel(torch, flush) -> dict:
     (``ref.cond_segments``: the same segments eagerly, the IF decided by a
     host read), bitwise over predicates that flip; timed with the predicate
     false and true. The bound is the one-byte read of the predicate."""
+    from repro_torch.analysis import costs as C
     from repro_torch.kernels import graph_cond, ref
 
     def state():
@@ -949,7 +951,7 @@ def _set_cond_kernel(torch, flush) -> dict:
         if not (torch.equal(g_st["x"], p_st["x"]) and torch.equal(g_st["y"], p_st["y"])):
             raise AssertionError(f"set_cond: the conditional graph differs from the plain version "
                                  f"(predicate {flag})")
-    bound, by = _bound_ms(1, 0, "float32")
+    bound, by = C.set_cond().bound_ms()
     times = {}
     for flag in (0, 1):
         g_st["flag"].fill_(flag)
@@ -1002,6 +1004,7 @@ def _moe_kernel(torch, gen, flush) -> dict:
     the group sizes on the host, the fixed-shape product of every expert
     over every token (einsum, E / K times the operations) and, in bfloat16,
     ``torch._grouped_mm`` where the card's torch has it."""
+    from repro_torch.analysis import costs as C
     from repro_torch.kernels import moe_grouped as mg
     from repro_torch.kernels import ref
 
@@ -1062,9 +1065,7 @@ def _moe_kernel(torch, gen, flush) -> dict:
                 sorted_e = torch.searchsorted(offs[1:].long(), torch.arange(N * K, device="cuda"),
                                               right=True)
                 hit = int((offs[1:] > offs[:-1]).sum())
-                item = dtype.itemsize
-                nbytes = 2 * N * K * d * item + 3 * hit * d * F * item + offs.numel() * 4
-                bound, by = _bound_ms(nbytes, 6 * N * K * d * F, name)
+                bound, by = C.moe_grouped(N, K, d, F, E, hit, dtype).bound_ms()
 
                 def loop():
                     sizes = offs.diff().tolist()               # the host read
@@ -1236,9 +1237,16 @@ def phase_main_path(torch, dtype: str, results: dict, exact: bool) -> list:
         per_round = {k: (v - before[k]) / rounds for k, v in _read_counts().items()}
         same = sum(a == b for a, b in zip(ar, dy)) / GEN_TOKENS
         finite = ar_fin and dy_fin
+        # c by wall time: a draft call's mean over a target call's
+        c = (dy_stats["draft_time"] / dy_stats["draft_calls"]
+             / (dy_stats["verify_time"] / dy_stats["target_calls"])
+             if dy_stats["draft_calls"] else float("nan"))
+        if exact:
+            results.setdefault("phase3_c", []).append(c)
         print(f"[phase {phase}] prompt {i} ({len(prompt)} tokens): AR {ar_stats['target_calls']} target calls "
               f"{ar_wall:.3f} s | DyTC {dy_stats['target_calls']} target calls, {dy_stats['draft_calls']} "
-              f"draft calls, {rounds} rounds, {dy_stats['accepted_tokens'] / rounds:.2f} tokens/round, "
+              f"draft calls (c {c:.3f} by wall time), {rounds} rounds, "
+              f"{dy_stats['accepted_tokens'] / rounds:.2f} tokens/round, "
               f"{dy_wall:.3f} s | identical={ar == dy} share equal={same:.3f} finite={finite} | "
               "launches per DyTC round: " + ", ".join(f"{k} {v:.2f}" for k, v in per_round.items()))
         if exact and ar != dy:
@@ -1412,6 +1420,7 @@ def _serve(torch, srv, prompts, ar_streams, readmit=(), late=(), sampling=None):
         ms = [m for m, k in zip(step_ms, step_kind) if k == kind]
         return (sum(ms) / len(ms) if ms else float("nan")), len(ms)
 
+    contracts = _round_contracts(srv)
     return dict(requests=len(done), rounds=st["steps"], target_calls=st["target_calls"],
                 draft_dispatches=st["draft_dispatches"], draft_rounds=st["draft_rounds"],
                 prefill_rounds=st["prefill_rounds"], graph_replays=st["graph_replays"],
@@ -1419,7 +1428,7 @@ def _serve(torch, srv, prompts, ar_streams, readmit=(), late=(), sampling=None):
                 tokens_per_slot_round=st["tokens"] / slot_rounds, wall_s=wall,
                 ms_per_round=wall / st["steps"] * 1e3, launches=counts,
                 launches_per_round={k: v / st["steps"] for k, v in counts.items()},
-                per_step=per_step, step_ms=step_ms, streams=done,
+                per_step=per_step, step_ms=step_ms, streams=done, contracts=contracts,
                 **{f"ms_{kind}": mean_ms(kind) for kind in ("prefilled", "ran", "skipped")})
 
 
@@ -1875,6 +1884,40 @@ def _sampling_on_card(torch, vocab: int) -> None:
               f"(accepted nodes per slot {n_acc.tolist()})")
 
 
+CONTRACTS: list = []               # (phase, label, summary) of each round held to its contracts
+_PHASE = {"now": ""}
+
+
+def _round_contracts(srv):
+    """A single-round server's captured graph held to its dispatch contracts
+    (``analysis.contracts.check_round``: no host node or host transfer, the
+    gated segments behind IF nodes, each segment's hand kernels as its
+    wrappers counted, no collective, no copy of the cache, the cache and
+    state in place and no second copy of the cache left live, the replays
+    as the dispatches); prints its nodes by kind and its pool and logs it
+    for phase 16. Returns the contracts, None for a server with no graph."""
+    from repro_torch.analysis import contracts as K
+
+    if srv.round_mode != "single" or srv._graph is None:
+        return None
+    t0 = time.perf_counter()
+    cons = K.check_round(srv)
+    dt = time.perf_counter() - t0
+    summ = cons["round"].summary()
+    label = f"{srv.cfg.name} {srv.mode} {'paged' if srv.paged else 'dense'}"
+    CONTRACTS.append((_PHASE["now"], label, summ))
+    ranges = [v for k, v in srv.capture_ptrs.items() if k.startswith("cache")]
+    mib = 2 ** 20
+    print(f"[{_PHASE['now']}] contracts of {label}: held in {dt:.2f} s | {len(cons)} graph a "
+          f"round, nodes {summ['nodes']}, {summ['if']} IF, hand kernels {summ['hand']}, "
+          f"unresolved names {summ['unresolved']} | cache {sum(n for _, n in ranges) / mib:.1f} "
+          f"MiB, copied out of it by memcpy nodes {cons['round'].cache_copy_bytes(ranges)} B, "
+          f"left live by the capture {srv.graph_live_bytes / mib:.1f} MiB; graph pool "
+          f"{srv.graph_pool_bytes / mib:.1f} MiB, by segment "
+          + ", ".join(f"{k} {v / mib:.1f}" for k, v in srv.segment_pool_bytes.items()))
+    return cons
+
+
 def _check_single(name: str, rec: dict, srv) -> None:
     if (rec["host_syncs"] * srv.sync_every != rec["rounds"] or rec["draft_dispatches"]
             or rec["graph_replays"] != rec["rounds"]):
@@ -2112,6 +2155,7 @@ def _serve_loop(torch, srv, prompts, ar_streams) -> dict:
     spans = {e["name"] for e in trace.events}
     if not LOOP_SPANS <= spans:
         raise AssertionError(f"loop spans {spans} lack {LOOP_SPANS - spans}")
+    _round_contracts(srv)
     return dict(requests=len(sched.finished), rounds=st["steps"], wall_s=wall,
                 ms_per_round=wall / st["steps"] * 1e3, delivered=delivered, accepted=accepted,
                 parts=parts, host_syncs=st["host_syncs"], graph_replays=st["graph_replays"],
@@ -2229,6 +2273,11 @@ def phase_serving(torch, served: dict, results: dict) -> None:
         vals = [rec[key] for telem in (True, False) for rec, _ in runs[telem]]
         if any(v != vals[0] for v in vals):
             raise AssertionError(f"telemetry on/off: {key} differs: {vals}")
+    from repro_torch.analysis.contracts import assert_telemetry_transparent
+
+    added = assert_telemetry_transparent(runs[False][0][0]["contracts"], runs[True][0][0]["contracts"])
+    print(f"[phase 10] telemetry on against off, the captured rounds: the same segments and IF nodes, "
+          f"no host node, every segment's nodes equal but the tail's, where telemetry adds {added}")
     rec = runs[True][0][0]
     print(f"[phase 10] tree_fused dense single, telemetry on against off (off, on, on, off): identical "
           f"streams, {rec['rounds']} rounds, {rec['graph_replays']} graph launches, "
@@ -2508,6 +2557,7 @@ def phase_training(torch, results: dict) -> None:
     same config with random seed-0 weights served on phase 10's requests."""
     import tempfile
 
+    from repro_torch.analysis.roofline import PEAK_FLOPS
     from repro_torch.config import get_config
     from repro_torch.models import init_params
     from repro_torch.models.model import tree_leaves
@@ -2543,7 +2593,7 @@ def phase_training(torch, results: dict) -> None:
           f"(3 more steps): forward {fwd:.2f} ms, backward {bwd:.2f}, optimizer {opt:.2f}; "
           f"{tokens / med * 1e3:.0f} tokens/s; model FLOPs 6 x {_matmul_params(cfg) / 1e9:.3f} B "
           f"x {tokens} = {flops / 1e12:.2f} TFLOP a step, {flops / (med / 1e3) / 1e12:.2f} TFLOP/s "
-          f"= {flops / (med / 1e3) / PEAK_OPS['float32']:.3f} of 67 TFLOP/s float32; peak "
+          f"= {flops / (med / 1e3) / PEAK_FLOPS['float32']:.3f} of 67 TFLOP/s float32; peak "
           f"device memory {tr['peak'] / 2**30:.2f} GiB (forward / backward / optimizer of the "
           f"last split step: " + " / ".join(f"{b / 2**30:.2f}" for b in tr["split_peaks"])
           + f" GiB); ce {tr['curve']['ce'][0]:.4f} at step 0, {tr['last5']:.4f} over the last 5")
@@ -3265,6 +3315,7 @@ def _llava_image(torch, cfg, params, results: dict) -> dict:
     of the extended batch (argmax equal, within 1e-3), and
     ``flash_decode_partial`` at the longest live length against its plain
     version. Returns the launch counts of the prefill and the steps."""
+    from repro_torch.analysis import costs as C
     import numpy as np
 
     from repro_torch.kernels import flash_decode as fd
@@ -3320,8 +3371,7 @@ def _llava_image(torch, cfg, params, results: dict) -> dict:
     got = fd.flash_decode_partial(q, k_, v_, kv_pos, q_pos)
     want = ref.flash_decode_partial(q, k_, v_, kv_pos, q_pos)
     e = _err(got[0] / got[2][..., None], want[0] / want[2][..., None])
-    bound, by = _bound_ms(_nbytes(q, k_, v_, kv_pos, q_pos) + 4 * (q.numel() + 2 * q.numel() // hd),
-                          4 * KV * rep * live * hd, "float32")
+    bound, by = C.flash_decode(1, KV, rep, hd, live, "float32").bound_ms()
     ev = _time_ms(lambda: fd.flash_decode_partial(q, k_, v_, kv_pos, q_pos), flush_buf.zero_)
     gr = _graph_ms(lambda: fd.flash_decode_partial(q, k_, v_, kv_pos, q_pos), flush_buf.zero_)
     pl = _time_ms(lambda: ref.flash_decode_partial(q, k_, v_, kv_pos, q_pos), flush_buf.zero_)
@@ -3583,6 +3633,170 @@ def phase_media(torch, results: dict) -> None:
     print(f"[phase 15] {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------------ phase 16
+GEMM_ROWS = (1, 16, 64, 128)        # decode, the server's verify, the cascade's 128 rows
+CALL_S = 512                        # committed slots of phase 16's model calls
+CALL_T = (1, 16, 64)
+BLR_T = (1, 2, 4, 8, 16, 32, 64)    # the BLR's observations
+BLR_HELD = (12, 48)                 # held out, predicted
+
+
+def _gemm_shares(torch, flush) -> None:
+    """Every weight GEMM of one vicuna-7b layer and the unembedding at M =
+    GEMM_ROWS rows, float32 and bfloat16, by graph replay beside its bound
+    from ``analysis.costs`` (bytes or operations) and its roofline share."""
+    from repro_torch.analysis import costs as C
+    from repro_torch.config import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import unembed
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_config("vicuna-7b"), num_layers=1, dtype=dtype)
+        params = init_params(cfg, SEED)
+        a, mlp, d = params["segments"][0][0]["attn"], params["segments"][0][0]["mlp"], cfg.d_model
+        weights = {"q": a["wq"][0].reshape(d, -1), "k": a["wk"][0].reshape(d, -1),
+                   "v": a["wv"][0].reshape(d, -1), "o": a["wo"][0].reshape(-1, d),
+                   "gate": mlp["w_gate"][0], "up": mlp["w_up"][0], "down": mlp["w_down"][0]}
+        head = params["lm_head"]
+        # the float32 upcast ``unembed`` makes of a bfloat16 head on every
+        # call: the implementation's waste, outside the head's bound
+        upcast = _graph_ms(lambda: head.float(), flush) if dtype != "float32" else 0.0  # noqa: B023
+        for m in GEMM_ROWS:
+            parts, layer_ms, layer_bound = [], 0.0, 0.0
+            for g in C.layer_gemms(cfg, 0, m):
+                w = weights[g.name]
+                x = torch.randn(m, w.shape[0], generator=gen, device="cuda").to(w.dtype)
+                ms = _graph_ms(lambda: x @ w, flush)  # noqa: B023
+                bound, by = g.bound_ms()
+                layer_ms, layer_bound = layer_ms + ms, layer_bound + bound
+                parts.append(f"{g.name} {ms:.4f} ({bound:.4f} {by}, {bound / ms:.2f})")
+            h = torch.randn(m, d, generator=gen, device="cuda").to(getattr(torch, dtype))
+            ms = _graph_ms(lambda: unembed(h, head), flush)  # noqa: B023
+            bound, by = C.unembed(cfg, m).bound_ms()
+            parts.append(f"unembed {ms:.4f} ({bound:.4f} {by}, {bound / ms:.2f}"
+                         + (f"; the head's float32 upcast alone {upcast:.4f} ms, "
+                            f"{upcast / ms:.2f} of the call)" if upcast else ")"))
+            print(f"[phase 16] GEMMs of a vicuna-7b layer, {dtype}, M={m}, graph replay ms (bound ms, "
+                  f"bound by, share): " + "; ".join(parts) + f" | the layer's seven: {layer_ms:.4f} "
+                  f"ms against {layer_bound:.4f}, share {layer_bound / layer_ms:.2f}")
+        del params, weights, a, mlp, head
+        torch.cuda.empty_cache()
+
+
+def _call_ms(torch, cfg, params, T, flush, layers=None) -> tuple:
+    """One B=1 ``decode_step`` of T chain rows over CALL_S committed slots
+    (``layers``: slice exec): (graph replay ms, CUDA-event ms of the eager
+    call, its ``analysis.costs`` count)."""
+    from repro_torch.analysis import costs as C
+    from repro_torch.models import model as M
+
+    cache = M.init_cache(cfg, 1, CALL_S + T)
+    cache["pos"].fill_(CALL_S)
+    tokens = torch.arange(T, device="cuda")[None] % cfg.vocab_size + 2
+    run = lambda: M.decode_step(cfg, params, cache, tokens, layer_ids=layers)  # noqa: E731
+    out = (_graph_ms(run, flush, iters=10), _time_ms(run, flush, iters=5, warmup=1),
+           C.decode_step(cfg, 1, T, CALL_S, layers=layers))
+    del cache
+    return out
+
+
+def _call_shares(torch, flush, results: dict) -> None:
+    """One vicuna-7b layer's ``decode_step`` (a 1-layer model: the layer,
+    the embedding and the head) at T = CALL_T and the full 32-layer B=1
+    target call, float32, each with its counted FLOPs and bytes and its
+    roofline share by graph replay; then the BLR over the roofline
+    features of the target's and the LS0.5 draft's calls at T = BLR_T,
+    predicting BLR_HELD, and the cost ratio c three ways: the roofline's,
+    graph replay's and phase 3's by wall time."""
+    from repro_torch.config import get_config
+    from repro_torch.core.dsia import layer_sparsity
+    from repro_torch.core.latency import BayesianLinearLatency, roofline_features, roofline_latency
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("vicuna-7b"), dtype="float32")
+
+    def line(label, ms, ev, cost):
+        return (f"{label}: {cost.flops / 1e9:.2f} GFLOP, {cost.bytes_hbm / 1e6:.1f} MB, bound "
+                f"{cost.t_bound * 1e3:.4f} ms ({cost.bottleneck}) | graph replay {ms:.4f} ms, share "
+                f"{cost.share(ms):.3f} | eager by events {ev:.4f} ms, share {cost.share(ev):.3f}")
+
+    one = dataclasses.replace(cfg, num_layers=1)
+    params = init_params(one, SEED)
+    for T in CALL_T:
+        print(f"[phase 16] " + line(f"one layer's decode_step (B=1, T={T}, S={CALL_S})",
+                                    *_call_ms(torch, one, params, T, flush)))
+    del params
+    torch.cuda.empty_cache()
+
+    params = init_params(cfg, SEED)
+    spec = layer_sparsity(cfg, 0.5)
+    ids = [i for i, g in enumerate(spec.gates) if g]
+    obs = {}
+    for T in BLR_T + BLR_HELD:
+        for name, layers in (("target", None), (spec.name, ids)):
+            obs[name, T] = _call_ms(torch, cfg, params, T, flush, layers)
+    print(f"[phase 16] " + line(f"the 32-layer target call (B=1, T=16, S={CALL_S})",
+                                *obs["target", 16]))
+    del params
+    torch.cuda.empty_cache()
+
+    def feats(cost):
+        return roofline_features(cost.flops, cost.bytes_hbm, 0.0, dtype="float32")
+
+    blr = BayesianLinearLatency(dim=4, noise=1e-8)
+    for (name, T), (ms, _, cost) in obs.items():
+        if T in BLR_T:
+            blr.observe(feats(cost), ms / 1e3)
+    errs = {"held out": [], "fitted": []}
+    for (name, T), (ms, _, cost) in obs.items():
+        pred = blr.predict(feats(cost)) * 1e3
+        tag = "held out" if T in BLR_HELD else "fitted"
+        errs[tag].append(abs(pred - ms) / ms)
+        roof = roofline_latency(cost.flops, cost.bytes_hbm, dtype="float32") * 1e3
+        print(f"[phase 16] BLR {name} T={T} ({tag}): graph replay {ms:.4f} ms, predicted {pred:.4f} "
+              f"ms, relative error {abs(pred - ms) / ms:.4f}, roofline {roof:.4f} ms")
+    print(f"[phase 16] BLR weights [1, compute, memory, collective] {blr.weights.tolist()}; relative "
+          f"error held out {min(errs['held out']):.4f}-{max(errs['held out']):.4f}, fitted "
+          f"{min(errs['fitted']):.4f}-{max(errs['fitted']):.4f}")
+    c_roof = {T: roofline_latency(obs[spec.name, T][2].flops, obs[spec.name, T][2].bytes_hbm,
+                                  dtype="float32")
+              / roofline_latency(obs["target", T][2].flops, obs["target", T][2].bytes_hbm,
+                                 dtype="float32") for T in (1, 16)}
+    c_graph = {T: obs[spec.name, T][0] / obs["target", T][0] for T in (1, 16)}
+    c3 = results.get("phase3_c") or [float("nan")]
+    print(f"[phase 16] {spec.name}'s c (draft call / target call): roofline {c_roof[1]:.3f} (T=1), "
+          f"{c_roof[16]:.3f} (T=16); graph replay {c_graph[1]:.3f} (T=1), {c_graph[16]:.3f} (T=16); "
+          f"phase 3 by wall time (DyTC, the scaling hierarchy's drafts) "
+          + ", ".join(f"{c:.3f}" for c in c3))
+
+
+def _contract_summary() -> None:
+    """Every captured single round of phases 7, 9, 10 and 12-15 held to its
+    dispatch contracts (``_round_contracts``), and the telemetry pair."""
+    by_phase = collections.Counter(p for p, _, _ in CONTRACTS)
+    nodes = collections.Counter()
+    for _, _, summ in CONTRACTS:
+        nodes.update(summ["nodes"])
+    print(f"[phase 16] dispatch contracts held on {len(CONTRACTS)} captured single rounds ("
+          + ", ".join(f"{p}: {n}" for p, n in by_phase.items()) + f"); their nodes by kind, summed: "
+          f"{dict(nodes)}; unresolved kernel names {sum(s['unresolved'] for _, _, s in CONTRACTS)}")
+    missing = {f"phase {i}" for i in (7, 9, 10, 12, 13, 14, 15)} - set(by_phase)
+    if missing:
+        raise AssertionError(f"phase 16: no captured single round was held to its contracts in "
+                             f"{sorted(missing)}")
+
+
+def phase_analysis(torch, results: dict) -> None:
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    t0 = time.perf_counter()
+    _gemm_shares(torch, flush_buf.zero_)
+    _call_shares(torch, flush_buf.zero_, results)
+    del flush_buf
+    _contract_summary()
+    print(f"[phase 16] {time.perf_counter() - t0:.1f} s")
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -3600,6 +3814,7 @@ def main() -> int:
     t_all = time.perf_counter()
 
     def timed(phase: str, fn, *args):
+        _PHASE["now"] = phase
         t0 = time.perf_counter()
         out = fn(*args)
         gc.collect()
@@ -3626,6 +3841,7 @@ def main() -> int:
     timed("phase 13", phase_moe, torch, results)
     timed("phase 14", phase_ssm, torch, results)
     timed("phase 15", phase_media, torch, results)
+    timed("phase 16", phase_analysis, torch, results)
     print(f"[chip_smoke] all phases in {time.perf_counter() - t_all:.1f} s")
     kernels = []
     for name, src, replaces in (

@@ -8,14 +8,66 @@ their ``*_batched`` tensor twins for the single-dispatch serving round.
 latency to the target's single-step latency, an EMA of wall-clock
 observations; before any target observation a stored prior (a ratio) is
 returned as is.
+
+The hardware-aware latency predictor of §4.2 is here too: the paper fits
+Bayesian linear regression (``BayesianLinearLatency``, a numpy copy of the
+reference's) on GPU timings. Its features are roofline terms
+(``roofline_features``: [1, compute, memory, collective] seconds) on the
+H100's constants (``analysis.roofline``), where the reference's are TPU
+v5e's. No engine path calls them, as in the reference; ``chip_smoke.py``
+phase 16 fits one on the card.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
+from repro_torch.analysis.roofline import RooflineReport
 from repro_torch.core.ewif import best_cascade_k, best_dytc_k, dytc_objective_grid, t_sd, t_sd_grid
+
+
+class BayesianLinearLatency:
+    """Gaussian BLR: posterior over w in t = w . phi(x) + noise."""
+
+    def __init__(self, dim: int = 4, prior_scale: float = 10.0, noise: float = 1e-3):
+        self.dim = dim
+        self.noise = noise
+        self.precision = np.eye(dim) / (prior_scale ** 2)
+        self.mean_times_prec = np.zeros(dim)
+
+    def observe(self, features: Sequence[float], latency: float) -> None:
+        x = np.asarray(features, dtype=np.float64)
+        self.precision += np.outer(x, x) / self.noise
+        self.mean_times_prec += x * latency / self.noise
+
+    @property
+    def weights(self) -> np.ndarray:
+        return np.linalg.solve(self.precision, self.mean_times_prec)
+
+    def predict(self, features: Sequence[float]) -> float:
+        x = np.asarray(features, dtype=np.float64)
+        return float(self.weights @ x)
+
+    def predict_with_var(self, features: Sequence[float]) -> tuple:
+        x = np.asarray(features, dtype=np.float64)
+        cov = np.linalg.inv(self.precision)
+        return float(self.weights @ x), float(x @ cov @ x + self.noise)
+
+
+def roofline_features(flops: float, bytes_hbm: float, coll_bytes: float,
+                      dtype="bfloat16") -> list:
+    """phi(x) = [1, compute term, memory term, collective term] (seconds on
+    one H100, the compute term at ``dtype``'s peak)."""
+    r = RooflineReport("", flops, bytes_hbm, {"all": coll_bytes}, dtype=dtype)
+    return [1.0, r.t_compute, r.t_memory, r.t_collective]
+
+
+def roofline_latency(flops: float, bytes_hbm: float, coll_bytes: float = 0.0,
+                     dtype="bfloat16") -> float:
+    """Max-of-terms roofline estimate in seconds (the BLR prior's anchor)."""
+    return RooflineReport("", flops, bytes_hbm, {"all": coll_bytes}, dtype=dtype).t_bound
 
 
 class CostTracker:

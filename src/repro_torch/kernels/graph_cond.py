@@ -21,11 +21,15 @@ that run after it, which is what makes segment-local memory safe.
 an assembled graph. The plain version of a ``CondGraph`` is
 ``kernels/ref.py::cond_segments``: the same segments run eagerly, each IF
 decided by a host read.
+
+``CondGraph.walk()`` and ``walk_graph`` list the nodes of an assembled round
+or of any graph PyTorch kept (``keep_graph=True``) as ``GraphNode`` records,
+which ``analysis.contracts`` holds to the round's dispatch contract.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -34,6 +38,7 @@ from repro_torch.kernels import _build
 launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_WALK = [_P, ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t)]
 _SIGNATURES = {
     "cg_create": [_P],
     "cg_add_child": [_P, _P],
@@ -41,9 +46,64 @@ _SIGNATURES = {
     "cg_instantiate": [_P],
     "cg_launch": [_P, _P],
     "cg_destroy": [_P],
+    "cg_walk": _WALK,
+    "gw_walk": _WALK,
 }
 
 Step = Tuple  # ("child", graph) or ("if", pred, graph)
+
+
+class GraphNode(NamedTuple):
+    """One node of a walked graph. ``top``: the index of its top-level
+    ancestor (itself at depth 0), in an order that respects the edges;
+    ``depth``: its nesting (a child graph's or an IF body's nodes are one
+    deeper); ``gated``: inside an IF body; ``kind``: ``kernel``, ``memcpy``,
+    ``memset``, ``host``, ``child``, ``conditional``, ``empty``,
+    ``event_record``, ``event_wait``, ``mem_alloc``, ``mem_free``, ...;
+    ``name``: a kernel's demangled function (``<unresolved>`` where no
+    CUDA API call names it), a memcpy's direction (``DtoD``,
+    ``DtoH``, ``HtoD``, ``HtoH``; ``M`` managed, ``?`` unknown). A call the
+    walk could not make is an ``error`` record named by the call and its
+    code. A memcpy node also has the address it reads (``src``) and writes
+    (``dst``) and its ``nbytes``; they are 0 for other kinds."""
+
+    top: int
+    depth: int
+    gated: bool
+    kind: str
+    name: str
+    src: int = 0
+    dst: int = 0
+    nbytes: int = 0
+
+
+def parse_walk(text: str) -> List[GraphNode]:
+    """The records of a walk's text: one tab-separated line a node (top,
+    depth, gated, kind, src, dst, nbytes, name)."""
+    out = []
+    for line in text.splitlines():
+        top, depth, gated, kind, src, dst, nbytes, name = line.split("\t", 7)
+        out.append(GraphNode(int(top), int(depth), gated == "1", kind, name, int(src), int(dst),
+                             int(nbytes)))
+    return out
+
+
+def _walk(fn, handle) -> List[GraphNode]:
+    cap = 1 << 16
+    while True:
+        buf = ctypes.create_string_buffer(cap)
+        n = ctypes.c_size_t(0)
+        _build.check(fn(handle, buf, cap, ctypes.byref(n)), "graph walk")
+        if n.value <= cap:
+            return parse_walk(buf.raw[: n.value].decode())
+        cap = n.value
+
+
+def walk_graph(graph) -> List[GraphNode]:
+    """The nodes of a ``torch.cuda.CUDAGraph`` captured with
+    ``keep_graph=True`` (an IF node's body is not known here)."""
+    lib = _build.load("graph_cond", _SIGNATURES)
+    return _walk(lib.gw_walk, ctypes.c_void_p(graph.raw_cuda_graph()))
 
 
 def _check_steps(steps: Sequence[Step]) -> None:
@@ -97,6 +157,12 @@ class CondGraph:
         global launches
         _build.check(self._lib.cg_launch(self._h, _build.stream_ptr(self.device)), "graph_cond launch")
         launches += self.n_if
+
+    def walk(self) -> List[GraphNode]:
+        """The assembled graph's nodes, IF bodies included: per step, the
+        segment's child node (or ``set_cond``'s kernel node and the IF
+        node), each followed by what it holds."""
+        return _walk(self._lib.cg_walk, self._h)
 
     def close(self) -> None:
         if self._h is not None:

@@ -193,7 +193,7 @@ def ref_moe_grouped(x_s, w, offs, *, act: str = "none", w_mul=None) -> torch.Ten
     with ``w_mul``, else ``act(x w[e])``, in float32, rounded once to the
     rows' type. Reads the offsets on the host."""
     out = torch.zeros((x_s.shape[0], w.shape[2]), dtype=x_s.dtype, device=x_s.device)
-    o = offs.tolist()
+    o = offs.tolist()  # port: noqa-PORT001: the plain version runs for CPU tensors only
     for e in range(w.shape[0]):
         a, b = o[e], o[e + 1]
         if a == b:

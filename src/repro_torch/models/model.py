@@ -372,7 +372,8 @@ def _host_gates(gates, n: int) -> List[float]:
     which capture refuses."""
     if gates is None:
         return [1.0] * n
-    g = torch.as_tensor(gates).detach().cpu().reshape(-1).tolist()
+    g = torch.as_tensor(gates).detach()
+    g = g.cpu().reshape(-1).tolist()  # port: noqa-PORT001: host gates (a CUDA vector fails capture)
     if len(g) != n:
         raise ValueError(f"gates has {len(g)} entries for {n} layers")
     return [float(x) for x in g]

@@ -123,7 +123,7 @@ from __future__ import annotations
 
 import functools
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -400,7 +400,14 @@ class BatchedSpecServer:
         self.replay_launches: Dict[str, int] = {}
         self.graph_launches: Dict[str, int] = {}
         self.capture_s = 0.0
-        self.graph_pool_bytes = 0
+        # the capture's memory: the pool it reserved, in all and by segment
+        # (the caching allocator's splits can reserve more than the peak),
+        # and what it left allocated (held against a second cache copy; the
+        # first capture of a process also leaves cuBLAS's workspace for the
+        # capture stream)
+        self.graph_pool_bytes = self.graph_live_bytes = 0
+        self.segment_pool_bytes: Dict[str, int] = {}
+        self.capture_ptrs: Dict[str, Tuple[int, int]] = {}
         self._prologue_fn = self._draft_fn = self._tail_fn = None
         sampled = sampling is not None
         if self.round_mode == "single":
@@ -491,7 +498,7 @@ class BatchedSpecServer:
                           device=self.device)
         last, c1 = M.prefill(self.cfg, self.params,
                              {"tokens": torch.as_tensor(prompt[None], device=self.device)}, c1)
-        self.cache = M.write_slot(self.cfg, self.cache, c1, slot)
+        M.write_slot(self.cfg, self.cache, c1, slot)  # in place
         if key is None:
             first = last[0].argmax()
         else:
@@ -746,11 +753,11 @@ class BatchedSpecServer:
             # the keys split on the device into this verify's k + 1 uniforms
             ds = self.dstate
             keys, u = round_uniforms(ds["key"], self.k + 1)
-            self.cache, n_chain, new_pending = verify_accept_commit_sampled(
+            _, n_chain, new_pending = verify_accept_commit_sampled(  # commits in place
                 *args, ds["temp"], ds["topk"], ds["topp"], u)
             ds["key"].copy_(keys)
         else:
-            self.cache, _, n_chain, new_pending = verify_accept_commit(*args)
+            _, _, n_chain, new_pending = verify_accept_commit(*args)  # commits in place
         n_chain, new_pending = n_chain.cpu().numpy(), new_pending.cpu().numpy()
         self._count_verify(time.perf_counter() - t0)
 
@@ -813,7 +820,7 @@ class BatchedSpecServer:
             self.costs.observe("tree_draft", dt, tokens=expansions)
 
         t0 = time.perf_counter()
-        self.cache, path, n_acc, bonus = self._tree_verify(
+        _, path, n_acc, bonus = self._tree_verify(  # commits in place
             d_tokens, d_parents, d_depth, d_mask, d_count, self._dev(self.live, torch.bool))
         self._count_verify(time.perf_counter() - t0)
 
@@ -935,7 +942,7 @@ class BatchedSpecServer:
                     sampling = None if warp is None else (*warp, keys)
                     out = cascade_rescore_verify(self.cfg, lvl.params, self.params, self.cache,
                                                  *args, live, sampling=sampling, **kw)
-                    self.cache, path, n_acc, bonus = out[9:13]
+                    path, n_acc, bonus = out[10:13]  # out[9], the cache, in place
                     keys = out[13] if warp is not None else None
                 else:
                     sampling = None
@@ -965,8 +972,8 @@ class BatchedSpecServer:
             level_node = probe.cpu().numpy()
         else:
             t0 = time.perf_counter()
-            self.cache, path, n_acc, bonus = self._tree_verify(tree[0], tree[1], tree[2], tree[4],
-                                                               tree[5], live)
+            _, path, n_acc, bonus = self._tree_verify(tree[0], tree[1], tree[2], tree[4], tree[5],
+                                                      live)  # commits in place
             self._count_verify(time.perf_counter() - t0)
         if warp is not None and rescored_round:
             ds["key"].copy_(keys)
@@ -1115,25 +1122,44 @@ class BatchedSpecServer:
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()        # as the capture does first: its pool is the growth
-        reserved = torch.cuda.memory_reserved(dev)
+        reserved, allocated = torch.cuda.memory_reserved(dev), torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
         mid, steps, pool = self._graph_mid, [], None
         for name, fn, pred in self._plan():
-            before = launch_counts()
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(graph, pool=pool):
+            before, grown = launch_counts(), torch.cuda.memory_reserved(dev)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)  # port: noqa-PORT003: once a segment
+            with torch.cuda.graph(graph, pool=pool):  # port: noqa-PORT003: at build, once a segment
                 fn(mid)
             pool = graph.pool() if pool is None else pool
+            self.segment_pool_bytes[name] = torch.cuda.memory_reserved(dev) - grown
             self.segment_launches[name] = {k: v - before[k] for k, v in launch_counts().items()}
             steps.append(("child", graph) if pred is None else ("if", mid[pred], graph))
         self._graph = CondGraph(steps, dev)
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
+        self.capture_ptrs = self.state_ptrs()    # the storage the graph writes in place
         self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.graph_live_bytes = torch.cuda.memory_allocated(dev) - allocated
         self.replay_launches = {k: sum(self.segment_launches[name][k]
                                        for name, _, pred in self._plan() if pred is None)
                                 for k in launch_counts()}
         self.graph_launches = {k: 0 for k in self.replay_launches}
+
+    def state_ptrs(self) -> Dict[str, Tuple[int, int]]:
+        """(``data_ptr``, bytes) of every tensor of the cache and
+        ``dstate``, by path: the storage the captured graph reads and writes
+        in place."""
+        out: Dict[str, Tuple[int, int]] = {}
+        stack: List[Tuple[str, object]] = [("cache", self.cache), ("dstate", self.dstate)]
+        while stack:
+            path, t = stack.pop()
+            if isinstance(t, torch.Tensor):
+                out[path] = (t.data_ptr(), t.numel() * t.element_size())
+            elif isinstance(t, dict):
+                stack.extend((f"{path}[{k!r}]", v) for k, v in t.items())
+            elif isinstance(t, (list, tuple)):
+                stack.extend((f"{path}[{i}]", v) for i, v in enumerate(t))
+        return out
 
     def _step_single(self) -> Dict[int, List[int]]:
         if self._graph is not None:

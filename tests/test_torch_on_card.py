@@ -44,7 +44,11 @@ one graph launch a round, and its streams equal AR's on the card. The
 codebook stack (musicgen-medium, reduced): a joint T=3 decode equals two
 steps and a commit, then the third, within 1e-4, through the attention
 kernels. MoE and Mamba-2 training (qwen2-moe-a2.7b and mamba2-130m,
-reduced): five train steps give finite losses and a falling ce.
+reduced): five train steps give finite losses and a falling ce. The
+analysis layer's contracts: a 2-layer single round's captured graph passes
+every dispatch contract and a telemetry-off twin's differs in the tail
+only; a graph captured with a device-to-host copy fails
+``assert_no_host_transfers``.
 """
 import dataclasses
 import functools
@@ -376,6 +380,120 @@ def test_captured_telemetry_equals_eager_on_card(mode):
         assert torch.equal(off.dstate[name], graph.dstate[name]), name
     for a, b in zip(_cache_leaves(off), _cache_leaves(graph)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode,paged", [("tree_fused", False), ("chain_fused", True)],
+                         ids=["tree_dense", "chain_paged"])
+def test_round_graph_passes_its_contracts_on_card(mode, paged):
+    """A 2-layer single-round server at vicuna-7b width, six rounds: its
+    assembled round graph, walked node by node, passes every dispatch
+    contract (``analysis.contracts.check_round``: no host node or host
+    transfer, the draft behind its IF node, each segment's hand-kernel
+    nodes as its wrappers counted, no collective, no copy of the cache, the
+    cache and state in place and nothing left live by the capture), and a
+    telemetry-off twin's graph differs in the tail segment only."""
+    from repro_torch.analysis import contracts as K
+    from repro_torch.core.dsia import DraftSpec
+    from repro_torch.serving import BatchedSpecServer
+
+    _card()
+    cfg, params = _round_model(2)
+    spec = DraftSpec("self_draft", gates=(1, 1), prior_alpha=0.6, prior_c=0.2)
+
+    def served(**kw):
+        srv = BatchedSpecServer(cfg, params, mode=mode, draft_spec=spec, paged=paged,
+                                page_size=64, max_batch=4, max_len=1024, draft_k=4,
+                                tree_expansions=5, adaptive=True, min_obs=1, round_mode="single",
+                                **kw)
+        rng = np.random.default_rng(1)
+        for b, n in enumerate((40, 100, 7, 64)):
+            srv.add_request(b, rng.integers(0, cfg.vocab_size, size=n).astype(np.int32))
+        for _ in range(6):
+            srv.step()
+        srv.flush()
+        return srv
+
+    on, off = served(), served(telemetry=False)
+    cons = K.check_round(on)
+    con = cons["round"]
+    assert list(cons) == ["round"] and con.n_if == 1
+    assert con.segments == (("prologue", False), ("draft", True), ("tail", False))
+    assert con.kernel_counts("draft")["tree_attention"] == on.segment_launches["draft"][
+        "tree_attention"] > 0
+    assert con.kernel_counts()["set_cond"] == 1
+    added = K.assert_telemetry_transparent(K.server_round_contracts(off), cons)
+    assert added.get("kernel", 0) > 0
+    # the first capture of the process may leave cuBLAS's workspace live;
+    # the second leaves next to nothing
+    assert off.graph_live_bytes < 2 ** 20 and off.graph_pool_bytes == sum(
+        off.segment_pool_bytes.values())
+
+
+@pytest.mark.parametrize("keep", [True, False], ids=["kept", "dropped"])
+def test_cache_copy_fails_the_contract_on_card(keep):
+    """A 2-layer single-round server whose captured tail clones every cache
+    tensor fails its contracts: a clone it keeps fails ``assert_donated``
+    (the capture left a cache's bytes live in the graph's pool), and kept or
+    dropped, the clone's memcpy nodes fail ``assert_no_cache_copy``."""
+    from repro_torch.analysis import contracts as K
+    from repro_torch.core.dsia import DraftSpec
+    from repro_torch.serving import BatchedSpecServer
+
+    class Cloning(BatchedSpecServer):
+        def _seg_tail(self, mid):
+            super()._seg_tail(mid)
+            if torch.cuda.is_current_stream_capturing():
+                copy = [t.clone() for t in _cache_leaves(self)]
+                if keep:
+                    self._shadow = copy
+
+    _card()
+    cfg, params = _round_model(2)
+    spec = DraftSpec("self_draft", gates=(1, 1), prior_alpha=0.6, prior_c=0.2)
+    srv = Cloning(cfg, params, mode="tree_fused", draft_spec=spec, max_batch=4, max_len=1024,
+                  draft_k=4, tree_expansions=5, adaptive=True, min_obs=1, round_mode="single")
+    cache = [v for k, v in srv.capture_ptrs.items() if k.startswith("cache")]
+    con = K.server_round_contracts(srv)["round"]
+    assert con.cache_copy_bytes(cache) >= sum(n for _, n in cache)
+    with pytest.raises(K.ContractViolation, match="second copy"):
+        con.assert_no_cache_copy(cache)
+    if keep:
+        with pytest.raises(K.ContractViolation, match="second copy"):
+            K.assert_donated(srv.capture_ptrs, srv.state_ptrs(), srv.graph_live_bytes)
+    else:
+        K.assert_donated(srv.capture_ptrs, srv.state_ptrs(), srv.graph_live_bytes)
+    with pytest.raises(K.ContractViolation, match="second copy"):
+        K.check_round(srv)
+
+
+def test_host_transfer_fails_the_contract_on_card():
+    """A graph captured with a device-to-host copy into pinned memory shows
+    a DtoH memcpy node and fails ``assert_no_host_transfers``; the same
+    graph without the copy passes."""
+    from repro_torch.analysis import contracts as K
+
+    _card()
+    x = torch.ones(1024, device="cuda")
+    host = torch.empty(1024, pin_memory=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = x * 2
+    torch.cuda.current_stream().wait_stream(side)
+    graphs = []
+    for copy in (False, True):
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g):
+            y = x * 2
+            if copy:
+                host.copy_(y, non_blocking=True)
+        graphs.append(g)
+    clean, leaky = (K.GraphContract.from_graph(g) for g in graphs)
+    clean.assert_no_host_callbacks().assert_no_host_transfers()
+    assert clean.node_counts.get("kernel", 0) >= 1 and "memcpy" not in clean.node_counts
+    assert [n.name for n in leaky.nodes if n.kind == "memcpy"] == ["DtoH"]
+    with pytest.raises(K.ContractViolation, match="host end"):
+        leaky.assert_no_host_transfers()
 
 
 def test_recompute_replay_equals_eager_rounds_on_card():
