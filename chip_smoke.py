@@ -91,11 +91,24 @@ target call at T = 16, each by graph replay beside its counted bound
 latency predictor fitted on the target's and the LS0.5 draft's call times,
 predicting two held-out T; the draft's c by the roofline, by graph replay
 and by phase 3's wall time; and the contracts' summary. Phase 2's bounds
-come from ``analysis.costs`` too. Each phase prints its
+come from ``analysis.costs`` too. Phase 17 drives the mesh
+(``repro_torch.launch.mesh``): the W8A8 and grouped expert kernels at the
+shards' shapes against their plain versions; (a) vicuna-7b at 32 layers on
+a one-rank NCCL mesh, ``tree_fused`` single rounds captured with their
+collectives, held to phase 7's streams, rounds, graph launches and host
+syncs and to the contracts; (b) vicuna-7b at model=2 as two gloo ranks
+sharing the card (split ``tree_fused`` dense and ``chain_fused`` paged,
+every stream against AR, 16 KV heads a rank, ms a round and the
+collectives' share); (c) gemma3-1b at model=2, whose cache is
+sequence-sharded: one context-parallel ``decode_attention`` within 1e-5
+of the one-device call, split ``tree_fused`` streams against AR; (d) the
+dry run's per-device table for four large configs on 1, 2 and 4 cards;
+(e) model=2 over NCCL on a machine with two cards. Each phase prints its
 seconds and the memory left allocated after it. The last line is the
 JSON device record; the line before it lists the kernels, with the
-launches of phases 3 and 5-15 (graph launches counted by the server, a
-gated segment's only in the rounds that ran it).
+launches of phases 3, 5-15 and 17 (graph launches counted by the server,
+a gated segment's only in the rounds that ran it; phase 17's of every
+rank).
 Exits non-zero,
 with no result, when any phase fails or when no CUDA device (or no
 repro_torch beside this script) is present.
@@ -1504,10 +1517,14 @@ def phase_server(torch, ar_streams: list, results: dict) -> dict:
     torch.cuda.empty_cache()
 
     paged_launches, split_ms = 0, {}
+    # what phase 17 serves again on the mesh, and holds to these runs
+    results["p17"] = dict(prompts=prompts, ar=ar_streams, split={}, single={})
     for name, mode, is_paged, kw, readmit in _runs(prompts):
         srv = server(mode, is_paged, round_mode="split", **kw)
         rec = _serve(torch, srv, prompts, ar_streams, readmit)
         split_ms[name] = rec["ms_per_round"]
+        results["p17"]["split"][name] = {k: rec[k] for k in (
+            "rounds", "target_calls", "draft_dispatches", "host_syncs", "ms_per_round")}
         pages = f", pool {len(srv._free_pages)} pages free at the end" if is_paged else ""
         print(f"[phase 6] {name}: {rec['requests']} requests identical to AR | {rec['rounds']} rounds, "
               f"{rec['target_calls']} target calls, {rec['draft_dispatches']} draft passes, "
@@ -1661,6 +1678,9 @@ def phase_single(torch, served: dict, results: dict) -> None:
         for k in launches:
             launches[k] += rec["launches"][k]
         served["greedy"][name] = dict(rec, capture_s=srv.capture_s, pool=srv.graph_pool_bytes)
+        results["p17"]["single"][name] = {k: rec[k] for k in (
+            "rounds", "target_calls", "draft_dispatches", "host_syncs", "graph_replays",
+            "ms_per_round", "streams")}
         del srv
         torch.cuda.empty_cache()
     for k, v in launches.items():
@@ -2818,6 +2838,7 @@ def phase_models(torch, results: dict) -> None:
         _serve_single(torch, cfg, params, prompts, ar, f"{label} tree_fused dense single",
                       launches)
         if name == "gemma3-1b":
+            results["p17_gemma"] = dict(prompts=prompts, ar=ar)
             _serve_single(torch, cfg, params, prompts, ar, f"{label} tree_fused paged single",
                           launches, paged=True)
             _serve_single(torch, cfg, params, prompts, ar,
@@ -3797,6 +3818,362 @@ def phase_analysis(torch, results: dict) -> None:
     print(f"[phase 16] {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------------------ phase 17
+MESH_TIMEOUT_S = 300                # the longest any collective of phase 17 may wait
+DRYRUN_ARCHS = ("vicuna-7b", "internlm2-20b", "jamba-v0.1-52b", "mixtral-8x22b")
+
+
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def _collective_clock(torch) -> dict:
+    """Time every ``torch.distributed.all_reduce`` of this process (the
+    port's only collective) on the host clock, the device synchronised
+    first so that a collective's seconds hold none of the kernels before
+    it. Returns the running totals {"s", "n"}."""
+    import torch.distributed as dist
+
+    spent = {"s": 0.0, "n": 0}
+    orig = dist.all_reduce
+
+    def timed(t, *args, **kwargs):
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        out = orig(t, *args, **kwargs)
+        spent["s"] += time.perf_counter() - t0
+        spent["n"] += 1
+        return out
+
+    dist.all_reduce = timed
+    return spent
+
+
+def _mesh_rank_record(rec: dict, spent: dict, rounds_s: float) -> dict:
+    keep = ("rounds", "target_calls", "draft_dispatches", "host_syncs", "graph_replays",
+            "ms_per_round", "tokens_per_slot_round", "launches")
+    out = {k: rec[k] for k in keep}
+    out.update(collective_s=spent["s"], collectives=spent["n"],
+               collective_share=spent["s"] / rounds_s if rounds_s else float("nan"))
+    return out
+
+
+def _phase17_rank(rank: int, world: int, job: dict, out_dir: str) -> None:
+    """One rank of phase 17 (b) or (c): two processes sharing the card over
+    gloo, each holding its model=2 shard; split rounds on four slots, every
+    stream held to the one-device AR stream; (c) also one context-parallel
+    decode_attention at gemma3-1b's shapes. Saves its records."""
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.core import layer_sparsity
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import attention as attn
+    from repro_torch.models import init_params
+    from repro_torch.models import shard_utils as SU
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.serving import BatchedSpecServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0 if job.get("share", True) else rank)
+    mesh = Mesh((1, world), ("data", "model"), device=dev)
+    cfg = dataclasses.replace(get_config(job["arch"]), dtype="float32")
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED, mesh=mesh)
+    torch.cuda.synchronize()
+    wk = params["segments"][0][0]["attn"]["wk"]
+    out = {"init_s": time.perf_counter() - t0, "kv_local": int(wk.shape[2]),
+           "param_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(params)),
+           "runs": {}}
+    spec = layer_sparsity(cfg, 0.5)
+    spent = _collective_clock(torch)
+    for name, mode, paged in job["runs"]:
+        srv = BatchedSpecServer(cfg, params, mode=mode, draft_spec=spec, paged=paged,
+                                page_size=PAGE, mesh=mesh, round_mode=job.get("round_mode", "split"),
+                                **SERVER)
+        spent.update(s=0.0, n=0)
+        rec = _serve(torch, srv, job["prompts"], job["ar"])
+        out["runs"][name] = _mesh_rank_record(rec, spent, rec["wall_s"])
+        if rec["contracts"] is not None:
+            out["runs"][name]["nccl_nodes"] = rec["contracts"]["round"].collective_counts()
+        del srv
+        torch.cuda.empty_cache()
+    if "attention" in job:
+        t = {k: torch.as_tensor(v, device=dev) for k, v in job["attention"].items()}
+        S = t["k"].shape[1] // world
+        with SU.use_mesh(mesh):
+            o = attn.decode_attention(t["q"], t["k"][:, rank * S:(rank + 1) * S],
+                                      t["v"][:, rank * S:(rank + 1) * S], t["pos"], t["kn"],
+                                      t["vn"], t["q_pos"], tree_mask=t["tm"], seq_axes=("model",))
+        out["attention"] = o.cpu().numpy()
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _mesh_one_card(torch, results: dict) -> None:
+    """(a): vicuna-7b, full width and 32 layers, float32, on a model=1,data=1
+    mesh over a real NCCL group of one: tree_fused single rounds on four
+    slots, the round's collectives captured in its graph; the streams,
+    rounds, graph launches and host syncs of phase 7's one-device run, and
+    the captured round held to its contracts (NCCL nodes counted apart)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.config import get_config
+    from repro_torch.core import layer_sparsity
+    from repro_torch.launch.mesh import Mesh, init_distributed
+    from repro_torch.models import init_params
+    from repro_torch.serving import BatchedSpecServer
+
+    p17 = results["p17"]
+    want = p17["single"]["tree_fused dense"]
+    cfg = dataclasses.replace(get_config("vicuna-7b"), dtype="float32")
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed("nccl", rank=0, world=1, init_method=f"file://{tmp}/store",
+                         device=torch.device("cuda", 0), timeout_s=MESH_TIMEOUT_S)
+        try:
+            mesh = Mesh((1, 1), ("data", "model"), device=torch.device("cuda", 0))
+            params = init_params(cfg, SEED, mesh=mesh)
+            srv = BatchedSpecServer(cfg, params, mode="tree_fused", draft_spec=layer_sparsity(cfg, 0.5),
+                                    page_size=PAGE, mesh=mesh, round_mode="single", **SERVER)
+            if srv._graph is None:
+                raise AssertionError("phase 17 (a): no CUDA graph was captured on the mesh")
+            rec = _serve(torch, srv, p17["prompts"], p17["ar"])
+            summ = rec["contracts"]["round"].summary()
+            coll = rec["contracts"]["round"].collective_counts()
+            print(f"[phase 17] (a) vicuna-7b float32, 32 layers, mesh data=1,model=1 over "
+                  f"{mesh.backend}: tree_fused dense single, {rec['requests']} requests identical to "
+                  f"AR | {_line(rec)} (phase 7 one-device: {want['rounds']} rounds, "
+                  f"{want['ms_per_round']:.2f} ms per round) | {rec['graph_replays'] / rec['rounds']:.2f} "
+                  f"graph launches and {rec['host_syncs'] / rec['rounds']:.2f} host syncs a round "
+                  f"(phase 7: {want['graph_replays'] / want['rounds']:.2f}, "
+                  f"{want['host_syncs'] / want['rounds']:.2f}) | NCCL kernel nodes in the round "
+                  f"{sum(coll.values())} {coll}, contracts held, nodes {summ['nodes']} | {_smi()}")
+            same = dict(rec["streams"]) == dict(want["streams"])
+            if not same or any(rec[k] != want[k] for k in ("rounds", "host_syncs", "graph_replays")):
+                raise AssertionError(f"phase 17 (a): the mesh's run differs from phase 7's: streams "
+                                     f"equal {same}, rounds {rec['rounds']} / {want['rounds']}, host "
+                                     f"syncs {rec['host_syncs']} / {want['host_syncs']}, graph "
+                                     f"launches {rec['graph_replays']} / {want['graph_replays']}")
+            for k in ("flash_decode", "tree_attention", "set_cond"):
+                results[k]["launches"] += rec["launches"][k]
+            del srv, params
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+
+
+def _spawn17(torch, job: dict) -> list:
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn(_phase17_rank, 2, (job, tmp), device="cuda", share_card=job.get("share", True),
+              timeout_s=MESH_TIMEOUT_S)
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                for r in range(2)]
+
+
+SPLIT_COUNTS = ("rounds", "target_calls", "draft_dispatches", "host_syncs")
+
+
+def _print_ranks(label: str, ranks: list, baseline: dict, base_label: str, results: dict) -> None:
+    """Print each rank's runs beside the one-device split run of the same
+    name in ``baseline`` and fail where a rank's rounds, target calls,
+    draft dispatches or host syncs differ from it."""
+    smi = _smi()
+    for r, rk in enumerate(ranks):
+        for name, rec in rk["runs"].items():
+            base = baseline[name]
+            print(f"[phase 17] {label} rank {r}: {name} on a mesh of two ranks: streams "
+                  f"identical to AR | {rec['rounds']} rounds, {rec['target_calls']} target calls, "
+                  f"{rec['draft_dispatches']} draft dispatches, {rec['host_syncs']} host syncs "
+                  f"({base_label}: {base['rounds']}, {base['target_calls']}, "
+                  f"{base['draft_dispatches']}, {base['host_syncs']}), "
+                  f"{rec['tokens_per_slot_round']:.2f} tokens per slot-round, "
+                  f"{rec['ms_per_round']:.2f} ms per round ({base_label}: "
+                  f"{base['ms_per_round']:.2f}) | {rec['collectives']} collectives, "
+                  f"{rec['collective_s'] * 1e3 / rec['rounds']:.2f} ms a round, share of the round "
+                  f"{rec['collective_share']:.3f} | local KV heads {rk['kv_local']}, launches "
+                  + ", ".join(f"{k} {v}" for k, v in rec["launches"].items() if v) + f" | {smi}")
+            for k, v in rec["launches"].items():
+                results[k]["launches"] += v
+            off = {k: (rec[k], base[k]) for k in SPLIT_COUNTS if rec[k] != base[k]}
+            if off:
+                raise AssertionError(f"phase 17 {label} rank {r}: {name} differs from the "
+                                     f"{base_label} run in (mesh, one device) {off}")
+        print(f"[phase 17] {label} rank {r}: params {_gib(rk['param_bytes'])} drawn in "
+              f"{rk['init_s']:.1f} s, peak memory {_gib(rk['peak'])}")
+
+
+def _gemma_split_one_device(torch, g: dict) -> dict:
+    """(c)'s one-device yardstick: gemma3-1b float32 served by the same
+    tree_fused dense split rounds in this process, with no mesh, on the
+    prompts phase 12 served. Returns {"tree_fused dense": its record}."""
+    from repro_torch.config import get_config
+    from repro_torch.core import layer_sparsity
+    from repro_torch.models import init_params
+    from repro_torch.serving import BatchedSpecServer
+
+    cfg = dataclasses.replace(get_config("gemma3-1b"), dtype="float32")
+    params = init_params(cfg, SEED)
+    srv = BatchedSpecServer(cfg, params, mode="tree_fused", draft_spec=layer_sparsity(cfg, 0.5),
+                            page_size=PAGE, round_mode="split", **SERVER)
+    rec = _serve(torch, srv, g["prompts"], g["ar"])
+    del srv, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tree_fused dense": {k: rec[k] for k in SPLIT_COUNTS + ("ms_per_round",)}}
+
+
+def _gemma_attention_case(vocab_cfg):
+    """One decode_attention at gemma3-1b's shapes (H 4, KV 1, hd 288), B=4,
+    a 5-node tree over 600-1700 committed slots of a 2048-slot cache."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 17)
+    B, T, S, H, KV, hd = 4, 5, 2048, vocab_cfg.num_heads, vocab_cfg.num_kv_heads, \
+        vocab_cfg.resolved_head_dim()
+    f = lambda *sh: rng.standard_normal(sh).astype(np.float32)  # noqa: E731
+    tm = np.tril(np.ones((T, T), bool))
+    tm[3, 2] = tm[4, 2] = tm[4, 3] = False
+    pos = np.array([600, 1023, 1024, 1700], np.int32)
+    return dict(q=f(B, T, H, hd), k=f(B, S, KV, hd), v=f(B, S, KV, hd), pos=pos,
+                kn=f(B, T, KV, hd), vn=f(B, T, KV, hd), tm=tm,
+                q_pos=(pos[:, None] + np.array([0, 1, 1, 2, 2])[None]).astype(np.int32))
+
+
+def _dryrun_table() -> None:
+    """(d): the dry run's rows for four of the repo's largest configs on a
+    (1, 2, 4)-card model axis at decode_32k, and which one H100 holds."""
+    from repro_torch.analysis import report
+    from repro_torch.config import get_config
+    from repro_torch.launch import dryrun as D
+
+    rows = [D.run_one(a, "decode_32k", mesh=D.shape_mesh(f"model={k}"), verbose=False)
+            for a in DRYRUN_ARCHS for k in (1, 2, 4)]
+    print("[phase 17] (d) dry run, decode_32k (B=128, S=32768, T=8), per device, by "
+          "repro_torch.launch.dryrun (analytic; fits = params + cache + activations <= 80 GB):")
+    for line in report.render(rows).splitlines():
+        print(f"[phase 17]   {line}")
+    for a in DRYRUN_ARCHS:
+        cfg = get_config(a)
+        fit = [k for k in (1, 2, 4)
+               if next(r for r in rows if r["arch"] == a and r["mesh"] == f"1x{k}")["params_bytes"]
+               <= report.HBM_GIB * 2 ** 30]
+        print(f"[phase 17]   {a} ({cfg.dtype}): its params alone fit one H100's 80 GB at model = "
+              f"{fit or 'none of 1, 2, 4'}")
+
+
+def _shard_shape_kernels(torch) -> None:
+    """The hand kernels the mesh runs at shapes no single-card path gives
+    them, against their plain versions (comparison launches, not counted
+    as the main path's): the W8A8 kernel on vicuna-7b's model=2 shards (the
+    row-parallel down projection, K = 5504, and the column-parallel gate,
+    N = 5504), bitwise; the grouped expert GEMM at qwen2-moe's local
+    expert d_ff (1408 / 2 = 704), float32, within TOL["moe"]."""
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels import moe_grouped as mg
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    for M, K, N in ((16, 5504, 4096), (16, 4096, 5504), (128, 5504, 4096)):
+        ops = _int8_operands(torch, gen, M, K, N)
+        got, want = i8.int8_matmul(*ops), ref.ref_int8_matmul(*ops)
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase 17: int8_matmul at the shard shape {M}x{K}x{N} differs "
+                                 f"by {_err(got, want)}")
+    E, d, F = 60, 2048, 704
+    x, ids = _moe_route(torch, gen, 64, 4, E, d, torch.float32)
+    x_s, offs, _ = _moe_sort(torch, x, ids, E)
+    w_g, w_u = (torch.randn(E, d, F, generator=gen, device="cuda") * d ** -0.5 for _ in range(2))
+    w_d = torch.randn(E, F, d, generator=gen, device="cuda") * F ** -0.5
+    h = mg.moe_grouped(x_s, w_g, offs, act="silu", w_mul=w_u)
+    err = [_err(h, ref.ref_moe_grouped(x_s, w_g, offs, act="silu", w_mul=w_u))]
+    err.append(_err(mg.moe_grouped(h, w_d, offs), ref.ref_moe_grouped(h, w_d, offs)))
+    print(f"[phase 17] shard shapes: int8_matmul at 16x5504x4096, 16x4096x5504 and 128x5504x4096 "
+          f"bitwise equal to its plain version; moe_grouped at qwen2-moe's local d_ff {F} "
+          f"(64 tokens, top-4 of {E}), gated up and down, max abs err {max(err):.2e} "
+          f"(tolerance {TOL['moe']})")
+    if max(err) > TOL["moe"]:
+        raise AssertionError(f"phase 17: moe_grouped at the shard shape off by {max(err)}")
+
+
+def phase_mesh(torch, results: dict) -> None:
+    """The mesh on the card: (a) vicuna-7b on a real NCCL group of one,
+    single rounds captured with their collectives, against phase 7; (b)
+    vicuna-7b at model=2 as two ranks sharing the card over gloo, split
+    rounds dense and paged, against phase 6 and AR; (c) gemma3-1b at
+    model=2 (policy q: the cache sequence-sharded), a context-parallel
+    decode_attention against the one-device call and tree_fused split
+    streams against AR; (d) the dry run's table; (e) model=2 over NCCL
+    where the machine has two cards."""
+    import numpy as np
+
+    from repro_torch.config import get_config
+    from repro_torch.models import attention as attn
+
+    t0 = time.perf_counter()
+    _shard_shape_kernels(torch)
+    _mesh_one_card(torch, results)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[phase 17] (a) {time.perf_counter() - t0:.1f} s")
+
+    t1 = time.perf_counter()
+    p17 = results["p17"]
+    job = dict(arch="vicuna-7b", prompts=p17["prompts"], ar=p17["ar"],
+               runs=[("tree_fused dense", "tree_fused", False),
+                     ("chain_fused paged", "chain_fused", True)])
+    ranks = _spawn17(torch, job)
+    _print_ranks("(b) vicuna-7b float32, model=2", ranks, p17["split"], "phase 6 one-device split",
+                 results)
+    for rk in ranks:
+        if rk["kv_local"] != 16:
+            raise AssertionError(f"phase 17 (b): {rk['kv_local']} local KV heads, not 16")
+        for name, key in (("tree_fused dense", "flash_decode"), ("tree_fused dense", "tree_attention"),
+                          ("chain_fused paged", "flash_decode_paged")):
+            if rk["runs"][name]["launches"][key] <= 0:
+                raise AssertionError(f"phase 17 (b): {name} launched no {key} on a rank")
+    print(f"[phase 17] (b) {time.perf_counter() - t1:.1f} s")
+
+    t2 = time.perf_counter()
+    g = results["p17_gemma"]
+    gcfg = get_config("gemma3-1b")
+    one_device = _gemma_split_one_device(torch, g)
+    case = _gemma_attention_case(gcfg)
+    ranks = _spawn17(torch, dict(arch="gemma3-1b", prompts=g["prompts"], ar=g["ar"],
+                                 runs=[("tree_fused dense", "tree_fused", False)], attention=case))
+    t = {k: torch.as_tensor(v, device="cuda") for k, v in case.items()}
+    want = attn.decode_attention(t["q"], t["k"], t["v"], t["pos"], t["kn"], t["vn"], t["q_pos"],
+                                 tree_mask=t["tm"]).cpu().numpy()
+    errs = [float(np.abs(rk["attention"] - want).max()) for rk in ranks]
+    print(f"[phase 17] (c) gemma3-1b float32, model=2 (policy q, cache sequence-sharded): "
+          f"context-parallel decode_attention (B=4, T=5, S=2048 in two slices of 1024, hd "
+          f"{gcfg.resolved_head_dim()}) against the one-device call: max abs err by rank "
+          f"{errs} (tolerance 1e-5)")
+    if max(errs) > 1e-5:
+        raise AssertionError(f"phase 17 (c): context-parallel attention off by {max(errs)}")
+    _print_ranks("(c) gemma3-1b float32, model=2", ranks, one_device, "one-device split", results)
+    print(f"[phase 17] (c) {time.perf_counter() - t2:.1f} s")
+
+    _dryrun_table()
+    if torch.cuda.device_count() >= 2:
+        ranks = _spawn17(torch, dict(arch="vicuna-7b", prompts=p17["prompts"], ar=p17["ar"],
+                                     share=False, round_mode="single",
+                                     runs=[("tree_fused dense", "tree_fused", False)]))
+        _print_ranks("(e) vicuna-7b float32, model=2 over nccl, single rounds", ranks,
+                     p17["single"], "phase 7 one-device single", results)
+    else:
+        print(f"[phase 17] (e) model=2 over NCCL with captured rounds waits for a machine with two "
+              f"cards: this one has {torch.cuda.device_count()}")
+    print(f"[phase 17] {time.perf_counter() - t0:.1f} s | {_smi()}")
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -3842,6 +4219,7 @@ def main() -> int:
     timed("phase 14", phase_ssm, torch, results)
     timed("phase 15", phase_media, torch, results)
     timed("phase 16", phase_analysis, torch, results)
+    timed("phase 17", phase_mesh, torch, results)
     print(f"[chip_smoke] all phases in {time.perf_counter() - t_all:.1f} s")
     kernels = []
     for name, src, replaces in (

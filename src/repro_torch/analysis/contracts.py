@@ -19,14 +19,17 @@ proves it on the graph a single round launches: the ``CondGraph`` that
                                      and what the round's memcpy nodes copy
                                      out of the cache, each below the
                                      cache's bytes: no second copy of it
-  ``assert_no_collectives``          no NCCL kernel in a single-card round
+  ``assert_no_collectives``          no NCCL kernel in a single-card round;
+                                     a mesh round's NCCL kernel nodes are
+                                     counted apart (``collective_counts``)
   ``server_round_contracts``         one contract per graph a round launches
   ``assert_telemetry_transparent``   telemetry changes the tail segment's
                                      kernels only
 
-``assert_sharding`` and ``collective_counts`` wait for the mesh. Every
-assertion reads a plain list of ``GraphNode`` records, so each violation is
-testable on the CPU, where a round runs eagerly and has no graph.
+``assert_sharding`` reads XLA's placements and has no counterpart: the
+port's ranks hold their shards explicitly. Every assertion reads a plain
+list of ``GraphNode`` records, so each violation is testable on the CPU,
+where a round runs eagerly and has no graph.
 """
 from __future__ import annotations
 
@@ -202,11 +205,17 @@ class GraphContract:
                 out[HAND_KERNELS[fn]] += 1
         return dict(out)
 
+    def collective_counts(self) -> Dict[str, int]:
+        """NCCL kernel nodes by function name (a mesh round's collectives)."""
+        return dict(collections.Counter(n.name for n in self.nodes
+                                        if n.kind == "kernel" and "nccl" in n.name.lower()))
+
     def summary(self) -> dict:
-        """Node counts by kind, IF nodes, unresolved kernels and the hand
-        kernels' nodes: what a run prints."""
+        """Node counts by kind, IF nodes, unresolved kernels, the hand
+        kernels' nodes and the NCCL kernels': what a run prints."""
         return {"nodes": self.node_counts, "if": self.n_if, "unresolved": self.unresolved,
-                "hand": self.kernel_counts(), "errors": len(self.errors)}
+                "hand": self.kernel_counts(), "errors": len(self.errors),
+                "collectives": sum(self.collective_counts().values())}
 
     # ----------------------------------------------------------- assertions
     def assert_walked(self) -> "GraphContract":
@@ -331,15 +340,17 @@ def server_round_contracts(server) -> Dict[str, GraphContract]:
 def check_round(server) -> Dict[str, GraphContract]:
     """``server_round_contracts`` with every assertion held: the walk read
     every node, no host node or host transfer, the gated segments behind
-    IF nodes, each segment's hand kernels as counted, no collective, no
-    copy of the cache, and the cache and state in place with no second copy
-    of the cache left live by the capture."""
+    IF nodes, each segment's hand kernels as counted, no collective (on a
+    mesh the NCCL nodes are the round's own, counted apart), no copy of
+    the cache, and the cache and state in place with no second copy of the
+    cache left live by the capture."""
     cons = server_round_contracts(server)
     cache = [v for k, v in server.capture_ptrs.items() if k.startswith("cache")]
     for con in cons.values():
         (con.assert_walked().assert_no_host_callbacks().assert_no_host_transfers().assert_gated()
-         .assert_segment_launches(server.segment_launches).assert_no_collectives()
-         .assert_no_cache_copy(cache))
+         .assert_segment_launches(server.segment_launches).assert_no_cache_copy(cache))
+        if getattr(server, "mesh", None) is None:
+            con.assert_no_collectives()
     assert_donated(server.capture_ptrs, server.state_ptrs(), server.graph_live_bytes)
     return cons
 

@@ -315,7 +315,8 @@ def _routed(cfg: ModelConfig, M: int, experts_hit: Optional[int]) -> int:
 
 def decode_step(cfg: ModelConfig, B: int, T: int, S: int, *, dtype=None,
                 layers: Optional[List[int]] = None, quantize: Optional[str] = None,
-                staged_pairs: Optional[int] = None, experts_hit: Optional[int] = None) -> RooflineReport:
+                staged_pairs: Optional[int] = None, experts_hit: Optional[int] = None,
+                model: int = 1) -> RooflineReport:
     """One ``models/model.py::decode_step``: T staged rows for each of B
     slots over S committed slots each, through ``layers`` (default every
     layer; a slice-exec draft runs a subset). Reads each layer's weights
@@ -325,7 +326,10 @@ def decode_step(cfg: ModelConfig, B: int, T: int, S: int, *, dtype=None,
     layer's state; writes
     the staged K/V (or per-step states) and the float32 logits. Each row
     sees every cached slot and ``staged_pairs`` (B, T, T) mask entries
-    (default a chain's T (T + 1) / 2 a slot)."""
+    (default a chain's T (T + 1) / 2 a slot). ``model > 1``: the whole
+    call's work (not one rank's), and the collective bytes one rank of a
+    ``model`` axis of that size sends (``decode_collectives``), the
+    roofline's collective term."""
     dt = dtype_name(dtype or cfg.dtype)
     elt = itemsize(dt)
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
@@ -353,7 +357,65 @@ def decode_step(cfg: ModelConfig, B: int, T: int, S: int, *, dtype=None,
             nbytes += B * state + M * state
         parts.append(dataclasses.replace(layer, bytes_hbm=nbytes + 2 * M * d * elt))
     parts.append(unembed(cfg, M, dtype=dt))
-    return total(parts, f"decode_step B={B} T={T} S={S}")
+    out = total(parts, f"decode_step B={B} T={T} S={S}")
+    if model > 1:
+        out = dataclasses.replace(out, coll_bytes=decode_collectives(
+            cfg, B, T, S, model=model, dtype=dt, layers=layers))
+    return out
+
+
+def ring_bytes(payload: float, n: int) -> float:
+    """Bytes one rank sends in a ring all-reduce of ``payload`` bytes over
+    ``n`` ranks: 2 (n - 1) / n of the payload (0 on one rank)."""
+    return 2.0 * (n - 1) / n * payload
+
+
+def decode_collectives(cfg: ModelConfig, B: int, T: int, S: int, *, model: int = 1,
+                       dtype=None, paged: bool = False,
+                       layers: Optional[List[int]] = None) -> Dict[str, float]:
+    """Counted collective bytes one rank sends in one ``decode_step`` of B
+    local slots and T rows a slot on a ``model`` axis of ``model`` ranks,
+    as the port's tensor-parallel model runs it (``models/shard_utils``:
+    every collective an all-reduce, each counted as its payload times the
+    ring factor ``ring_bytes``):
+
+      embed     the vocab-sharded lookup's sum, (M, d) in the model's type;
+      attention ``kv``/``q``: the ``wo`` sum, (M, d); ``q`` also gathers the
+                queries (M, H, hd) as a sum into zeros; ``q``/``none`` over
+                a dense cache combine the sequence slices' partials: m and
+                l (B, KV, rep T) and acc (B, KV, rep T, hd), float32;
+      mlp       the ``w_down`` (or experts') sum, (M, d);
+      mamba     where d_inner is sharded: the norm's (M, 1) float32 sum and
+                the ``out_proj`` sum, (M, d);
+      logits    the vocab columns' gather, (M, heads, V) float32.
+
+    Returns {"all-reduce": bytes} (0 on one rank)."""
+    from repro_torch.launch.sharding import attention_policy   # it imports the model code
+
+    dt = dtype_name(dtype or cfg.dtype)
+    elt = itemsize(dt)
+    n = model
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    M = B * T
+    heads = max(cfg.num_codebooks, 1)
+    pol = attention_policy(cfg, n)
+    payloads = [M * d * elt, M * heads * cfg.padded_vocab * 4]
+    for i in (range(cfg.num_layers) if layers is None else layers):
+        if cfg.block_kind(i) is BlockKind.ATTENTION:
+            if pol in ("kv", "q"):
+                payloads.append(M * d * elt)
+            if pol == "q":
+                payloads.append(M * H * hd * elt)
+            if pol != "kv" and not paged:
+                R = (H // KV) * T
+                payloads += [B * KV * R * 4, B * KV * R * 4, B * KV * R * hd * 4]
+        else:
+            s = _ssm(cfg)
+            if s.num_heads(d) % n == 0:
+                payloads += [M * 4, M * d * elt]
+        if cfg.has_mlp(i):
+            payloads.append(M * d * elt)
+    return {"all-reduce": sum(ring_bytes(p, n) for p in payloads)}
 
 
 def prefill(cfg: ModelConfig, B: int, S: int, *, dtype=None) -> RooflineReport:

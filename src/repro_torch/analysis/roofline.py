@@ -3,7 +3,9 @@ reference's ``analysis/roofline.py``.
 
   compute term    = FLOPs / peak rate of the type they run in
   memory term     = bytes / HBM rate
-  collective term = collective bytes / NVLink rate (0 until the mesh)
+  collective term = collective bytes / NVLink rate (the bytes one rank
+                    sends in its all-reduces, ``costs.decode_collectives``;
+                    0 on one device)
 
 Counts follow one rule: each input byte read once, each
 output byte written once, and data-dependent work at what the inputs need
@@ -48,7 +50,7 @@ class RooflineReport:
     name: str
     flops: float                 # counted operations (2 a multiply-add)
     bytes_hbm: float             # bytes the call moves (max of analytic and tensor I/O)
-    coll_bytes: Dict[str, float] = dataclasses.field(default_factory=dict)  # empty until the mesh
+    coll_bytes: Dict[str, float] = dataclasses.field(default_factory=dict)  # empty off-mesh
     peak_memory: Optional[float] = None   # bytes, max_memory_allocated on the card
     flops_counted: float = 0.0   # FlopCounterMode's count of the aten ops run
     bytes_analytic: float = 0.0  # the analytic traffic model (analysis.costs)

@@ -37,21 +37,42 @@ def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_jax(params, *, device="cuda", dtype: Optional[torch.dtype] = None) -> dict:
+def params_from_jax(params, *, device="cuda", dtype: Optional[torch.dtype] = None, cfg=None,
+                    mesh=None) -> dict:
     """Reference params (nested numpy) -> port params on ``device``; float
     leaves become ``dtype`` (default: the leaf's own float type), except
-    those the reference keeps in float32."""
+    those the reference keeps in float32. ``mesh`` (with ``cfg``): this
+    rank's shards (``launch.sharding.param_specs``)."""
     dev = resolve_device(device)
+    if mesh is not None:
+        params = _local(params, "param_specs", cfg, mesh)
     return map_with_path(lambda key, a: _leaf(a, dev, None if keeps_float32(key) else dtype),
                          params)
 
 
-def cache_from_jax(cache, *, device="cuda") -> dict:
+def cache_from_jax(cache, *, device="cuda", cfg=None, mesh=None) -> dict:
     """Reference cache (nested numpy), dense or paged (``k_pages``,
     ``v_pages``, ``page_table``: the same layout in both packages) -> port
-    cache on ``device``."""
+    cache on ``device``. ``mesh`` (with ``cfg``): this rank's shard
+    (``launch.sharding.cache_specs`` at the cache's own batch)."""
     dev = resolve_device(device)
+    if mesh is not None:
+        cache = _local(cache, "cache_specs", cfg, mesh)
     return tree_map(lambda a: _leaf(a, dev, None), cache)
+
+
+def _local(tree, specs: str, cfg, mesh):
+    """The numpy tree cut to this rank's shards under spec tree ``specs``."""
+    from repro_torch.launch import sharding as SH
+
+    if cfg is None:
+        raise ValueError("bridge: a mesh needs the model's cfg for its spec trees")
+    if specs == "param_specs":
+        spec_tree = SH.param_specs(cfg, mesh)
+    else:
+        spec_tree = SH.cache_specs(cfg, mesh, global_batch=int(np.shape(tree["pos"])[0]),
+                                   paged="page_table" in tree)
+    return SH.local_shard(tree, spec_tree, mesh)
 
 
 def params_from_checkpoint(path: str, cfg: ModelConfig, *, device="cuda",

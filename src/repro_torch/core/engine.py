@@ -75,23 +75,35 @@ from repro_torch.core.latency import (
 from repro_torch.core.pld import PromptLookup, propose_device
 from repro_torch.core.tree import DraftTree, bucket_for, tree_seed_device
 from repro_torch.models import model as M
+from repro_torch.models import shard_utils as SU
 
 
-def fake_quant_int8(params: dict) -> dict:
+def fake_quant_int8(params: dict, cfg: Optional[ModelConfig] = None) -> dict:
     """Per-output-channel symmetric int8 weight fake-quantization (QSpec sim),
-    with the reference's numerics (scale over every axis but the last)."""
+    with the reference's numerics (scale over every axis but the last). On
+    a mesh (``cfg`` given) a leaf sharded on an axis the scale reduces over
+    takes the MAX over those ranks, so every shard holds the unsharded
+    leaf's values."""
 
-    def q(w):
+    def q(w, spec=()):
         if not isinstance(w, torch.Tensor) or w.dtype not in (torch.float32, torch.bfloat16):
             return w
         if w.ndim < 2:
             return w
         w32 = w.float()
-        scale = w32.abs().amax(dim=tuple(range(w.ndim - 1)), keepdim=True) / 127.0
-        scale = torch.clamp_min(scale, 1e-8)
+        amax = w32.abs().amax(dim=tuple(range(w.ndim - 1)), keepdim=True)
+        axes = tuple(a for e in tuple(spec)[: w.ndim - 1] if e is not None
+                     for a in ((e,) if isinstance(e, str) else e))
+        if axes:
+            amax = SU.all_max(amax, axes)
+        scale = torch.clamp_min(amax / 127.0, 1e-8)
         return (torch.round(w32 / scale).clamp(-127, 127) * scale).to(w.dtype)
 
-    return M.tree_map(q, params)
+    mesh = SU.active_mesh()
+    if mesh is None or cfg is None:
+        return M.tree_map(q, params)
+    from repro_torch.launch import sharding as SH
+    return SH.map_specs(lambda spec, w: q(w, spec), SH.param_specs(cfg, mesh), params)
 
 
 def check_text_stack(cfg: ModelConfig, who: str) -> None:
@@ -744,16 +756,18 @@ def tree_verify_accept_commit_host(cfg: ModelConfig, params: dict, cache: dict,
     walk in numpy (``verify.greedy_accept_tree_batched``: cheaper there than
     the device walk's N-1 steps of small launches), then the commit.
     Returns (cache, path_idx (B, N), n_acc (B,), bonus (B,)); the last three
-    are int32 numpy arrays."""
+    are int32 numpy arrays. Where the slots are sharded over the data axes
+    (``shard_utils.use_mesh``) the host reads gather every rank's rows, and
+    each rank commits its own."""
     logits, staged = M.decode_step(cfg, params, cache, tokens, tree_mask=mask,
                                    q_pos=cache["pos"][:, None] + depth)
-    nxt = logits.argmax(dim=-1).cpu().numpy()
+    nxt = SU.host(logits.argmax(dim=-1))
     path, n_acc, bonus = verify_lib.greedy_accept_tree_batched(
-        tokens.cpu().numpy(), parents.cpu().numpy(), count.cpu().numpy(), nxt)
-    n_acc = np.where(live.cpu().numpy(), n_acc, 0).astype(np.int32)
+        SU.host(tokens), SU.host(parents), SU.host(count), nxt)
+    n_acc = np.where(SU.host(live), n_acc, 0).astype(np.int32)
     dev = tokens.device
-    cache = M.commit_cache(cfg, cache, staged, torch.as_tensor(path, device=dev),
-                           torch.as_tensor(n_acc, device=dev))
+    cache = M.commit_cache(cfg, cache, staged, torch.as_tensor(SU.local_rows(path), device=dev),
+                           torch.as_tensor(SU.local_rows(n_acc), device=dev))
     return cache, path, n_acc, bonus
 
 
@@ -792,7 +806,7 @@ def cascade_rescore_verify(cfg: ModelConfig, level_params: dict, target_params: 
     cache, path, n_acc, nxt = tree_verify_accept_commit_sampled(
         cfg, target_params, cache, tokens, parents, depth, mask, count, live, s_temp, s_topk,
         s_topp, u[:, N + 2:])
-    return out + (cache, path.cpu().numpy(), n_acc.cpu().numpy(), nxt.cpu().numpy(), new_keys)
+    return out + (cache, SU.host(path), SU.host(n_acc), SU.host(nxt), new_keys)
 
 
 # ===================================================== single-dispatch rounds
@@ -844,7 +858,8 @@ def chain_prologue(cache: dict, state: dict, c: torch.Tensor, *, draft_k: int, u
     Returns the round's intermediate tensors: ``n`` (pos before the
     commit), ``ctx``, ``chains``, ``have``, ``pld_have``, ``limit`` and
     ``ran`` () bool, whether a budget needs the draft (the reference's
-    skip predicate, ``any(limit > have)``)."""
+    skip predicate, ``any(limit > have)``, over every data rank's slots
+    where they are sharded)."""
     live = state["live"]
     n = cache["pos"].clone()                 # the commit advances pos in place
     ctx, chains, have = _round_prologue(cache, state, draft_k, max_ngram, min_ngram)
@@ -857,7 +872,7 @@ def chain_prologue(cache: dict, state: dict, c: torch.Tensor, *, draft_k: int, u
             limit = torch.full_like(have, draft_k)
         limit = torch.where(live, limit, 0)
     return {"n": n, "ctx": ctx, "chains": chains, "have": have, "pld_have": have.clone(),
-            "limit": limit, "ran": (limit > have).any()}
+            "limit": limit, "ran": SU.any_over_data((limit > have).any())}
 
 
 def chain_draft(cfg: ModelConfig, params: dict, cache: dict, state: dict, mid: dict, *,
@@ -973,7 +988,8 @@ def tree_prologue(cache: dict, state: dict, c: torch.Tensor, *, draft_k: int, ex
     expansion budgets. Returns ``n``, ``ctx``, ``have`` (the PLD
     lengths), the tree (``tokens``, ``parents``, ``depth``, ``p_acc``,
     ``mask``, ``count``, ``first_neural``), ``limits`` and ``ran``
-    (``any(limits > 0)``, the reference's skip predicate)."""
+    (``any(limits > 0)``, the reference's skip predicate, over every data
+    rank's slots where they are sharded)."""
     pending, live = state["pending"], state["live"]
     n = cache["pos"].clone()
     B = live.shape[0]
@@ -989,7 +1005,7 @@ def tree_prologue(cache: dict, state: dict, c: torch.Tensor, *, draft_k: int, ex
             limits = torch.full_like(have, expansions)
         limits = torch.where(live, limits, 0)
     mid = dict(zip(_TREE, (*tree, first_neural)))
-    mid.update(n=n, ctx=ctx, have=have, limits=limits, ran=(limits > 0).any())
+    mid.update(n=n, ctx=ctx, have=have, limits=limits, ran=SU.any_over_data((limits > 0).any()))
     return mid
 
 

@@ -71,17 +71,22 @@ def _card_clusters(index: int, bm: int, splits: int) -> int:
     return count.value
 
 
-def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row symmetric int8: (x_int8 (M, K), scale (M, 1) float32)."""
+def quantize_rows(x: torch.Tensor, reduce=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8: (x_int8 (M, K), scale (M, 1) float32).
+    ``reduce`` maps the rows' abs-max to the whole row's where K is
+    sharded (a MAX over the shards), so the scale is the unsharded one."""
     x32 = x.float()
-    scale = torch.clamp_min(x32.abs().amax(dim=-1, keepdim=True), 1e-8) / 127.0
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(amax if reduce is None else reduce(amax), 1e-8) / 127.0
     return torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8), scale
 
 
-def quantize_cols(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-column symmetric int8: (w_int8 (K, N), scale (1, N) float32)."""
+def quantize_cols(w: torch.Tensor, reduce=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-column symmetric int8: (w_int8 (K, N), scale (1, N) float32);
+    ``reduce`` as in ``quantize_rows``, for a weight sharded on K."""
     w32 = w.float()
-    scale = torch.clamp_min(w32.abs().amax(dim=0, keepdim=True), 1e-8) / 127.0
+    amax = w32.abs().amax(dim=0, keepdim=True)
+    scale = torch.clamp_min(amax if reduce is None else reduce(amax), 1e-8) / 127.0
     return torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8), scale
 
 

@@ -25,8 +25,13 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_decode import flash_decode_merge, flash_decode_paged_merge
+from repro_torch.kernels.flash_decode import (
+    flash_decode_merge,
+    flash_decode_paged_merge,
+    flash_decode_partial,
+)
 from repro_torch.kernels.int8_matmul import TILE_K, TILE_N, int8_matmul, quantize_cols, quantize_rows
+from repro_torch.kernels.ref import merge_partials
 from repro_torch.kernels.tree_attention import tree_attention_partial
 
 
@@ -73,12 +78,18 @@ def verify_attention(
     k_staged: Optional[torch.Tensor] = None,    # (B, N_s, KV, hd) carried draft KV
     v_staged: Optional[torch.Tensor] = None,
     staged_vis: Optional[torch.Tensor] = None,  # (B, T, N_s) bool (incl. positional validity)
+    seq_axes: Optional[tuple] = None,           # the cache is this rank's sequence slice
 ) -> torch.Tensor:
     """Returns (B, T, H, hd) float32. ``bound`` (B,) int32, the committed
     lengths: the kernel scans the cache up to their maximum, read on the
     device (``kernels/flash_decode.py``); None scans all S slots. With
     ``k_staged``, the carried rows join the staged tokens in the tree
-    kernel's one launch (one softmax over [cache ++ carried ++ staged])."""
+    kernel's one launch (one softmax over [cache ++ carried ++ staged]).
+
+    ``seq_axes`` (context parallelism on the active mesh): the cache is
+    one sequence slice a rank; the flash-decode kernel's partials over it
+    (``flash_decode_partial``) are combined across the ranks of
+    ``seq_axes`` by logsumexp, then merged with the tree partials."""
     T, hd = q.shape[1], q.shape[3]
     KV = k_cache.shape[2]
     # the caches are read through transposed views, never copied
@@ -86,6 +97,12 @@ def verify_attention(
     qp_rows = q_pos.repeat(1, qr.shape[2] // T)                # (B, rep*T)
     scale = hd ** -0.5
     tree = _staged_partials(qr, k_new, v_new, tree_mask, k_staged, v_staged, staged_vis, scale)
+    if seq_axes:
+        part = flash_decode_partial(qr, k_cache.transpose(1, 2), v_cache.transpose(1, 2),
+                                    kv_pos.contiguous(), qp_rows, kind=kind, window=window,
+                                    sink=sink, scale=scale, bound=bound)
+        from repro_torch.models import shard_utils as SU   # models import this module
+        return _unrows(merge_partials(SU.lse_combine(*part, seq_axes), tree), T)
     out = flash_decode_merge(qr, k_cache.transpose(1, 2), v_cache.transpose(1, 2),
                              kv_pos.contiguous(), qp_rows, tree, kind=kind, window=window,
                              sink=sink, scale=scale, bound=bound)
@@ -140,11 +157,22 @@ class QuantWeight:
         return sum(t.numel() * t.element_size() for t in (self.w_q, self.ws))
 
 
-def prequantize(w: torch.Tensor) -> QuantWeight:
+def _group_max(k_axes):
+    """The MAX over the mesh axes ``k_axes`` (None: no reduction)."""
+    if k_axes is None:
+        return None
+    from repro_torch.models import shard_utils as SU   # models import this module
+    return lambda a: SU.all_max(a, k_axes)
+
+
+def prequantize(w: torch.Tensor, *, k_axes=None) -> QuantWeight:
     """``quantized_matmul``'s weight half, once: per-column int8 and its
-    scales, padded to the kernel's tile."""
+    scales, padded to the kernel's tile. ``k_axes``: the mesh axes K is
+    sharded on (a row-parallel weight): each column's scale is then the
+    whole column's, a MAX over those ranks, so the int8 shard is the
+    unsharded weight's rows bit for bit."""
     K0, N0 = w.shape
-    w_q, ws = quantize_cols(w)
+    w_q, ws = quantize_cols(w, _group_max(k_axes))
     pk, pn = -K0 % TILE_K, -N0 % TILE_N
     if pk or pn:
         w_q = F.pad(w_q, (0, pn, 0, pk))
@@ -152,13 +180,17 @@ def prequantize(w: torch.Tensor) -> QuantWeight:
     return QuantWeight(w_q.contiguous(), ws.contiguous(), N0)
 
 
-def quantized_matmul(x: torch.Tensor, w: Union[torch.Tensor, QuantWeight]) -> torch.Tensor:
+def quantized_matmul(x: torch.Tensor, w: Union[torch.Tensor, QuantWeight], *,
+                     k_axes=None) -> torch.Tensor:
     """W8A8 dynamic-quantized x (M, K) @ w (K, N) -> (M, N) float32: x per
     row, w per column (every call for a float ``w``; a ``QuantWeight`` was
     quantized once). K and N are zero-padded to the kernel's tile (a no-op
-    at the model widths)."""
-    qw = w if isinstance(w, QuantWeight) else prequantize(w)
-    x_q, xs = quantize_rows(x)
+    at the model widths). ``k_axes``: K is sharded on those mesh axes (a
+    row-parallel product, ``prequantize``): the row scales are the whole
+    rows' (a MAX over the ranks) and the result is this rank's partial
+    product, for the caller's sum."""
+    qw = w if isinstance(w, QuantWeight) else prequantize(w, k_axes=k_axes)
+    x_q, xs = quantize_rows(x, _group_max(k_axes))
     pk = qw.w_q.shape[0] - x.shape[1]
     if pk:
         x_q = F.pad(x_q, (0, pk))

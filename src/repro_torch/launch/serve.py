@@ -19,9 +19,16 @@ exits with the engine's refusal whatever the flags: its codes are not
 scalar tokens (``core.engine.check_text_stack``). It runs on the card
 (``--device cuda``, the default; it raises when there is none). ``--device cpu --reduced`` runs the
 kernels' plain versions on the CPU, at the reduced width with 8 layers.
-``--mesh model=1,data=1`` serves the requests through ``ServeLoop`` and
-``BatchedSpecServer`` on the one device; a larger mesh raises
-``NotImplementedError`` (mesh serving is a later item of ROADMAP queue A).
+``--mesh model=K,data=D`` serves the requests through ``ServeLoop`` and
+``BatchedSpecServer``. A mesh of more than one device runs over a
+``launch.mesh.Mesh``: one process a device, the params tensor-parallel
+over ``model`` and the slots over ``data``. Launch K*D processes with
+``torchrun --nproc-per-node K*D -m repro_torch.launch.serve --mesh ...``
+(one card a rank, ``nccl``), or let the command start them itself with
+``--spawn`` (a ``FileStore`` in a temporary directory). A one-device mesh
+outside torchrun and ``--spawn`` serves in this process with no process
+group, which is all a mesh of one device places. Rank 0 prints the lines
+and the summary.
 
 Observability: ``--metrics-port`` serves Prometheus text at ``/metrics``
 while the run is in flight, ``--trace-out`` records Chrome-trace spans of
@@ -36,6 +43,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 from repro_torch import resolve_device
@@ -53,6 +61,14 @@ from repro_torch.core.dsia import build_hierarchy, layer_sparsity
 from repro_torch.core.dytc import DyTCScheduler
 from repro_torch.core.engine import SpecEngine, check_text_stack, check_tree_stack
 from repro_torch.data import SPEC_TASKS, make_task_prompts
+from repro_torch.launch.mesh import (
+    Mesh,
+    choose_backend,
+    init_distributed,
+    parse_mesh_spec,
+    rank_device,
+    spawn,
+)
 from repro_torch.models import init_params
 from repro_torch.serving.exporters import JsonlSink, MetricsHTTPServer
 from repro_torch.serving.telemetry import TraceRecorder, profiler_trace
@@ -72,20 +88,12 @@ MODES = ("chain_fused", "legacy", "tree_fused", "cascade_fused")
 
 
 def parse_mesh(spec: str) -> dict:
-    """``"model=K,data=D"`` -> ``{"model": K, "data": D}``. Only the
-    one-device mesh runs: mesh serving is not ported (ROADMAP queue A)."""
-    shape = {"model": 1, "data": 1}
-    for part in spec.split(","):
-        name, _, size = part.partition("=")
-        if name.strip() not in shape or not size.strip().isdigit():
-            raise ValueError(f"bad --mesh {spec!r}: expected 'model=K,data=D'")
-        shape[name.strip()] = int(size)
-    if shape != {"model": 1, "data": 1}:
-        raise NotImplementedError(
-            f"--mesh {spec}: serving over a mesh of more than one device is not ported yet "
-            "(ROADMAP queue A, the mesh); --mesh model=1,data=1 runs the batched server on "
-            "one device")
-    return shape
+    """``"model=K,data=D"`` -> ``{"data": D, "model": K}`` in the repo's axis
+    order, with the reference's validation (``launch.mesh.parse_mesh_spec``)."""
+    try:
+        return parse_mesh_spec(spec)
+    except ValueError as e:
+        raise ValueError(f"bad --mesh {spec!r}: {e}") from None
 
 
 def _emit_summary(summary: dict, args) -> None:
@@ -96,14 +104,50 @@ def _emit_summary(summary: dict, args) -> None:
     print(json.dumps(summary, sort_keys=True))
 
 
-def run_batched(cfg, params, args, device, mesh_shape: dict) -> None:
-    """``--mesh`` path: continuous batching through ``ServeLoop`` on the one
-    device of ``mesh_shape`` (``parse_mesh``)."""
+def _mesh_rank(rank: int, world: int, cfg, args) -> None:
+    """One rank of a ``--mesh`` run: its mesh, its params' shards, the loop."""
+    device = rank_device(args.device, rank)
+    sizes = parse_mesh(args.mesh)
+    mesh = Mesh(tuple(sizes.values()), tuple(sizes), device=device)
+    params = init_params(cfg, 0, device=device, mesh=mesh)
+    run_batched(cfg, params, args, device, mesh)
+
+
+def _run_mesh(cfg, args, device) -> None:
+    """Start the ``--mesh`` ranks: this process as torchrun's rank,
+    ``--spawn`` fresh ones, or, for a one-device mesh, the one-device
+    server in this process."""
+    sizes = parse_mesh(args.mesh)
+    world = 1
+    for n in sizes.values():
+        world *= n
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:     # torchrun
+        rank = int(os.environ["RANK"])
+        if int(os.environ["WORLD_SIZE"]) != world:
+            raise SystemExit(f"error: --mesh {args.mesh} needs {world} processes, torchrun "
+                             f"started {os.environ['WORLD_SIZE']}")
+        init_distributed(choose_backend(args.device, world),
+                         device=rank_device(args.device, int(os.environ.get("LOCAL_RANK", rank))))
+        _mesh_rank(rank, world, cfg, args)
+    elif args.spawn:
+        spawn(_mesh_rank, world, (cfg, args), device=args.device)
+    elif world > 1:
+        raise SystemExit(f"error: --mesh {args.mesh} runs {world} processes: launch them "
+                         "with torchrun or pass --spawn")
+    else:
+        run_batched(cfg, init_params(cfg, 0, device=device), args, device, None)
+
+
+def run_batched(cfg, params, args, device, mesh) -> None:
+    """``--mesh`` path: continuous batching through ``ServeLoop`` on this
+    rank of ``mesh`` (None: on the one device); rank 0 prints."""
     from repro_torch.serving.sampler import SamplingParams
     from repro_torch.serving.scheduler import Request, RequestScheduler, ServeLoop
     from repro_torch.serving.server import BatchedSpecServer
 
-    print(f"mesh: {mesh_shape} over 1 devices")
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    say(f"mesh: {parse_mesh(args.mesh)} over {1 if mesh is None else mesh.size} devices")
     srv_kw: dict = {}
     if args.mode != "cascade_fused":
         srv_kw["draft_spec"] = layer_sparsity(cfg, 0.4)
@@ -117,26 +161,26 @@ def run_batched(cfg, params, args, device, mesh_shape: dict) -> None:
         if args.prefill_chunk:
             srv_kw["prefill_chunk"] = args.prefill_chunk
     srv = BatchedSpecServer(cfg, params, max_batch=args.batch, max_len=1024, mode=args.mode,
-                            device=device, **srv_kw)
+                            device=device, mesh=mesh, **srv_kw)
     endpoint = (MetricsHTTPServer(srv.metrics, port=args.metrics_port)
-                if args.metrics_port is not None else None)
+                if args.metrics_port is not None and lead else None)
     try:
         if endpoint is not None:
             print(f"metrics: {endpoint.url}")
-        trace = TraceRecorder() if args.trace_out else None
+        trace = TraceRecorder() if args.trace_out and lead else None
         sched = RequestScheduler(args.batch)
         for p in make_task_prompts(SPEC_TASKS[args.task], args.batch, cfg.vocab_size):
             sched.submit(Request(prompt=p, max_new_tokens=args.tokens))
         loop = ServeLoop(srv, sched, trace=trace)
         t0 = time.perf_counter()
-        with profiler_trace(args.profile_dir):
+        with profiler_trace(args.profile_dir if lead else None):
             while sched.busy:
                 loop.step_once()
             srv.flush()
         dt = time.perf_counter() - t0  # port: noqa-PORT005: flush() read the last rounds
         tok = sum(len(r.generated) for r in sched.finished)
-        print(f"mode={args.mode} mesh={args.mesh} requests={len(sched.finished)} "
-              f"tokens={tok} time={dt:.2f}s ({dt / max(tok, 1) * 1e3:.1f} ms/tok)")
+        say(f"mode={args.mode} mesh={args.mesh} requests={len(sched.finished)} "
+            f"tokens={tok} time={dt:.2f}s ({dt / max(tok, 1) * 1e3:.1f} ms/tok)")
         if trace is not None:
             trace.save(args.trace_out)
             print(f"trace: {args.trace_out} (open in https://ui.perfetto.dev)")
@@ -151,7 +195,8 @@ def run_batched(cfg, params, args, device, mesh_shape: dict) -> None:
         "wall_s": dt,
         **srv.metrics_summary(),
     }
-    _emit_summary(summary, args)
+    if lead:
+        _emit_summary(summary, args)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -165,7 +210,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tokens", type=int, default=64)
     ap.add_argument("--task", default="summarization", choices=sorted(SPEC_TASKS))
     ap.add_argument("--mesh", default=None,
-                    help="'model=1,data=1' -> the batched server on one device")
+                    help="'model=K,data=D' -> the mesh-sharded batched server (K*D ranks)")
+    ap.add_argument("--spawn", action="store_true",
+                    help="start the --mesh ranks as processes of this command (else torchrun)")
     ap.add_argument("--mode", default="chain_fused", choices=MODES,
                     help="batched server mode (with --mesh)")
     ap.add_argument("--batch", type=int, default=4, help="batch slots (with --mesh)")
@@ -205,17 +252,17 @@ def main(argv=None) -> None:
         cfg = dataclasses.replace(cfg.reduced(), num_layers=8)
     # a larger mesh, a codebook stack, or a tree scheduler on a stack with
     # Mamba-2 blocks is refused before anything is built
-    mesh_shape = parse_mesh(args.mesh) if args.mesh else None
     try:
+        mesh_shape = parse_mesh(args.mesh) if args.mesh else None
         check_text_stack(cfg, f"--arch {args.arch}")
         if mesh_shape is None and args.scheduler in TREE_SCHEDULERS:
             check_tree_stack(cfg, f"--scheduler {args.scheduler}")
     except ValueError as e:
         raise SystemExit(f"error: {e}") from None
-    params = init_params(cfg, 0, device=device)
     if mesh_shape is not None:
-        run_batched(cfg, params, args, device, mesh_shape)
+        _run_mesh(cfg, args, device)
         return
+    params = init_params(cfg, 0, device=device)
     prompt = make_task_prompts(SPEC_TASKS[args.task], 1, cfg.vocab_size)[0]
 
     eng = SpecEngine(cfg, params, max_len=1024, device=device)

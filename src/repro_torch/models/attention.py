@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.kernels.ops import paged_verify_attention, verify_attention
 from repro_torch.kernels.ref import NEG_INF, visible
+from repro_torch.models import shard_utils as SU
 
 
 def blockwise_attention(
@@ -93,15 +94,29 @@ def decode_attention(
     (B, N_s, KV, hd) are the draft rows of earlier steps, at positions
     ``staged_pos`` (B, N_s), visible to query t where ``staged_mask`` (B,
     T, N_s) and the mask kind allow; they join the T new keys in the tree
-    kernel's launch. Context-parallel partials (``seq_axes``) are a later
-    slice of the port.
+    kernel's launch.
+
+    ``seq_axes`` (context parallelism): on a mesh that has those axes, the
+    cache holds this rank's slice of the slots, ``[i * S_c, (i + 1) *
+    S_c)`` for its index i along them; each slot's ``kv_pos`` is its global
+    position, the flash-decode kernel runs over the slice (up to the slice
+    of the longest committed prefix), the slices' partials are combined
+    across the ranks by logsumexp (``shard_utils.lse_combine``, the
+    reference's l.340-350), and the staged-tree partials are merged once,
+    after that combine. The queries and staged rows are the same on every
+    rank. Without a mesh ``seq_axes`` is a no-op, as in the reference.
     """
-    if seq_axes:
-        raise NotImplementedError("decode_attention: seq_axes (context-parallel "
-                                  "split-KV) is not ported yet")
+    n_seq, idx = SU.seq_shard(seq_axes)
+    off = idx * k_cache.shape[1]
     kv_pos, q_pos, vis, bound = _positions(q, k_cache.shape[1], cache_pos, q_pos, tree_mask,
-                                           ring, kind, window, sink)
+                                           ring, kind, window, sink, offset=off)
     staged = _staged(q_pos, k_staged, v_staged, staged_pos, staged_mask, kind, window, sink)
+    if n_seq:
+        local = torch.clamp(bound - off, 0, k_cache.shape[1]).to(torch.int32).contiguous()
+        out = verify_attention(q, k_cache, v_cache, kv_pos, q_pos, k_new, v_new, vis, kind=kind,
+                               window=window, sink=sink, bound=local, seq_axes=tuple(seq_axes),
+                               **staged)
+        return out.to(q.dtype)
     out = verify_attention(q, k_cache, v_cache, kv_pos, q_pos, k_new, v_new, vis, kind=kind,
                            window=window, sink=sink, bound=None if ring else bound, **staged)
     return out.to(q.dtype)
@@ -155,11 +170,12 @@ def _staged(q_pos, k_staged, v_staged, staged_pos, staged_mask, kind, window, si
     return dict(k_staged=k_staged, v_staged=v_staged, staged_vis=svis)
 
 
-def _positions(q, S_c: int, cache_pos, q_pos, tree_mask, ring: bool, kind, window, sink):
+def _positions(q, S_c: int, cache_pos, q_pos, tree_mask, ring: bool, kind, window, sink,
+               offset: int = 0):
     """(kv_pos (B, S_c), q_pos (B, T), vis (B, T, T), cache_pos (B,)):
     int32/bool, contiguous. kv_pos is each cache slot's position (-1
-    invalid); vis is the staged tokens' positional validity and'ed with the
-    tree mask."""
+    invalid), the slots being ``offset + j`` (a sequence slice); vis is the
+    staged tokens' positional validity and'ed with the tree mask."""
     B, T = q.shape[:2]
     dev = q.device
     cache_pos = torch.as_tensor(cache_pos, dtype=torch.int32, device=dev).broadcast_to((B,))
@@ -168,6 +184,8 @@ def _positions(q, S_c: int, cache_pos, q_pos, tree_mask, ring: bool, kind, windo
         q_pos = q_pos[None].expand(B, T)
 
     slots = torch.arange(S_c, dtype=torch.int32, device=dev)[None]
+    if offset:
+        slots = slots + offset
     if ring:
         last = cache_pos[:, None] - 1
         p = last - torch.remainder(last - slots, S_c)   # most recent position in slot j

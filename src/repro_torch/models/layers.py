@@ -8,6 +8,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import QuantWeight, quantized_matmul
+from repro_torch.models import shard_utils as SU
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -61,29 +62,32 @@ def mlp_init(d_model: int, d_ff: int, gated: bool, dtype: torch.dtype) -> dict:
     return p
 
 
-def _mm(x: torch.Tensor, w, quantize) -> torch.Tensor:
+def _mm(x: torch.Tensor, w, quantize, k_axes=None) -> torch.Tensor:
     """(..., d) @ (d, f), optionally through the W8A8 kernel
     (``quantize="int8"``: dynamic per-row activation / per-column weight
     int8, the ActivationQuant DSIA's execution). A ``QuantWeight`` (the
-    weight quantized once) takes only ``quantize="int8"``."""
+    weight quantized once) takes only ``quantize="int8"``. ``k_axes``: the
+    mesh axes d is sharded on (``kernels.ops.quantized_matmul``)."""
     if quantize is None and not isinstance(w, QuantWeight):
         return x @ w
     if quantize != "int8":
         raise ValueError(f"unsupported quantize mode {quantize!r} for this weight")
-    out = quantized_matmul(x.reshape(-1, x.shape[-1]), w)
+    out = quantized_matmul(x.reshape(-1, x.shape[-1]), w, k_axes=k_axes)
     return out.reshape(*x.shape[:-1], out.shape[-1]).to(x.dtype)
 
 
 def mlp_apply(params: dict, x: torch.Tensor, act: str, gated: bool, quantize=None) -> torch.Tensor:
     """SwiGLU/GeGLU (gated) or plain 2-matrix MLP. ``quantize`` routes the
-    projections through the W8A8 kernel."""
+    projections through the W8A8 kernel. On a mesh d_ff is this rank's and
+    the result is its partial sum (the caller sums it over ``model``)."""
     fn = F.silu if act == "silu" else _gelu_tanh
+    k_axes = "model" if SU.tensor_parallel() else None
     if gated:
         g = fn(_mm(x, params["w_gate"], quantize))
         u = _mm(x, params["w_up"], quantize)
-        return _mm(g * u, params["w_down"], quantize)
+        return _mm(g * u, params["w_down"], quantize, k_axes)
     h = fn(_mm(x, params["w_up"], quantize))
-    return _mm(h, params["w_down"], quantize)
+    return _mm(h, params["w_down"], quantize, k_axes)
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:

@@ -59,8 +59,23 @@ takes (B, S, nc) codes, sums the nc codebook embeddings a position and
 returns (..., nc, V) logits from nc heads; an image stack
 (``num_image_tokens``, llava) splices ``batch["image_embeds"]`` (B, Ti, d)
 into the first Ti positions where ``batch["image_mask"]`` is 1, in
-``prefill`` and ``forward_train``. Context-parallel ``seq_axes`` is not
-ported (it raises).
+``prefill`` and ``forward_train``.
+
+On a mesh (``models.shard_utils.use_mesh``) every entry point runs on this
+rank's shards (``init_params(mesh=)``, ``init_cache(mesh=)``,
+``bridge.params_from_jax(mesh=)``; ``launch.sharding``'s spec trees): the
+vocabulary, attention heads by ``attention_policy``, the MLP's and the
+experts' d_ff and a Mamba-2 block's d_inner over ``model``, the slots over
+the data axes where the batch divides them. The row-parallel products
+(``wo``, ``w_down``, ``out_proj``) and the embedding are summed over
+``model``, the logits gathered. Under the ``q`` and ``none`` policies a
+dense cache is sequence-sharded over ``model`` (``cache_seq_axes``): each
+rank holds a contiguous slice of the slots, and decode attention combines
+the slices' partials across ranks (context parallelism). Without a mesh
+none of this runs: ``seq_axes`` is then a no-op, as in the reference.
+The active mesh is the one authority for the collectives: ``prefill``,
+``decode_step`` and ``forward_train`` refuse params whose vocabulary rows
+were cut for another ``model`` axis (``_check_placement``).
 """
 from __future__ import annotations
 
@@ -74,6 +89,7 @@ from repro_torch import resolve_device
 from repro_torch.config.base import AttentionKind, BlockKind, ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import shard_utils as SU
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     Init,
@@ -202,7 +218,7 @@ def _draw(t: torch.Tensor, init: Init, gen) -> None:
             part.copy_(torch.randn(part.shape, generator=gen, device=part.device).mul_(init.scale))
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda", mesh=None) -> dict:
     """Random params in the reference's layout, shapes and scales, drawn
     from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the
     numbers differ from the reference's ``jax.random`` draws; the bridge
@@ -210,11 +226,32 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     Every stacked leaf is allocated first and drawn in place, one layer at
     a time, so the draw's peak memory is the params plus at most one
     ``DRAW_CHUNK`` temporary (none in float32). ``device="meta"`` gives the
-    names and shapes alone, allocating nothing."""
+    names and shapes alone, allocating nothing.
+
+    ``mesh``: this rank's shards (``launch.sharding.param_specs``) of the
+    very params an unsharded call draws: each layer's leaf is drawn whole
+    into a temporary, in the same order, and its local slice kept."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     d, V, nc = cfg.d_model, cfg.padded_vocab, cfg.num_codebooks
+    specs = None
+    if mesh is not None:
+        from repro_torch.launch import sharding as SH
+        specs = SH.param_specs(cfg, mesh)
+
+    def local(shape, spec):
+        return shape if spec is None else SH.local_shape(shape, spec, mesh)
+
+    def draw(t, init, spec):
+        """Draw ``init`` whole and keep this rank's part in ``t``."""
+        if spec is None or not any(spec):
+            _draw(t, init, gen)
+            return
+        full = torch.empty(init.shape, dtype=init.dtype, device=dev)
+        _draw(full, init, gen)
+        t.copy_(full[SH.local_slices(init.shape, spec, mesh, mesh.coords)])
+
     # a codebook stack has one embedding table and one head a codebook
     top = {"embed": Init((nc, V, d) if nc else (V, d), d ** -0.5, dtype),
            "final_norm": Init((d,), None, dtype)}
@@ -222,23 +259,43 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
         top["lm_head"] = Init((nc, d, V) if nc else (d, V), d ** -0.5, dtype)
     params: dict = {}
     for name, init in top.items():
-        params[name] = torch.empty(init.shape, dtype=init.dtype, device=dev)
+        spec = None if specs is None else specs[name]
+        params[name] = torch.empty(local(init.shape, spec), dtype=init.dtype, device=dev)
         if gen is not None:
-            _draw(params[name], init, gen)
+            draw(params[name], init, spec)
     segs = []
-    for seg in layout(cfg):
+    for si, seg in enumerate(layout(cfg)):
         R = seg.repeats
         inits = [_layer_init(cfg, spec, dtype) for spec in seg.unit]
-        unit = [tree_map(lambda i: torch.empty((R, *i.shape), dtype=i.dtype, device=dev), p)
-                for p in inits]
+        lspecs = ([tree_map(lambda _: None, p) for p in inits] if specs is None
+                  else specs["segments"][si])
+        unit = [_alloc_stack(p, sp, R, local, dev) for p, sp in zip(inits, lspecs)]
         if gen is not None:
             for r in range(R):
-                for p, init in zip(unit, inits):
-                    for t, i in zip(tree_leaves(p), tree_leaves(init)):
-                        _draw(t[r], i, gen)
+                for p, init, sp in zip(unit, inits, lspecs):
+                    for t, i, spec in _zip_leaves(p, init, sp):
+                        draw(t[r], i, None if spec is None else spec[1:])   # no repeats dim
         segs.append(unit)
     params["segments"] = segs
     return params
+
+
+def _zip_leaves(params: dict, inits: dict, specs) -> list:
+    """(tensor, Init, spec) triples of one layer's trees, matched by key, in
+    ``tree_leaves``' order (the draw order)."""
+    if isinstance(params, dict):
+        return [x for k in params for x in _zip_leaves(params[k], inits[k], specs[k])]
+    return [(params, inits, specs)]
+
+
+def _alloc_stack(inits: dict, specs, R: int, local, dev) -> dict:
+    """Empty stacked leaves (R, *shape) of one layer's ``Init`` tree, each
+    at its local shape under ``specs`` (a spec tree with the repeats dim,
+    or a tree of None)."""
+    if isinstance(inits, dict):
+        return {k: _alloc_stack(v, specs[k], R, local, dev) for k, v in inits.items()}
+    shape = (R, *inits.shape)
+    return torch.empty(local(shape, specs), dtype=inits.dtype, device=dev)
 
 
 # ====================================================================== cache
@@ -258,6 +315,7 @@ def init_cache(
     page_size: int = 64,
     num_pages: Optional[int] = None,
     device="cuda",
+    mesh=None,
 ) -> Cache:
     """Allocate a committed cache. ``ring_window`` stores only
     ``sliding_window`` slots (a ring buffer) for sliding layers.
@@ -267,7 +325,13 @@ def init_cache(
     page_size``, the dense capacity) and a page table of -1; ``max_len``
     must be a multiple of ``page_size``, and ring caches page nothing.
     A Mamba-2 layer holds its per-slot state (the SSM state float32, the
-    conv tails in ``dtype``), dense either way."""
+    conv tails in ``dtype``), dense either way.
+
+    ``mesh``: this rank's shard of the cache of ``batch`` slots
+    (``launch.sharding.cache_specs`` with ``global_batch=batch``): KV heads
+    or sequence slots over ``model`` by the attention policy, the slots
+    over the data axes where ``batch`` divides them. Ring caches are not
+    sharded (they raise on a mesh)."""
     if paged:
         if ring_window:
             raise ValueError("paged caches do not support ring_window")
@@ -275,18 +339,31 @@ def init_cache(
             raise ValueError(f"max_len={max_len} must be a multiple of page_size={page_size}")
         if num_pages is None:
             num_pages = batch * pages_for(max_len, page_size)
+    if mesh is not None and ring_window:
+        raise ValueError("init_cache: a ring cache (ring_window) is not sharded on a mesh")
     dev = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
     hd = cfg.resolved_head_dim()
+    specs = None
+    if mesh is not None:
+        from repro_torch.launch import sharding as SH
+        specs = SH.cache_specs(cfg, mesh, global_batch=batch, paged=paged)
+
+    def local(shape, spec):
+        return shape if specs is None else SH.local_shape(shape, spec, mesh)
+
     segs = []
-    for seg in layout(cfg):
+    for si, seg in enumerate(layout(cfg)):
         unit_caches = []
-        for spec in seg.unit:
+        for u, spec in enumerate(seg.unit):
             if spec.block is BlockKind.MAMBA:
                 # per-slot states, dense in a paged cache too
-                st = ssm_lib.init_state(cfg.d_model, cfg.ssm, batch, dtype, dev)
-                unit_caches.append({n: a[None].repeat((seg.repeats,) + (1,) * a.ndim)
-                                    for n, a in st.items()})
+                st = ssm_lib.init_state(cfg.d_model, cfg.ssm, batch, dtype, torch.device("meta"))
+                unit_caches.append({
+                    n: torch.zeros(local((seg.repeats, *a.shape),
+                                         None if specs is None else specs["segments"][si][u][n]),
+                                   dtype=a.dtype, device=dev)
+                    for n, a in st.items()})
                 continue
             if paged:
                 shape = (seg.repeats, num_pages, page_size, cfg.num_kv_heads, hd)
@@ -296,13 +373,34 @@ def init_cache(
                        if (ring_window and spec.attn is AttentionKind.SLIDING) else max_len)
                 shape = (seg.repeats, batch, S_c, cfg.num_kv_heads, hd)
                 names = ("k", "v")
-            unit_caches.append({n: torch.zeros(shape, dtype=dtype, device=dev) for n in names})
+            unit_caches.append({
+                n: torch.zeros(local(shape, None if specs is None else specs["segments"][si][u][n]),
+                               dtype=dtype, device=dev)
+                for n in names})
         segs.append(unit_caches)
-    out = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev), "segments": segs}
+    out = {"pos": torch.zeros(local((batch,), None if specs is None else specs["pos"]),
+                              dtype=torch.int32, device=dev), "segments": segs}
     if paged:
-        out["page_table"] = torch.full((batch, pages_for(max_len, page_size)), -1,
-                                       dtype=torch.int32, device=dev)
+        shape = (batch, pages_for(max_len, page_size))
+        out["page_table"] = torch.full(local(shape, None if specs is None else specs["page_table"]),
+                                       -1, dtype=torch.int32, device=dev)
     return out
+
+
+def cache_seq_axes(cfg: ModelConfig, cache: Cache):
+    """The mesh axes a dense cache's sequence dim is sharded on under the
+    active mesh (``launch.sharding.cache_seq_axes``), or None: off-mesh, and
+    for a paged pool, which shards on KV heads only."""
+    mesh = SU.active_mesh()
+    if mesh is None or "page_table" in cache:
+        return None
+    from repro_torch.launch import sharding as SH
+    return SH.cache_seq_axes(cfg, mesh)
+
+
+def _seq_offset(seq_axes, S_local: int) -> int:
+    """The first global slot of this rank's sequence slice."""
+    return SU.seq_shard(seq_axes)[1] * S_local
 
 
 # ================================================================ layer bodies
@@ -319,18 +417,28 @@ def _attn_layer(
     staged_buf: Optional[dict] = None,       # {"k", "v"} (B, N_s, KV, hd) carried rows
     staged_pos: Optional[torch.Tensor] = None,
     staged_mask: Optional[torch.Tensor] = None,
+    seq_axes=None,                   # mesh axes of a dense cache's sequence slices
 ) -> Tuple[torch.Tensor, dict]:
-    """Returns (residual delta before the gate, staged {"k", "v"})."""
+    """Returns (residual delta before the gate, staged {"k", "v"}). On a
+    mesh the heads are this rank's (``attention_policy``): under ``q`` the
+    queries are gathered to every head (K/V are replicated), attention runs
+    over all of them and this rank keeps its own heads' output for ``wo``;
+    the row-parallel ``wo`` product is summed over ``model``."""
     B, T, d = h.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
-    x = rms_norm(h, p["norm1"], cfg.norm_eps)
+    hd = cfg.resolved_head_dim()
     a = p["attn"]
+    H, KV = a["wq"].shape[1], a["wk"].shape[1]           # this rank's heads
+    policy = (SU.attention_head_policy(cfg.num_heads, cfg.num_kv_heads)
+              if SU.tensor_parallel() else None)
+    x = rms_norm(h, p["norm1"], cfg.norm_eps)
     q = (x @ a["wq"].reshape(d, H * hd)).reshape(B, T, H, hd)
     k = (x @ a["wk"].reshape(d, KV * hd)).reshape(B, T, KV, hd)
     v = (x @ a["wv"].reshape(d, KV * hd)).reshape(B, T, KV, hd)
     rope_pos = q_pos[None, :] if q_pos.ndim == 1 else q_pos
     q = apply_rope(q, rope_pos, cfg.rope_theta)
     k = apply_rope(k, rope_pos, cfg.rope_theta)
+    if policy == "q":
+        q = SU.gather(q, 2)
 
     kind = {AttentionKind.FULL: "causal", AttentionKind.SLIDING: "window"}[spec.attn]
     window, sink = cfg.sliding_window, 0
@@ -356,12 +464,17 @@ def _attn_layer(
         )
     else:
         k_c, v_c = layer_cache["k"], layer_cache["v"]
-        ring = spec.attn is AttentionKind.SLIDING and k_c.shape[1] <= window
+        ring = (not seq_axes and spec.attn is AttentionKind.SLIDING and k_c.shape[1] <= window)
         o = attn_lib.decode_attention(
             q, k_c, v_c, layer_cache["_pos"], k, v, q_pos,
-            tree_mask=tree_mask, kind=kind, window=window, sink=sink, ring=ring, **carried,
+            tree_mask=tree_mask, kind=kind, window=window, sink=sink, ring=ring,
+            seq_axes=seq_axes, **carried,
         )
+    if policy == "q":
+        o = o[:, :, SU.model_index() * H:(SU.model_index() + 1) * H]
     out = o.reshape(B, T, H * hd) @ a["wo"].reshape(H * hd, d)
+    if policy in ("kv", "q"):
+        out = SU.all_sum(out)
     return out, {"k": k, "v": v}
 
 
@@ -401,6 +514,7 @@ def _run_stack(
     staged_pos: Optional[torch.Tensor] = None,
     staged_mask: Optional[torch.Tensor] = None,
     remat: bool = False,
+    seq_axes=None,
 ):
     """Returns (hidden, staged segments: [[{leaf: (R_run, B, T, ...)}]],
     moe_aux), the staged leaves ``"k"``, ``"v"`` (B, T, KV, hd) of an
@@ -443,7 +557,8 @@ def _run_stack(
                     buf = {n: staged_kv[si][u][n][i] for n in ("k", "v")}
                 p_l = tree_map(lambda a, r=r: a[r], p_seg[u])          # views
                 h, st, _ = _layer_fn(cfg, p_l, spec, gate, q_pos, mode, lc, tree_mask,
-                                     attn_override, buf, staged_pos, staged_mask, quantize)(h)
+                                     attn_override, buf, staged_pos, staged_mask, quantize,
+                                     seq_axes)(h)
                 for n, a in st.items():
                     staged[u].setdefault(n, []).append(a)
         if not train:
@@ -459,11 +574,13 @@ def _unstack(tree: dict, n: int) -> List[dict]:
 
 
 def _layer_fn(cfg, p_l, spec, gate, q_pos, mode, lc=None, tree_mask=None, attn_override=None,
-              buf=None, staged_pos=None, staged_mask=None, quantize=None):
+              buf=None, staged_pos=None, staged_mask=None, quantize=None, seq_axes=None):
     """One layer (attention or Mamba-2, then the MLP) as a function of the
     residual stream: returns (the new stream, the layer's staged K/V or
     per-step states, its MoE auxiliary loss: a float32 0-d tensor in
-    ``mode="train"`` on an MoE layer, else None)."""
+    ``mode="train"`` on an MoE layer, else None). On a mesh the MLP's (or
+    the experts') d_ff is this rank's, and its output is summed over
+    ``model``."""
     def body(h):
         if spec.block is BlockKind.MAMBA:
             x = rms_norm(h, p_l["norm1"], cfg.norm_eps)
@@ -471,7 +588,7 @@ def _layer_fn(cfg, p_l, spec, gate, q_pos, mode, lc=None, tree_mask=None, attn_o
                                               mode=mode)
         else:
             delta, st = _attn_layer(cfg, p_l, spec, h, q_pos, mode, lc, tree_mask, attn_override,
-                                    buf, staged_pos, staged_mask)
+                                    buf, staged_pos, staged_mask, seq_axes)
         h = h + _gated(delta, gate)
         aux = None
         if spec.has_mlp:
@@ -494,9 +611,26 @@ def _layer_fn(cfg, p_l, spec, gate, q_pos, mode, lc=None, tree_mask=None, attn_o
                     aux = a["load_balance"] + a["router_z"]
             else:
                 y = mlp_apply(p_l["mlp"], x, cfg.act, cfg.mlp_gated, quantize=quantize)
-            h = h + _gated(y, gate)
+            h = h + _gated(SU.model_sum(y), gate)
         return h, st, aux
     return body
+
+
+def _check_placement(cfg: ModelConfig, embed: torch.Tensor) -> None:
+    """Refuse params cut for another ``model`` axis than the active mesh's
+    (or cut for a mesh where none is active): the embedding is always
+    vocab-sharded (``launch.sharding.param_specs``), so its local rows
+    times the axis size must be the padded vocabulary. Otherwise the
+    row-parallel sums and the vocabulary gather would be skipped or run
+    over shards they do not fit, and the logits would be silently wrong."""
+    n = SU.model_axis_size()
+    rows = embed.shape[-2]
+    if rows * n != cfg.padded_vocab:
+        raise ValueError(
+            f"params hold {rows} of {cfg.padded_vocab} vocabulary rows, which does not fit "
+            f"the active model axis of size {n}: run params cut by init_params(mesh=) or "
+            "bridge.params_from_jax(mesh=) inside shard_utils.use_mesh(mesh) of that mesh, "
+            "and unsharded params outside it")
 
 
 def _embed(cfg: ModelConfig, params: dict, batch: Dict[str, Any]) -> torch.Tensor:
@@ -506,13 +640,29 @@ def _embed(cfg: ModelConfig, params: dict, batch: Dict[str, Any]) -> torch.Tenso
     replaces the first Ti positions where ``batch["image_mask"]`` (B, S) is
     1, with the reference's arithmetic (``e * (1 - mask) + img * mask``)."""
     embed = params["embed"]
+    _check_placement(cfg, embed)
     tokens = torch.as_tensor(batch["tokens"], device=embed.device).long()
+    tp = SU.tensor_parallel()
+    inside = None
+    if tp:
+        # this rank's vocabulary rows: a masked lookup, then the sum over model
+        Vl = embed.shape[-2]
+        tokens = tokens - SU.model_index() * Vl
+        inside = ((tokens >= 0) & (tokens < Vl))[..., None]
+        tokens = tokens.clamp(0, Vl - 1)
+
+    def look(table, tok, ok):
+        out = embed_tokens(table, tok)
+        return out if ok is None else torch.where(ok, out, 0)
+
     if cfg.num_codebooks:
-        e = embed_tokens(embed[0], tokens[..., 0])
+        e = look(embed[0], tokens[..., 0], None if inside is None else inside[..., 0, :])
         for c in range(1, cfg.num_codebooks):
-            e = e + embed_tokens(embed[c], tokens[..., c])
+            e = e + look(embed[c], tokens[..., c], None if inside is None else inside[..., c, :])
     else:
-        e = embed_tokens(embed, tokens)
+        e = look(embed, tokens, inside)
+    if tp:
+        e = SU.all_sum(e)
     if cfg.num_image_tokens and "image_embeds" in batch:
         mask = torch.as_tensor(batch["image_mask"], device=e.device)[..., None].to(e.dtype)
         img = torch.as_tensor(batch["image_embeds"], device=e.device).to(e.dtype)
@@ -524,7 +674,8 @@ def _embed(cfg: ModelConfig, params: dict, batch: Dict[str, Any]) -> torch.Tenso
 
 def _head(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     """Logits in float32: (..., V), or (..., nc, V) on a codebook stack, the
-    padded vocabulary masked to -1e30."""
+    padded vocabulary masked to -1e30. On a mesh each rank computes its
+    vocabulary columns, gathered over ``model``."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if cfg.num_codebooks:
         heads = params["embed"].transpose(1, 2) if cfg.tie_embeddings else params["lm_head"]
@@ -532,6 +683,8 @@ def _head(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     else:
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         logits = unembed(h, head)
+    if SU.tensor_parallel():
+        logits = SU.gather(logits, -1)         # this rank's vocabulary columns
     if cfg.padded_vocab != cfg.vocab_size:
         ids = torch.arange(cfg.padded_vocab, device=logits.device)
         logits = torch.where(ids < cfg.vocab_size, logits, torch.full_like(logits, -1e30))
@@ -554,7 +707,10 @@ def forward_train(
     a stack without MoE layers). MoE layers dispatch through the grouped
     capacity (``moe_apply(mode="train")``), Mamba-2 blocks run the chunked
     scan over a fresh zero state. ``remat=True`` recomputes each layer's
-    activations in the backward pass."""
+    activations in the backward pass. Sharded training is not ported: on a
+    mesh this raises."""
+    if SU.active_mesh() is not None:
+        raise NotImplementedError("forward_train: sharded training (a mesh) is not ported")
     h = _embed(cfg, params, batch)
     q_pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     h, _, aux = _run_stack(cfg, params, h, mode="train", cache=None, gates=gates, q_pos=q_pos,
@@ -583,12 +739,12 @@ def prefill(
     q_pos = torch.arange(S, dtype=torch.int32, device=h.device)
     h, staged, _ = _run_stack(cfg, params, h, mode="prefill", cache=cache, gates=gates,
                               q_pos=q_pos, tree_mask=None)
-    _write_prefill(cfg, cache, staged, S)
+    _write_prefill(cfg, cache, staged, S, cache_seq_axes(cfg, cache))
     logits = _head(cfg, params, h[:, -1:])
     return logits[:, 0], cache
 
 
-def _write_prefill(cfg: ModelConfig, cache: Cache, staged, S: int) -> None:
+def _write_prefill(cfg: ModelConfig, cache: Cache, staged, S: int, seq_axes=None) -> None:
     for si, seg in enumerate(layout(cfg)):
         for u, spec in enumerate(seg.unit):
             c, st = cache["segments"][si][u], staged[si][u]
@@ -598,6 +754,13 @@ def _write_prefill(cfg: ModelConfig, cache: Cache, staged, S: int) -> None:
                     c[name].copy_(st[name][:, :, 0])
                 continue
             S_c = c["k"].shape[2]
+            if seq_axes:
+                # this rank's sequence slice of the prompt's rows
+                off = _seq_offset(seq_axes, S_c)
+                n = max(0, min(S, off + S_c) - off)
+                for name in ("k", "v"):
+                    c[name][:, :, :n] = st[name][:, :, off:off + n].to(c[name].dtype)
+                continue
             for name in ("k", "v"):
                 src = st[name].to(c[name].dtype)                   # (R, B, S, KV, hd)
                 if S_c >= S:
@@ -636,10 +799,18 @@ def decode_step(
     per layer (R_run, B, N_s, KV, hd); its layers in the same run order),
     the T tokens also attend over the carried rows (the reference's
     incremental drafting); the returned staged holds the new rows only.
-    Context-parallel ``seq_axes`` is a later slice.
+
+    ``seq_axes``: the mesh axes the dense cache's sequence dim is sharded
+    on. On a mesh the cache's layout fixes them (``cache_seq_axes``: the
+    ``q`` and ``none`` policies shard it over ``model``), each rank runs the
+    flash-decode kernel over its slice and the partials are combined across
+    ranks; given, they must name that layout. Without a mesh ``seq_axes``
+    is a no-op, as in the reference.
     """
-    if seq_axes:
-        raise NotImplementedError("decode_step: seq_axes is not ported yet")
+    layout_axes = cache_seq_axes(cfg, cache)
+    if seq_axes and SU.active_mesh() is not None and tuple(seq_axes) != tuple(layout_axes or ()):
+        raise ValueError(f"decode_step: seq_axes {tuple(seq_axes)} do not name the cache's "
+                         f"sequence sharding {layout_axes} on this mesh")
     given = [a is not None for a in (staged_kv, staged_pos, staged_mask)]
     if any(given) and not all(given):
         raise ValueError("decode_step: staged_kv requires staged_pos and staged_mask")
@@ -653,7 +824,8 @@ def decode_step(
     h, staged, _ = _run_stack(cfg, params, h, mode="decode", cache=cache, gates=gates,
                               q_pos=q_pos, tree_mask=tree_mask, attn_override=attn_override,
                               quantize=quantize, layer_ids=layer_ids, staged_kv=staged_kv,
-                              staged_pos=staged_pos, staged_mask=staged_mask)
+                              staged_pos=staged_pos, staged_mask=staged_mask,
+                              seq_axes=layout_axes)
     return _head(cfg, params, h), staged
 
 
@@ -679,7 +851,11 @@ def commit_cache(
     slot (so the T staged tokens must be a chain, and ``path_idx`` is not
     read), and keeps its state where ``n_accept`` is 0: a gather and a
     ``where`` of fixed shape, as the reference's l.895-905.
+
+    On a sequence-sharded cache (a mesh) each rank writes the rows that
+    fall in its slice.
     """
+    seq_axes = cache_seq_axes(cfg, cache)
     base = cache["pos"]
     B, dev = base.shape[0], base.device
     path_idx = torch.as_tensor(path_idx, device=dev).long()
@@ -709,9 +885,15 @@ def commit_cache(
                 names = ("k_pages", "v_pages")
             else:
                 S_c = c["k"].shape[2]
-                ring = S_c <= cfg.sliding_window and spec.attn is AttentionKind.SLIDING
-                d = torch.remainder(dest, S_c)
-                rows, ok = b_i * S_c + d, accepted & (ring | (dest < S_c))
+                if seq_axes:
+                    # this rank's slice of the slots: [off, off + S_c)
+                    off = _seq_offset(seq_axes, S_c)
+                    rows = b_i * S_c + torch.remainder(dest - off, S_c)
+                    ok = accepted & (dest >= off) & (dest < off + S_c)
+                else:
+                    ring = S_c <= cfg.sliding_window and spec.attn is AttentionKind.SLIDING
+                    d = torch.remainder(dest, S_c)
+                    rows, ok = b_i * S_c + d, accepted & (ring | (dest < S_c))
                 names = ("k", "v")
             for name in names:
                 src = st[name[0]][:, b_i, path_idx]               # (R, B, T, KV, hd)
@@ -786,6 +968,8 @@ def write_slot(cfg: ModelConfig, cache: Cache, c1: Cache, slot: int) -> Cache:
     into the slot as it is (it is per slot, dense in a paged cache too).
     """
     dev = cache["pos"].device
+    seq_axes = cache_seq_axes(cfg, c1)     # the B=1 cache is dense
+    dst_axes = cache_seq_axes(cfg, cache)
     for si, seg in enumerate(layout(cfg)):
         for u, spec in enumerate(seg.unit):
             dst, src = cache["segments"][si][u], c1["segments"][si][u]
@@ -793,19 +977,31 @@ def write_slot(cfg: ModelConfig, cache: Cache, c1: Cache, slot: int) -> Cache:
                 for name in ssm_lib.STATE_LEAVES:
                     dst[name][:, slot] = src[name][:, 0].to(dst[name].dtype)
                 continue
-            S_src = src["k"].shape[2]
+            rows_src = {n: src[n][:, 0] for n in ("k", "v")}          # (R, S_src, KV, hd)
+            if seq_axes:
+                # the prompt's rows of every sequence slice (a sum into zeros)
+                rows_src = {n: SU.gather(r, 1, seq_axes) for n, r in rows_src.items()}
+            S_src = rows_src["k"].shape[1]
             if "k_pages" in dst:
                 t = torch.arange(S_src, device=dev)
                 rows, ok = _page_rows(cache["page_table"], dst["k_pages"].shape[2],
                                       torch.full_like(t, slot), t)
                 for name in ("k", "v"):
-                    _scatter_rows(dst[name + "_pages"], rows, ok, src[name][:, 0])
+                    _scatter_rows(dst[name + "_pages"], rows, ok, rows_src[name])
                 continue
-            if S_src > dst["k"].shape[2]:
+            S_dst = dst["k"].shape[2]
+            if dst_axes:
+                # this rank's slice of the slot's rows
+                off = _seq_offset(dst_axes, S_dst)
+                n = max(0, min(S_src, off + S_dst) - off)
+                for name in ("k", "v"):
+                    dst[name][:, slot, :n] = rows_src[name][:, off:off + n].to(dst[name].dtype)
+                continue
+            if S_src > S_dst:
                 raise NotImplementedError(
                     f"prefill cache seq {S_src} exceeds batched cache seq "
-                    f"{dst['k'].shape[2]} (ring slots cannot take longer buckets)")
+                    f"{S_dst} (ring slots cannot take longer buckets)")
             for name in ("k", "v"):
-                dst[name][:, slot, :S_src] = src[name][:, 0].to(dst[name].dtype)
+                dst[name][:, slot, :S_src] = rows_src[name].to(dst[name].dtype)
     cache["pos"][slot] = c1["pos"][0]
     return cache

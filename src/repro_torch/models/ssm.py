@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import SSMConfig
+from repro_torch.models import shard_utils as SU
 from repro_torch.models.layers import Init, rms_norm
 
 # the reference's deterministic leaves (not draws); they stay float32
@@ -196,7 +197,14 @@ def mamba_forward(
     holds the final states with a length-1 step axis. ``mode="train"`` is
     the prefill path over a fresh zero state (the reference's
     ``model._mamba_layer``, l.376-394), differentiable, staging nothing
-    (``staged`` is empty)."""
+    (``staged`` is empty).
+
+    On a mesh whose ``model`` axis divides the head count
+    (``shard_utils.mamba_sharded``) the params and states hold this rank's
+    heads of d_inner: the replicated per-head leaves (``w_dt``, ``A_log``,
+    ``D``, ``dt_bias``) and B/C groups are cut to them, the gated norm's
+    mean over d_inner is summed over ``model``, and so is the
+    ``out_proj`` product."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mamba_forward: unknown mode {mode!r}")
     B, S, _ = h.shape
@@ -204,13 +212,24 @@ def mamba_forward(
         layer_cache = init_state(d_model, s, B, h.dtype, h.device)
     nh, hd, din = s.num_heads(d_model), s.head_dim, s.d_inner(d_model)
     g, ds, K = s.ngroups, s.d_state, s.d_conv
-
+    tp = SU.mamba_sharded(nh)
     z = h @ params["w_z"]
     raw = [h @ params[n] for n in ("w_x", "w_B", "w_C")]
     dt_raw = h @ params["w_dt"]
-    A = -torch.exp(params["A_log"].float())               # (nh,)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
-    D = params["D"].float()
+    A_log, D, dt_bias = params["A_log"], params["D"], params["dt_bias"]
+    if tp:
+        # this rank's heads of the replicated per-head leaves, and their groups
+        nh_full, nh = nh, nh // SU.model_axis_size()
+        h0, rep = SU.model_index() * nh, nh_full // g
+        if not (nh % rep == 0 if nh >= rep else rep % nh == 0):
+            raise ValueError(f"mamba_forward: {nh} local heads do not cover whole groups of {rep}")
+        heads = slice(h0, h0 + nh)
+        groups = slice(h0 // rep, (h0 + nh - 1) // rep + 1)
+        din, g = nh * hd, groups.stop - groups.start
+        dt_raw, A_log, D, dt_bias = dt_raw[..., heads], A_log[heads], D[heads], dt_bias[heads]
+    A = -torch.exp(A_log.float())                         # (nh,)
+    dt = F.softplus(dt_raw.float() + dt_bias.float())
+    D = D.float()
     # the three causal convs (x, B, C) as one over their concatenated
     # channels, each continuing its carried tail
     widths = [r.shape[-1] for r in raw]
@@ -219,7 +238,11 @@ def mamba_forward(
                                 torch.cat([params[n] for n in STATE_LEAVES[1:]], dim=-1))
     xc, Bc, Cc = out.split(widths, dim=-1)
     x = xc.reshape(B, S, nh, hd).float()
-    B_h, C_h = Bc.reshape(B, S, g, ds), Cc.reshape(B, S, g, ds)
+    if tp:
+        B_h = Bc.reshape(B, S, s.ngroups, ds)[:, :, groups]
+        C_h = Cc.reshape(B, S, s.ngroups, ds)[:, :, groups]
+    else:
+        B_h, C_h = Bc.reshape(B, S, g, ds), Cc.reshape(B, S, g, ds)
 
     if mode == "decode":
         y, states = _recurrence(x, dt, A, B_h, C_h, layer_cache["ssm"])
@@ -234,9 +257,22 @@ def mamba_forward(
     y = y + D[None, None, :, None] * x
 
     yf = y.reshape(B, S, din)
-    yf = rms_norm(yf * F.silu(z.float()), params["norm_w"], 1e-5)
-    out = yf.to(h.dtype) @ params["out_proj"]
+    if tp:
+        out = _sharded_norm(yf * F.silu(z.float()), params["norm_w"], 1e-5, din * SU.model_axis_size())
+        out = SU.all_sum(out.to(h.dtype) @ params["out_proj"])
+    else:
+        yf = rms_norm(yf * F.silu(z.float()), params["norm_w"], 1e-5)
+        out = yf.to(h.dtype) @ params["out_proj"]
     return out, ({} if mode == "train" else staged)
+
+
+def _sharded_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, width: int) -> torch.Tensor:
+    """``layers.rms_norm`` of a tensor whose last dim is sharded over
+    ``model``: the sum of squares is summed over the ranks, the mean taken
+    over the full ``width``."""
+    x32 = x.float()
+    ms = SU.all_sum(x32.square().sum(dim=-1, keepdim=True)) / width
+    return (x32 * torch.rsqrt(ms + eps) * (1.0 + weight.float())).to(x.dtype)
 
 
 def _recurrence(x, dt, A, B_h, C_h, ssm0):

@@ -38,6 +38,7 @@ from repro_torch.core.dsia import PLD_SPEC, DraftSpec
 from repro_torch.core.engine import fake_quant_int8
 from repro_torch.kernels.ops import QuantWeight, prequantize
 from repro_torch.models import model as M
+from repro_torch.models import shard_utils as SU
 
 INT8_EXECS = ("auto", "kernel", "sim")
 
@@ -121,7 +122,7 @@ class DraftBank:
                     level_params, quantize = self._quantized(params, runs), "int8"
                 else:
                     if self._sim is None:
-                        self._sim = fake_quant_int8(params)
+                        self._sim = fake_quant_int8(params, cfg=cfg)
                     level_params = self._sim
                 owns = True
             override = None
@@ -162,7 +163,11 @@ class DraftBank:
                         r = off // len(seg.unit)
                         key = (si, u, name, r)
                         if key not in self._quant:
-                            self._quant[key] = prequantize(w[r])
+                            # a row-parallel weight's column scales are the
+                            # whole column's (a MAX over model)
+                            k_axes = ("model" if name == "w_down" and SU.tensor_parallel()
+                                      else None)
+                            self._quant[key] = prequantize(w[r], k_axes=k_axes)
                         layers[r] = self._quant[key]
                     mlp[name] = QuantStack(layers)
                 unit.append(dict(p, mlp=mlp))

@@ -116,12 +116,27 @@ sliding/global stack): a gated-off layer still runs and adds ``delta * 0``,
 as in the reference. The gates are fixed at build and kept on the host, so
 single rounds over a mixed stack capture as any other.
 
-Not ported yet (it raises ``NotImplementedError``; ROADMAP queue A): mesh
-serving (``mesh``).
+Mesh serving (``mesh=``, a ``launch.mesh.Mesh``; SPMD, one process a
+device, every rank building the same server): the target and every
+draft-bank level are tensor-parallel over ``model`` (the caller passes this
+rank's shards, ``bridge.params_from_jax(mesh=)`` or
+``models.model.init_params(mesh=)``; int8 copies take the whole column's
+scales), and the per-slot state (cache, ``dstate``, the output ring, the
+device telemetry) is sharded over the data axes, or replicated where
+``max_batch`` does not divide them (``launch.sharding.batch_axis``). The
+host runs the same scheduler on every rank over all ``max_batch`` slots;
+each host read the server already makes gathers the slots' rows over the
+data axes on the device first, and each plan predicate is reduced with a
+MAX over them, so graph launches and host syncs per round equal the
+single-device server's and every rank launches the same graph. A slot's
+admission prefill runs on the ranks that hold the slot. Single rounds
+capture the NCCL collectives in their graph; a ``gloo`` mesh on the card
+cannot be captured and refuses ``round_mode="single"``.
 """
 from __future__ import annotations
 
 import functools
+import inspect
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -164,7 +179,10 @@ from repro_torch.core.tree import bucket_for, tree_seed_arrays
 from repro_torch.core.verify import round_uniforms
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.graph_cond import CondGraph
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import model as M
+from repro_torch.models import shard_utils as SU
 from repro_torch.serving import telemetry as TM
 from repro_torch.serving.draft_bank import DraftBank
 from repro_torch.serving.sampler import SamplingParams, warp_probs
@@ -183,11 +201,41 @@ def _prefill_bucket(n: int) -> int:
     return b
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"BatchedSpecServer: {what} is not ported yet (ROADMAP queue A)")
+def _batch_sharded(mesh, max_batch: int) -> bool:
+    """Whether a server's per-slot state shards over the mesh's data axes."""
+    return mesh is not None and SH.batch_axis(mesh, max_batch) is not None
+
+
+def _on_mesh(fn):
+    """Run a server method with the server's mesh active (no-op off-mesh)."""
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        with SU.use_mesh(self.mesh, batch_sharded=self._bshard):
+            return fn(self, *args, **kwargs)
+    return run
+
+
+def _init_on_mesh(fn):
+    """The constructor with its ``mesh`` active: a mesh is a ``Mesh``."""
+    sig = inspect.signature(fn)
+
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        bound = sig.bind(self, *args, **kwargs)
+        bound.apply_defaults()
+        mesh = bound.arguments["mesh"]
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"BatchedSpecServer: mesh must be a launch.mesh.Mesh or None, not "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh
+        self._bshard = _batch_sharded(mesh, bound.arguments["max_batch"])
+        with SU.use_mesh(mesh, batch_sharded=self._bshard):
+            fn(self, *args, **kwargs)
+    return run
 
 
 class BatchedSpecServer:
+    @_init_on_mesh
     def __init__(
         self,
         cfg: ModelConfig,
@@ -212,7 +260,7 @@ class BatchedSpecServer:
         page_size: int = 64,           # tokens per KV page
         num_pages: Optional[int] = None,    # pool size (default: full per-slot)
         prefill_chunk: int = 0,        # >0: in-round chunked prefill (paged, single)
-        mesh=None,                     # not ported
+        mesh=None,                     # launch.mesh.Mesh: TP params + DP slots
         *,
         fused: bool = True,            # False (with mode unset): legacy per-step drafting
         hierarchy: Optional[List[DraftSpec]] = None,   # cascade_fused levels
@@ -268,8 +316,6 @@ class BatchedSpecServer:
             raise ValueError("prefill_chunk requires an attention-only text stack: chunked "
                              "prompt commits address KV through the page table, and SSM "
                              "per-step states are cumulative")
-        if mesh is not None:
-            raise _not_ported("mesh serving (mesh=...)")
         if draft_spec is not None:
             if mode == "cascade_fused":
                 raise ValueError(
@@ -284,10 +330,18 @@ class BatchedSpecServer:
         if hierarchy is not None and mode != "cascade_fused":
             raise ValueError("hierarchy=... requires mode='cascade_fused'")
         self.device = resolve_device(device)
+        if (mesh is not None and mesh.backend == "gloo" and self.device.type == "cuda"
+                and self.round_mode == "single"):
+            raise ValueError(
+                "round_mode='single' captures the round's collectives in a CUDA graph, and a "
+                "gloo mesh stages CUDA tensors through the host, which a capture cannot hold: "
+                "use round_mode='split' on a gloo mesh, or an nccl mesh")
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, server on {self.device}")
         self.cfg, self.params = cfg, params
         self.B, self.max_len, self.k = max_batch, max_len, draft_k
+        # this rank's slots of the per-slot device state (all of them off-mesh)
+        self._bl = max_batch // SU.data_size() if self._bshard else max_batch
         self.draft_spec = draft_spec
         self.mode = mode
         self.draft_kv = draft_kv
@@ -327,7 +381,7 @@ class BatchedSpecServer:
         self.page_size = int(page_size)
         self.cache = M.init_cache(cfg, max_batch, max_len, dtype=getattr(torch, cfg.dtype),
                                   paged=self.paged, page_size=self.page_size,
-                                  num_pages=num_pages, device=self.device)
+                                  num_pages=num_pages, device=self.device, mesh=mesh)
         # host-side page allocator: a free list touched only at admission and
         # release; pop() from the end hands out the lowest page indices first
         self._pages_per_slot = 0
@@ -353,8 +407,10 @@ class BatchedSpecServer:
             max_batch, budget_max, levels=len(self.bank) if self.bank is not None else 0)
         self._telem_host = TM.init_host_telemetry(self._telem_schema)
         self._telem_seen = TM.init_host_telemetry(self._telem_schema)
-        self._telem_dev = (TM.init_device_telemetry(self._telem_schema, self.device)
-                           if self.telemetry else None)
+        self._telem_dev = (TM.init_device_telemetry(
+            TM.telemetry_schema(self._bl, budget_max,
+                                levels=len(self.bank) if self.bank is not None else 0),
+            self.device) if self.telemetry else None)
         # the drained ring rows folded into the same schema (single rounds)
         self.ring_totals = TM.init_host_telemetry(self._telem_schema)
 
@@ -363,29 +419,30 @@ class BatchedSpecServer:
         # cold-start prior; c is the draft's prior cost (no wall clock)
         dev = self.device
         prior0 = float(draft_spec.prior_alpha) if draft_spec else 0.5
-        alpha, hist, hist_n, hist_ptr = ema_init(max_batch, prior=prior0, device=dev)
-        self.dstate = {"pending": torch.zeros((max_batch,), dtype=torch.int32, device=dev),
-                       "live": torch.zeros((max_batch,), dtype=torch.bool, device=dev),
-                       "ctx": torch.zeros((max_batch, max_len), dtype=torch.int32, device=dev),
+        Bl = self._bl
+        alpha, hist, hist_n, hist_ptr = ema_init(Bl, prior=prior0, device=dev)
+        self.dstate = {"pending": torch.zeros((Bl,), dtype=torch.int32, device=dev),
+                       "live": torch.zeros((Bl,), dtype=torch.bool, device=dev),
+                       "ctx": torch.zeros((Bl, max_len), dtype=torch.int32, device=dev),
                        "alpha": alpha, "hist": hist, "hist_n": hist_n, "hist_ptr": hist_ptr}
         if sampling is not None:
             # per-slot warp parameters and threefry keys, carried into the rounds
-            self.dstate.update(temp=torch.zeros((max_batch,), dtype=torch.float32, device=dev),
-                               topk=torch.zeros((max_batch,), dtype=torch.int32, device=dev),
-                               topp=torch.ones((max_batch,), dtype=torch.float32, device=dev),
-                               key=torch.zeros((max_batch, 2), dtype=torch.int64, device=dev))
+            self.dstate.update(temp=torch.zeros((Bl,), dtype=torch.float32, device=dev),
+                               topk=torch.zeros((Bl,), dtype=torch.int32, device=dev),
+                               topp=torch.ones((Bl,), dtype=torch.float32, device=dev),
+                               key=torch.zeros((Bl, 2), dtype=torch.int64, device=dev))
         if self.prefill_chunk:
             # prompt tokens committed so far and prompt length, per slot; a
             # slot with pf_done < pf_len is still prefilling
-            self.dstate.update(pf_done=torch.zeros((max_batch,), dtype=torch.int32, device=dev),
-                               pf_len=torch.zeros((max_batch,), dtype=torch.int32, device=dev))
+            self.dstate.update(pf_done=torch.zeros((Bl,), dtype=torch.int32, device=dev),
+                               pf_len=torch.zeros((Bl,), dtype=torch.int32, device=dev))
         self._prior_alpha = prior0
         c0 = float(draft_spec.prior_c) if draft_spec else 0.5
         self._c_dev = torch.tensor(max(c0, 1e-3), dtype=torch.float32, device=dev)
         # undrained rounds' facts, one row per round: accepted tokens, then
         # the _RING_FACTS columns; _ring_at is the next row, on the device
         width = (self.tree_bucket or draft_k + 1) + len(_RING_FACTS)
-        self._ring = torch.zeros((self.sync_every, max_batch, width), dtype=torch.int32,
+        self._ring = torch.zeros((self.sync_every, Bl, width), dtype=torch.int32,
                                  device=dev)
         self._ring_at = torch.zeros((1,), dtype=torch.int64, device=dev)
         self._inflight = 0
@@ -434,6 +491,7 @@ class BatchedSpecServer:
                 self._capture()
 
     # ------------------------------------------------------------ admission
+    @_on_mesh
     def add_request(self, slot: int, prompt: np.ndarray,
                     sampling: Optional[SamplingParams] = None,
                     max_new_tokens: Optional[int] = None) -> None:
@@ -472,7 +530,9 @@ class BatchedSpecServer:
             alloc = (self.max_len if max_new_tokens is None
                      else min(self.max_len, len(prompt) + int(max_new_tokens) + self._alloc_slack()))
             table_row = self._alloc_pages(slot, alloc)
-            self.cache["page_table"][slot] = torch.as_tensor(table_row, device=self.device)
+            if self._local(slot) is not None:
+                self.cache["page_table"][self._local(slot)] = torch.as_tensor(table_row,
+                                                                              device=self.device)
         eff = sampling if sampling is not None else self.sampling
         key = None
         if self.sampling is not None:
@@ -485,28 +545,42 @@ class BatchedSpecServer:
             # enqueue only: pos 0, the prompt parked in ctx, pf_* armed. The
             # prompt's first token is a safe pending: the round prologue
             # writes pending at ctx[pos], which leaves the prompt as it is
-            self.cache["pos"][slot] = 0
             self._bind_slot(slot, prompt, int(prompt[0]), eff, key)
-            self.dstate["pf_done"][slot] = 0
-            self.dstate["pf_len"][slot] = len(prompt)
+            loc = self._local(slot)
+            if loc is not None:
+                self.cache["pos"][loc] = 0
+                self.dstate["pf_done"][loc] = 0
+                self.dstate["pf_len"][loc] = len(prompt)
             self.pending[slot] = int(prompt[-1])     # unknown until the prompt is prefilled
             return
         # prefill at the prompt's power-of-two bucket, not max_len: positions
         # past the prompt stay invisible through kv_pos masking
         bucket = min(_prefill_bucket(len(prompt)), self.max_len)
-        c1 = M.init_cache(self.cfg, 1, bucket, dtype=getattr(torch, self.cfg.dtype),
-                          device=self.device)
-        last, c1 = M.prefill(self.cfg, self.params,
-                             {"tokens": torch.as_tensor(prompt[None], device=self.device)}, c1)
-        M.write_slot(self.cfg, self.cache, c1, slot)  # in place
+        loc = self._local(slot)
+        if loc is not None:
+            # the ranks that hold the slot prefill it (a B=1 cache: nothing
+            # per-slot to gather inside)
+            with SU.use_mesh(self.mesh):
+                c1 = M.init_cache(self.cfg, 1, bucket, dtype=getattr(torch, self.cfg.dtype),
+                                  device=self.device, mesh=self.mesh)
+                last, c1 = M.prefill(self.cfg, self.params,
+                                     {"tokens": torch.as_tensor(prompt[None], device=self.device)},
+                                     c1)
+                M.write_slot(self.cfg, self.cache, c1, loc)  # in place
+            last = last[0]
+        else:
+            last = torch.zeros((self.cfg.padded_vocab,), dtype=torch.float32, device=self.device)
+        if self._bshard:
+            # the owner's prefill row on every data rank: a sum into zeros
+            last = SU.all_sum(last, SU.DATA_AXES)
         if key is None:
-            first = last[0].argmax()
+            first = last.argmax()
         else:
             # the key's first split is the round stream, its second half
             # draws the first token by the rounds' inverse-CDF rule
             key, sub = prng.split(key, 2)
             u0 = float(prng.uniform(sub, 1)[0])
-            cum = np.cumsum(warp_probs(last[0].cpu().numpy(), eff.temperature, eff.top_k,
+            cum = np.cumsum(warp_probs(last.cpu().numpy(), eff.temperature, eff.top_k,
                                        eff.top_p))
             first = int(np.argmax(cum > u0 * cum[-1]))
         self._bind_slot(slot, prompt, first, eff, key)
@@ -516,7 +590,21 @@ class BatchedSpecServer:
                    sampling: Optional[SamplingParams], key: Optional[torch.Tensor]) -> None:
         """The slot's row of the carried state, in place: its pending token,
         its context buffer, a fresh estimator at the draft's prior and, on a
-        sampled build, its warp parameters and key; and the host mirrors."""
+        sampled build, its warp parameters and key (on the ranks that hold
+        the slot); and the host mirrors."""
+        self.contexts[slot] = [int(t) for t in prompt]
+        self.live[slot] = True
+        # the slot's estimator restarts from the draft's cold-start prior:
+        # continuous batching reuses slots across unrelated requests
+        prior = self.draft_spec.prior_alpha if self.draft_spec else 0.5
+        self.acceptance.reset(self._slot_key(slot), alpha0=prior)
+        if self.bank is not None:
+            for i in range(len(self.bank)):
+                self.acceptance.reset(self.bank.slot_key(i, slot), alpha0=self.bank.alpha_prior(i))
+            self.acceptance.reset(self.bank.direct_key(slot), alpha0=self.bank.direct_prior())
+        slot = self._local(slot)
+        if slot is None:
+            return
         ds = self.dstate
         ds["pending"][slot] = pending
         if key is not None:
@@ -531,16 +619,12 @@ class BatchedSpecServer:
         ds["alpha"][slot] = self._prior_alpha
         for name in ("hist", "hist_n", "hist_ptr"):
             ds[name][slot] = 0
-        self.contexts[slot] = [int(t) for t in prompt]
-        self.live[slot] = True
-        # the slot's estimator restarts from the draft's cold-start prior:
-        # continuous batching reuses slots across unrelated requests
-        prior = self.draft_spec.prior_alpha if self.draft_spec else 0.5
-        self.acceptance.reset(self._slot_key(slot), alpha0=prior)
-        if self.bank is not None:
-            for i in range(len(self.bank)):
-                self.acceptance.reset(self.bank.slot_key(i, slot), alpha0=self.bank.alpha_prior(i))
-            self.acceptance.reset(self.bank.direct_key(slot), alpha0=self.bank.direct_prior())
+
+    def _local(self, slot: int) -> Optional[int]:
+        """The row of global slot ``slot`` in this rank's per-slot state, or
+        None where another data rank holds it."""
+        with SU.use_mesh(self.mesh, batch_sharded=self._bshard):
+            return SU.owns_row(slot, self.B)
 
     # -------------------------------------------------- page pool (paged)
     def _alloc_slack(self) -> int:
@@ -572,6 +656,7 @@ class BatchedSpecServer:
             self._free_pages.extend(pages)
             self.metrics.gauge("serve_free_pages").set(len(self._free_pages))
 
+    @_on_mesh
     def release(self, slot: int) -> None:
         """Mark a slot free (its request finished or was cancelled). Its
         ``pos`` drops to 0 and, on a paged build, its pages go back to the
@@ -579,13 +664,17 @@ class BatchedSpecServer:
         call scans (``max(pos)`` over the batch) forgets the request. All in
         place and in stream order: rounds in flight are not waited for."""
         self.live[slot] = False
+        if self.paged:
+            self._free_slot_pages(slot)
+        slot = self._local(slot)
+        if slot is None:
+            return
         self.dstate["live"][slot] = False
         self.cache["pos"][slot] = 0
         if self.prefill_chunk:       # a request cancelled mid-prefill stops prefilling
             self.dstate["pf_done"][slot] = 0
             self.dstate["pf_len"][slot] = 0
         if self.paged:
-            self._free_slot_pages(slot)
             self.cache["page_table"][slot] = -1
 
     def _slot_key(self, slot: int) -> str:
@@ -599,10 +688,10 @@ class BatchedSpecServer:
         if self.draft_spec is None:
             return 0
         if self.round_mode == "single":
-            if not self.adaptive or int(self.dstate["hist_n"][slot]) < self.min_obs:
+            hist_n, alpha = self._state_row("hist_n", slot), self._state_row("alpha", slot)
+            if not self.adaptive or int(hist_n) < self.min_obs:
                 return self.k
-            return best_chain_length(float(self.dstate["alpha"][slot]), float(self._c_dev),
-                                     self.k, self.t_min)
+            return best_chain_length(float(alpha), float(self._c_dev), self.k, self.t_min)
         key = self._slot_key(slot)
         if not self.adaptive or self.acceptance.counts(key) < self.min_obs:
             return self.k
@@ -615,16 +704,23 @@ class BatchedSpecServer:
         if self.draft_spec is None:
             return 0
         if self.round_mode == "single":
-            if not self.adaptive or int(self.dstate["hist_n"][slot]) < self.min_obs:
+            hist_n, alpha = self._state_row("hist_n", slot), self._state_row("alpha", slot)
+            if not self.adaptive or int(hist_n) < self.min_obs:
                 return self.tree_expansions
-            return best_tree_expansions(float(self.dstate["alpha"][slot]), float(self._c_dev),
-                                        self.tree_expansions, self.t_min)
+            return best_tree_expansions(float(alpha), float(self._c_dev), self.tree_expansions,
+                                        self.t_min)
         key = self._slot_key(slot)
         if not self.adaptive or self.acceptance.counts(key) < self.min_obs:
             return self.tree_expansions
         c = self.costs.c_hat("tree_draft", default=float(self.draft_spec.prior_c))
         return best_tree_expansions(self.acceptance.alpha(key), max(c, 1e-3),
                                     self.tree_expansions, self.t_min)
+
+    @_on_mesh
+    def _state_row(self, name: str, slot: int):
+        """Global slot ``slot``'s entry of ``dstate[name]`` (its rows gathered
+        over the data axes where they are sharded)."""
+        return SU.host(self.dstate[name])[slot]
 
     # ----------------------------------------------------- dispatch counts
     def expected_dispatches_per_round(self) -> int:
@@ -648,7 +744,9 @@ class BatchedSpecServer:
 
     # ------------------------------------------------------------- stepping
     def _dev(self, a, dtype=torch.int32) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
+        """A per-slot host array's rows of this rank on the device."""
+        t = torch.as_tensor(SU.local_rows(np.asarray(a)), device=self.device)
+        return t if dtype is None else t.to(dtype)
 
     def _pld_chains(self):
         """Per-slot PLD proposals (B, k) and their lengths. Also records
@@ -691,13 +789,19 @@ class BatchedSpecServer:
             self.cfg, steps, self.params, self.cache, self._dev(self.pending), self._dev(chains),
             self._dev(have), self._dev(limit), self._gates, draft_kv=self.draft_kv,
             layer_ids=self._layer_ids)
-        chains, have = ch_d.cpu().numpy(), hv_d.cpu().numpy()
-        dt = time.perf_counter() - t0
+        chains, have = SU.host(ch_d), SU.host(hv_d)
+        dt = self._elapsed(t0)
         self._count_draft(dt)
         self.stats["drafted_tokens"] += steps
         # per-draft-step latency -> c_hat = draft step / verify round
         self.costs.observe("chain_draft", dt, tokens=steps)
         return chains, have
+
+    def _elapsed(self, t0: float) -> float:
+        """Wall seconds since ``t0``: what the split rounds' cost trackers
+        observe. On a mesh the MAX over every rank, so that each rank's host
+        plans (budgets, routing) from the same numbers."""
+        return SU.host_max(time.perf_counter() - t0)
 
     def _count_draft(self, dt: float) -> None:
         """One drafting dispatch and its host read."""
@@ -728,13 +832,14 @@ class BatchedSpecServer:
             t0 = time.perf_counter()
             logits, _ = M.decode_step(self.cfg, self.params, self.cache, self._dev(toks),
                                       gates=self._gates, layer_ids=self._layer_ids)
-            nxt = logits[:, -1].argmax(dim=-1).cpu().numpy()
-            self._count_draft(time.perf_counter() - t0)
+            nxt = SU.host(logits[:, -1].argmax(dim=-1))
+            self._count_draft(self._elapsed(t0))
             fill = (have <= j) & (j < limit)
             chains[fill, j] = nxt[fill]
             have = np.maximum(have, np.where(fill, j + 1, have)).astype(np.int32)
         return chains, have
 
+    @_on_mesh
     def step(self) -> Dict[int, List[int]]:
         """One speculative round for the whole batch; returns the accepted
         tokens per live slot (single rounds: the tokens drained so far,
@@ -758,8 +863,8 @@ class BatchedSpecServer:
             ds["key"].copy_(keys)
         else:
             _, _, n_chain, new_pending = verify_accept_commit(*args)  # commits in place
-        n_chain, new_pending = n_chain.cpu().numpy(), new_pending.cpu().numpy()
-        self._count_verify(time.perf_counter() - t0)
+        n_chain, new_pending = SU.host(n_chain), SU.host(new_pending)
+        self._count_verify(self._elapsed(t0))
 
         out: Dict[int, List[int]] = {}
         for b in range(self.B):
@@ -794,7 +899,7 @@ class BatchedSpecServer:
         seed = tree_seed_arrays(self.pending.astype(np.int32), chains, have, self.tree_bucket,
                                 pld_alpha=PLD_SPEC.prior_alpha)
         d_tokens, d_parents, d_depth, d_p_acc, d_mask, d_count = (
-            torch.as_tensor(a, device=self.device) for a in seed)
+            self._dev(a, None) for a in seed)
         tokens, parents, count = seed[0], seed[1], seed[5]
         first_neural = np.full(self.B, -1, np.int32)
         expansions = int(limits.max(initial=0))
@@ -812,8 +917,8 @@ class BatchedSpecServer:
             # depth/mask stay on the card (only the verify reads them)
             d_tokens, d_parents, d_depth, _, d_mask, d_count, d_first = out
             tokens, parents, count, first_neural = (
-                a.cpu().numpy() for a in (d_tokens, d_parents, d_count, d_first))
-            dt = time.perf_counter() - t0
+                SU.host(a) for a in (d_tokens, d_parents, d_count, d_first))
+            dt = self._elapsed(t0)
             self._count_draft(dt)
             self.stats["drafted_tokens"] += int(np.clip(count - have - 1, 0, None).sum())
             # per-expansion-step latency -> the c in the Eq. 5 budgets
@@ -822,7 +927,7 @@ class BatchedSpecServer:
         t0 = time.perf_counter()
         _, path, n_acc, bonus = self._tree_verify(  # commits in place
             d_tokens, d_parents, d_depth, d_mask, d_count, self._dev(self.live, torch.bool))
-        self._count_verify(time.perf_counter() - t0)
+        self._count_verify(self._elapsed(t0))
 
         out_toks: Dict[int, List[int]] = {}
         for b in range(self.B):
@@ -893,7 +998,7 @@ class BatchedSpecServer:
                 resc_alphas[: len(r_alphas), b] = r_alphas
         seed = tree_seed_arrays(self.pending.astype(np.int32), chains, have, self.tree_bucket,
                                 pld_alpha=bank.pld.prior_alpha)
-        tree = [torch.as_tensor(a, device=self.device) for a in seed]
+        tree = [self._dev(a, None) for a in seed]
         first_neural = np.full(self.B, -1, np.int32)
         expansions = int(exp_b.max(initial=0))
         if expansions > 0:
@@ -908,10 +1013,10 @@ class BatchedSpecServer:
                 self._level_gates(drafter), top_p=self.tree_top_p, draft_kv=self.draft_kv,
                 layer_ids=drafter.layer_ids, quantize=drafter.quantize,
                 attn_override=drafter.attn_override)
-            tree, first_neural = list(out[:6]), out[6].cpu().numpy()
-            dt = time.perf_counter() - t0
+            tree, first_neural = list(out[:6]), SU.host(out[6])
+            dt = self._elapsed(t0)
             self._count_draft(dt)
-            self.stats["drafted_tokens"] += int(np.clip(tree[5].cpu().numpy() - have - 1, 0,
+            self.stats["drafted_tokens"] += int(np.clip(SU.host(tree[5]) - have - 1, 0,
                                                         None).sum())
             self.costs.observe("cascade_draft", dt, tokens=expansions)
 
@@ -952,8 +1057,8 @@ class BatchedSpecServer:
                     out = cascade_rescore(self.cfg, lvl.params, self.cache, *args,
                                           sampling=sampling, **kw)
                 tree, probe = list(out[:6]), out[6]
-                pv, pk = out[8].cpu().numpy(), out[7].cpu().numpy()
-                dt = time.perf_counter() - t0
+                pv, pk = SU.host(out[8]), SU.host(out[7])
+                dt = self._elapsed(t0)
                 self.stats["rescore_dispatches"] += 1
                 if last:
                     # the dispatch holds the target verify: its wall time
@@ -969,20 +1074,20 @@ class BatchedSpecServer:
                 # Eq. 4: this level's verdict on level r+1's first token
                 for b in np.flatnonzero(pv):
                     self.acceptance.observe(bank.slot_key(r + 1, b), bool(pk[b]))
-            level_node = probe.cpu().numpy()
+            level_node = SU.host(probe)
         else:
             t0 = time.perf_counter()
             _, path, n_acc, bonus = self._tree_verify(tree[0], tree[1], tree[2], tree[4], tree[5],
                                                       live)  # commits in place
-            self._count_verify(time.perf_counter() - t0)
+            self._count_verify(self._elapsed(t0))
         if warp is not None and rescored_round:
             ds["key"].copy_(keys)
 
-        tokens, parents = tree[0].cpu().numpy(), tree[1].cpu().numpy()
+        tokens, parents = SU.host(tree[0]), SU.host(tree[1])
         # the verify already read its verdict to the host (the port's
         # ``tree_verify_accept_commit_host``): the round's per-slot tallies
         # and routing rows go to the host twin, with no device copy
-        self._host_round_telemetry(n_acc, np.clip(tree[5].cpu().numpy() - have - 1, 0, None),
+        self._host_round_telemetry(n_acc, np.clip(SU.host(tree[5]) - have - 1, 0, None),
                                    have, exp_b)
         routed = (use_rescore & self.live).astype(np.int32)
         for lv in bank.rescorers:
@@ -1031,7 +1136,7 @@ class BatchedSpecServer:
         cache, *walk = tree_verify_accept_commit_sampled(*args, ds["temp"], ds["topk"],
                                                          ds["topp"], u)
         ds["key"].copy_(keys)
-        return (cache, *(a.cpu().numpy() for a in walk))
+        return (cache, *(SU.host(a) for a in walk))
 
     def _level_gates(self, lvl) -> Optional[torch.Tensor]:
         """A bank level's gate vector on the host (mask exec), or None."""
@@ -1062,7 +1167,7 @@ class BatchedSpecServer:
         return dict(self.dstate, live=mid["live"]) if "live" in mid else self.dstate
 
     def _seg_prefill_pred(self, mid: dict) -> None:
-        mid["pf_any"] = (self.dstate["pf_done"] < self.dstate["pf_len"]).any()
+        mid["pf_any"] = SU.any_over_data((self.dstate["pf_done"] < self.dstate["pf_len"]).any())
 
     def _seg_prefill(self, mid: dict) -> None:
         prefill_chunk_stage(self.cfg, self.params, self.cache, self.dstate,
@@ -1089,7 +1194,7 @@ class BatchedSpecServer:
         for name, value in new.items():
             self.dstate[name].copy_(value)
         out["prefilled"] = mid.get("pf_any", self._false)
-        facts = torch.stack([out[k].to(torch.int32).expand(self.B) for k in _RING_FACTS], dim=1)
+        facts = torch.stack([out[k].to(torch.int32).expand(self._bl) for k in _RING_FACTS], dim=1)
         row = torch.cat([out["acc"].to(torch.int32), facts], dim=1)
         self._ring.index_copy_(0, self._ring_at, row[None])
         self._ring_at += 1              # the host drains before the ring is full
@@ -1136,7 +1241,7 @@ class BatchedSpecServer:
             steps.append(("child", graph) if pred is None else ("if", mid[pred], graph))
         self._graph = CondGraph(steps, dev)
         torch.cuda.synchronize(dev)
-        self.capture_s = time.perf_counter() - t0
+        self.capture_s = self._elapsed(t0)
         self.capture_ptrs = self.state_ptrs()    # the storage the graph writes in place
         self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.graph_live_bytes = torch.cuda.memory_allocated(dev) - allocated
@@ -1184,7 +1289,7 @@ class BatchedSpecServer:
         if not self._inflight:
             return
         t0 = time.perf_counter()
-        rows = self._ring[: self._inflight].cpu().numpy()
+        rows = SU.gather_rows(self._ring[: self._inflight], dim=1).cpu().numpy()
         self.stats["host_syncs"] += 1
         self.stats["device_wait"] += time.perf_counter() - t0
         self._inflight = 0
@@ -1225,6 +1330,7 @@ class BatchedSpecServer:
                   live.astype(np.int32))
         self.stats["drafted_tokens"] += int(f["drafted"].sum())
 
+    @_on_mesh
     def flush(self) -> Dict[int, List[int]]:
         """Drain the rounds in flight and the telemetry, and return the
         buffered tokens per slot. Split rounds return their tokens from
@@ -1253,7 +1359,14 @@ class BatchedSpecServer:
         Callers drained the ring first, so the buffer belongs to rounds
         already read: one copy, no new host sync. A single-round server's
         buffer must equal the fold of its drained ring rows."""
-        totals = TM.merge_totals(self._telem_dev, self._telem_host)
+        if self._bshard:
+            # the buffer's slot rows of every data rank (cascade rows carry
+            # the slots on their second dim)
+            totals = TM.merge_totals(None, self._telem_host)
+            for k, v in self._telem_dev.items():
+                totals[k] = totals[k] + SU.host(v, dim=1 if k.startswith("casc_") else 0)
+        else:
+            totals = TM.merge_totals(self._telem_dev, self._telem_host)
         if self._telem_dev is not None and self.round_mode == "single":
             bad = [k for k, v in self.ring_totals.items() if not np.array_equal(totals[k], v)]
             if bad:
@@ -1263,6 +1376,7 @@ class BatchedSpecServer:
         self._telem_seen = totals
         TM.fold_telemetry(self.metrics, delta)
 
+    @_on_mesh
     def telemetry_totals(self) -> Dict[str, np.ndarray]:
         """Cumulative drained telemetry (device buffer + host twin), keyed by
         the ``telemetry_schema`` names. Drains the rounds in flight first
@@ -1271,6 +1385,7 @@ class BatchedSpecServer:
         self._drain_telemetry()
         return {k: v.copy() for k, v in self._telem_seen.items()}
 
+    @_on_mesh
     def metrics_summary(self) -> Dict[str, Any]:
         """A JSON-able end-of-run summary from the registry and the drained
         telemetry: tokens per step, dispatch and sync accounting and per-level

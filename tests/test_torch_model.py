@@ -168,30 +168,57 @@ def test_commit_cache_partial_accept_leaves_rejected_rows():
 
 
 MAMBA_CFG = get_config("mamba2-130m").reduced()
+
+
+def _same_without_seq_axes(call):
+    """``call(seq_axes)`` off-mesh equals ``call(None)``: ``seq_axes`` is a
+    no-op without a mesh, as in the reference (``n_seq = 0``)."""
+    def check():
+        want = call(None)
+        got = call(("data",))
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            if isinstance(g, torch.Tensor):
+                torch.testing.assert_close(g, w, rtol=0, atol=0)
+    return check
+
+
+def _attn_inputs():
+    g = torch.Generator().manual_seed(3)
+    shapes = ((1, 8, 4, 64), (1, 16, 4, 64), (1, 16, 4, 64))
+    q, kc, vc = (torch.randn(s, generator=g) for s in shapes)
+    kn, vn = (torch.randn((1, 8, 4, 64), generator=g) for _ in range(2))
+    return q, kc, vc, 5, kn, vn, torch.arange(5, 13)
+
+
+def _mesh_type_error():
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
+        BatchedSpecServer(dataclasses.replace(CFG, attn_layer_period=2, num_image_tokens=16), {},
+                          mesh=object(), device="cpu")
+
+
 OFF_SLICE = {
-    "decode_attention seq_axes": lambda: attn.decode_attention(
-        *[torch.zeros(s) for s in ((1, 8, 4, 64), (1, 16, 4, 64), (1, 16, 4, 64))], 0,
-        *[torch.zeros(s) for s in ((1, 8, 4, 64), (1, 8, 4, 64))], torch.arange(8),
-        seq_axes=("data",)),
-    "decode_step seq_axes": lambda: M.decode_step(
-        CFG, PARAMS, M.init_cache(CFG, 1, 16, device="cpu"), torch.zeros(1, 8, dtype=torch.int32),
-        seq_axes=("data",)),
-    # codebook, image, mamba and hybrid stacks are ported; the mesh
-    # (context-parallel seq_axes, mesh serving) is not, on any stack
-    "init_params mamba": lambda: M.decode_step(
-        MAMBA_CFG, M.init_params(MAMBA_CFG, device="cpu"),
-        M.init_cache(MAMBA_CFG, 1, 16, device="cpu"), torch.zeros(1, 2, dtype=torch.int32),
-        seq_axes=("data",)),
-    "init_cache hybrid": lambda: BatchedSpecServer(
-        dataclasses.replace(CFG, attn_layer_period=2, num_image_tokens=16), {}, mesh=object(),
-        device="cpu"),
+    "decode_attention seq_axes": _same_without_seq_axes(
+        lambda ax: attn.decode_attention(*_attn_inputs(), seq_axes=ax)),
+    "decode_step seq_axes": _same_without_seq_axes(
+        lambda ax: M.decode_step(CFG, PARAMS, M.init_cache(CFG, 1, 16, device="cpu"),
+                                 torch.arange(8, dtype=torch.int32)[None] + 2, seq_axes=ax)),
+    "init_params mamba": _same_without_seq_axes(
+        lambda ax: M.decode_step(
+            MAMBA_CFG, M.init_params(MAMBA_CFG, device="cpu"),
+            M.init_cache(MAMBA_CFG, 1, 16, device="cpu"),
+            torch.tensor([[3, 4]], dtype=torch.int32), seq_axes=ax)),
+    "init_cache hybrid": _mesh_type_error,
 }
 
 
 @pytest.mark.parametrize("case", sorted(OFF_SLICE))
 def test_off_slice_arguments_raise(case):
-    with pytest.raises(NotImplementedError):
-        OFF_SLICE[case]()
+    """The mesh arguments off a mesh, as the reference treats them:
+    ``seq_axes`` without a mesh changes nothing (decode_attention,
+    decode_step, a Mamba-2 stack's decode_step), and ``mesh=`` takes a
+    ``launch.mesh.Mesh``, raising ``TypeError`` on anything else."""
+    OFF_SLICE[case]()
 
 
 def test_entry_points_refuse_a_missing_card():

@@ -48,7 +48,13 @@ reduced): five train steps give finite losses and a falling ce. The
 analysis layer's contracts: a 2-layer single round's captured graph passes
 every dispatch contract and a telemetry-off twin's differs in the tail
 only; a graph captured with a device-to-host copy fails
-``assert_no_host_transfers``.
+``assert_no_host_transfers``. The mesh (``tests/torch_mesh_workers.py``):
+two ``gloo`` ranks sharing the card give vicuna-7b's (reduced, 4 layers)
+prefill and decode logits of a ``model=2`` shard within 1e-4 of the
+one-device call, and a context-parallel ``decode_attention`` (kernel #1
+over each rank's sequence slice, the cross-rank combine, the tree merge)
+within 1e-5 of the unsliced call; an ``all_reduce`` of a one-rank NCCL
+group captured in a CUDA graph replays with the eager result.
 """
 import dataclasses
 import functools
@@ -533,17 +539,21 @@ def test_eager_round_makes_no_host_sync_on_card():
     assert srv.stats["draft_rounds"] == 2 and all(len(t) >= 2 for t in out.values())
 
 
-def _device_kernels(fn) -> int:
+def _device_kernels(fn, by_name: bool = False):
     """Device activities (kernels, copies, memsets) the profiler records
-    while ``fn`` runs, synchronised."""
+    while ``fn`` runs, synchronised: their count, or with ``by_name`` a
+    Counter of them by name."""
+    import collections
+
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    names = collections.Counter({e.key: e.count for e in prof.key_averages()
+                                 if e.device_type == torch.autograd.DeviceType.CUDA})
+    return names if by_name else sum(names.values())
 
 
 def test_draft_with_every_budget_covered_changes_nothing_on_card():
@@ -559,13 +569,14 @@ def test_draft_with_every_budget_covered_changes_nothing_on_card():
     _card()
     srv, plain = _round_server("tree_fused", False), _round_server("tree_fused", False,
                                                                       draft=False)
-    counts, out = [], {}
+    counts, names, out = [], [], {}
     for _ in range(3):
         srv.dstate["hist_n"].fill_(5)           # warmed up: budgets follow alpha
         srv.dstate["alpha"].fill_(0.0)
         assert [srv._slot_tree_budget(b) for b in range(4)] == [0] * 4
-        counts.append(tuple(_device_kernels(lambda s=s: out.update({s: s.step()}))
-                            for s in (srv, plain)))
+        names.append(tuple(_device_kernels(lambda s=s: out.update({s: s.step()}), by_name=True)
+                           for s in (srv, plain)))
+        counts.append(tuple(sum(n.values()) for n in names[-1]))
         assert out[srv] == out[plain]
     assert srv.stats["draft_rounds"] == 0
     for name in ("pending", "ctx"):
@@ -575,8 +586,16 @@ def test_draft_with_every_budget_covered_changes_nothing_on_card():
     # the budget arithmetic the drafter's prologue adds, eagerly
     kw = dict(draft_k=srv.k, expansions=srv.tree_expansions, bucket=srv.tree_bucket,
               pld_alpha=0.3, adaptive=True, min_obs=srv.min_obs, t_min=srv.t_min)
-    budget = [_device_kernels(lambda u=u: engine.tree_prologue(
-        srv.cache, dict(srv.dstate), srv._c_dev, use_draft=u, **kw)) for u in (True, False)]
+    budget_names = [_device_kernels(lambda u=u: engine.tree_prologue(
+        srv.cache, dict(srv.dstate), srv._c_dev, use_draft=u, **kw), by_name=True)
+        for u in (True, False)]
+    budget = [sum(n.values()) for n in budget_names]
+    # the profiler's counts, shown by pytest where an assertion below fails:
+    # the activities the skipped replay adds to the PLD-only one, by name,
+    # and those the eager prologue adds with the drafter's budget
+    print(f"device activities per replay (skipped, PLD-only): {counts}; prologue with and "
+          f"without the drafter's budget: {budget}; the replay's extra activities "
+          f"{dict(names[0][0] - names[0][1])}; the prologue's {dict(budget_names[0] - budget_names[1])}")
     for skipped, pld_only in counts:
         assert skipped <= pld_only + 1 + budget[0] - budget[1], (skipped, pld_only, budget)
     # a replay that drafts runs the draft's kernels
@@ -1044,3 +1063,46 @@ def test_moe_and_ssm_train_steps_on_card(arch):
         assert (float(m["moe_aux"]) > 0) == (cfg.moe is not None)
         ce.append(float(m["ce"]))
     assert ce[-1] < ce[0], ce
+
+
+# ------------------------------------------------------------------- mesh
+@pytest.fixture(scope="module")
+def card_ranks(tmp_path_factory):
+    """Two gloo ranks sharing the card (``torch_mesh_workers.card_rank``)."""
+    _card()
+    import torch_mesh_workers as W
+    from repro_torch.launch.mesh import spawn
+
+    out = tmp_path_factory.mktemp("card_mesh")
+    spawn(W.card_rank, 2, ("data=1,model=2", {"attention_case": W.attention_case()}, str(out)),
+          device="cuda", share_card=True)
+    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+
+def test_tensor_parallel_decode_shares_the_card(card_ranks):
+    import torch_mesh_workers as W
+    from repro_torch.models import model as M
+
+    dev = _card()
+    one = W.decode_logits(W.VICUNA, M.init_params(W.VICUNA, 0, device=dev), dev)
+    for r in card_ranks:
+        for got, want in zip(r["logits"], one):
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_context_parallel_flash_decode_on_card(card_ranks):
+    import torch_mesh_workers as W
+
+    want = W.run_attention(W.attention_case(), _card())
+    for r in card_ranks:
+        np.testing.assert_allclose(r["cp"], want, rtol=0, atol=1e-5)
+
+
+def test_nccl_all_reduce_captured_in_a_graph(tmp_path):
+    _card()
+    import torch_mesh_workers as W
+    from repro_torch.launch.mesh import spawn
+
+    spawn(W.nccl_capture_rank, 1, (str(tmp_path),), device="cuda")
+    got = torch.load(tmp_path / "replayed.pt")
+    assert torch.equal(got, (torch.arange(8, dtype=torch.float32) + 1) * 2)

@@ -227,8 +227,12 @@ def test_cli_batched_summary_and_exporters(monkeypatch, capsys, tmp_path):
 
 
 def test_cli_refuses_a_larger_mesh_and_a_missing_card():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, the mesh"):
+    # a mesh of more than one device runs one process a device: started by
+    # torchrun or by --spawn, never silently in this one
+    with pytest.raises(SystemExit, match="torchrun or pass --spawn"):
         serve.main(["--device", "cpu", "--reduced", "--mesh", "model=2,data=1"])
+    with pytest.raises(SystemExit, match="bad --mesh"):
+        serve.main(["--device", "cpu", "--reduced", "--mesh", "rows=2"])
     with pytest.raises(ValueError):
         serve.parse_mesh("rows=1")
     assert serve.parse_mesh("model=1,data=1") == {"model": 1, "data": 1}

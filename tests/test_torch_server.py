@@ -200,7 +200,8 @@ def test_page_pool_budget_and_exhaustion():
 UNPORTED = {
     # sampled serving is ported: what raises is a sampling that is no SamplingParams
     "sampling": (dict(sampling=object()), TypeError),
-    "mesh": (dict(mesh=object()), NotImplementedError),
+    # mesh serving is ported: what raises is a mesh that is no launch.mesh.Mesh
+    "mesh": (dict(mesh=object()), TypeError),
 }
 
 
