@@ -103,7 +103,18 @@ collectives' share); (c) gemma3-1b at model=2, whose cache is
 sequence-sharded: one context-parallel ``decode_attention`` within 1e-5
 of the one-device call, split ``tree_fused`` streams against AR; (d) the
 dry run's per-device table for four large configs on 1, 2 and 4 cards;
-(e) model=2 over NCCL on a machine with two cards. Each phase prints its
+(e) model=2 over NCCL on a machine with two cards. Phase 18 drives
+sharded training (``make_train_step`` under a mesh: FSDP over ``data``,
+tensor parallelism over ``model``, rows over ``data``), float32, phase
+11's batches, each run against the same steps on one device: (a)
+vicuna-7b at 8 layers on a one-rank NCCL mesh, bitwise; (b) vicuna-7b at
+2 layers as two gloo ranks sharing the card at data=2 and at model=2
+(ce and grad_norm within 1e-5 and 1e-4 relative, the params by the
+training tests' rule, each rank's bytes against the dry run's plan, ms a
+step and the collectives' share); (c) qwen2-moe-a2.7b at 2 layers at
+data=2, the MoE slot tables of both ranks gathered against the unsharded
+table; (d) the dry run's training rows at train_4k; (e) (b) over NCCL on
+a machine with two cards. Each phase prints its
 seconds and the memory left allocated after it. The last line is the
 JSON device record; the line before it lists the kernels, with the
 launches of phases 3, 5-15 and 17 (graph launches counted by the server,
@@ -2607,6 +2618,7 @@ def phase_training(torch, results: dict) -> None:
     served = {"trained": tr.pop("trained")}
     ms = sorted(tr["step_ms"][5:])
     med = ms[len(ms) // 2]
+    results["p11_step_ms"] = med
     fwd, bwd, opt = (sum(s[i] for s in tr["split"]) / len(tr["split"]) for i in range(3))
     print(f"[phase 11] {TRAIN['steps']} steps in {tr['wall']:.2f} s; one step (CUDA events, steps "
           f"5-{TRAIN['steps'] - 1}): median {med:.2f} ms, min {ms[0]:.2f}, max {ms[-1]:.2f}; split "
@@ -3480,10 +3492,10 @@ def _dropped(torch, cfg, params, batch) -> tuple:
 
     shares, orig = [], moe._grouped_capacity
 
-    def counted(p, xf, top_w, top_ids, m_cfg, act, gated, cf):
+    def counted(p, xf, top_w, top_ids, m_cfg, act, gated, cf, *rest):
         _, keep, C = moe.capacity_slots(top_ids, m_cfg, cf)
         shares.append((1 - keep.float().mean(), keep.shape[0], C))
-        return orig(p, xf, top_w, top_ids, m_cfg, act, gated, cf)
+        return orig(p, xf, top_w, top_ids, m_cfg, act, gated, cf, *rest)
 
     moe._grouped_capacity = counted
     try:
@@ -4174,6 +4186,380 @@ def phase_mesh(torch, results: dict) -> None:
     print(f"[phase 17] {time.perf_counter() - t0:.1f} s | {_smi()}")
 
 
+# ------------------------------------------------------------------ phase 18
+# sharded training: phase 11's corpus and batches (8 x 96 tokens), float32,
+# seed 0, the one-device run of the same depth as the yardstick
+# (b) and (c) take 2 steps: through gloo's host staging a data=2 step of
+# either takes 5-14 s on one H100 (PERF.md)
+TRAIN18 = dict(steps=3, mesh_steps=2, moe_steps=2, tol_ce=1e-5, tol_gnorm=1e-4, timeout_s=600)
+TRAIN18_ARCHS = ("vicuna-7b", "internlm2-20b", "jamba-v0.1-52b", "mixtral-8x22b")
+
+
+def _batches18(cfg, n: int) -> list:
+    """Phase 11's first ``n`` batches (numpy tokens (8, 96))."""
+    from repro_torch.data import lm_batches, synthetic_corpus
+
+    it = lm_batches(synthetic_corpus(cfg.vocab_size, TRAIN["corpus"]), TRAIN["batch"], TRAIN["seq"])
+    return [next(it)["tokens"] for _ in range(n)]
+
+
+def _steps18(torch, cfg, batches, remat: bool, dev, mesh=None, specs=None, slots=None) -> tuple:
+    """``make_train_step`` (phase 11's recipe) from seed-0 params over
+    ``batches`` on the card ``dev``, on this rank's shards and rows of ``mesh``
+    (None: one device). ``slots``: a list that takes (top_ids, slot, keep)
+    of every ``capacity_slots`` call of the first step. Returns (params,
+    opt, the metrics of every step as floats, ms a step by the host clock
+    after a synchronise, the collectives' seconds a step, peak memory)."""
+    from repro_torch import training as T
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import init_params
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import shard_utils as SU
+
+    params = init_params(cfg, SEED, device=dev, mesh=mesh, specs=specs)
+    opt = T.adamw_init(params)
+    step = T.make_train_step(cfg, peak_lr=TRAIN["peak_lr"], warmup=TRAIN["warmup"],
+                             total_steps=TRAIN["steps"], remat=remat)
+    rows = slice(None)
+    if mesh is not None:
+        n = TRAIN["batch"] // SH.dp_size(mesh)
+        rows = slice(mesh.index(SU.DATA_AXES) * n, (mesh.index(SU.DATA_AXES) + 1) * n)
+    spent = _collective_clock(torch) if mesh is not None and mesh.size > 1 else {"s": 0.0}
+    orig = moe_lib.capacity_slots
+
+    def recorded(top_ids, *a, **k):
+        out = orig(top_ids, *a, **k)
+        slots.append((top_ids.cpu(), out[0].cpu(), out[1].cpu()))
+        return out
+
+    metrics, ms, coll = [], [], []
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        with SU.use_mesh(mesh):
+            for i, b in enumerate(batches):
+                if slots is not None:
+                    moe_lib.capacity_slots = recorded if i == 0 else orig
+                spent["s"] = 0.0
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, {"tokens": torch.as_tensor(b[rows], device=dev)})
+                torch.cuda.synchronize(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                coll.append(spent["s"])
+                metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        moe_lib.capacity_slots = orig
+    return params, opt, metrics, ms, coll, torch.cuda.max_memory_allocated(dev)
+
+
+def _close18(label: str, got: list, want: list) -> str:
+    """ce within TRAIN18's 1e-5 relative and grad_norm within 1e-4 at every
+    step, lr equal; the worst relative errors as text."""
+    worst = {"ce": 0.0, "grad_norm": 0.0}
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in worst:
+            worst[k] = max(worst[k], abs(g[k] - w[k]) / abs(w[k]))
+        if g["lr"] != w["lr"]:
+            raise AssertionError(f"phase 18 {label}: step {i}'s lr {g['lr']} is not {w['lr']}")
+    if worst["ce"] > TRAIN18["tol_ce"] or worst["grad_norm"] > TRAIN18["tol_gnorm"]:
+        raise AssertionError(f"phase 18 {label}: relative errors {worst} past ce "
+                             f"{TRAIN18['tol_ce']}, grad_norm {TRAIN18['tol_gnorm']}")
+    return f"ce rel err {worst['ce']:.2e}, grad_norm {worst['grad_norm']:.2e}"
+
+
+def _param_rule(torch, got: dict, want: dict, specs, mesh, coords) -> dict:
+    """``got`` (this rank's shards) against the cut of ``want`` (the one-
+    device params, CPU): the elements past 1e-5 (the rule of
+    ``tests/test_torch_training.py``) and the largest difference; and the
+    rule of ``tests/test_torch_train_stacks.py`` (at most one element in
+    10^4 of a leaf past 1e-5, none past 3e-3: AdamW's update of a gradient
+    that is rounding noise) held."""
+    from repro_torch.launch import sharding as SH
+
+    by_key = SH.specs_by_key(specs)
+    past, worst, ok, n = 0, 0.0, True, 0
+    for k, a in got.items():
+        w = want[k][SH.local_slices(want[k].shape, by_key[k], mesh, coords)]
+        d = (a.float() - w.to(a.device).float()).abs()
+        bad = int((d > 1e-5).sum())
+        past, worst, n = past + bad, max(worst, float(d.max())), n + d.numel()
+        ok = ok and bad <= max(1, d.numel() // 10_000) and float(d.max()) <= 3e-3
+    return {"past": past, "worst": worst, "ok": ok, "n": n}
+
+
+def _phase18_rank(rank: int, world: int, job: dict, out_dir: str) -> None:
+    """One rank of phase 18 (b), (c) or (e): its shards by ``train_specs``,
+    its rows of the batches, the steps; the params against the one-device
+    run's (the parent's tensors on the card, shared with the ranks through
+    CUDA IPC) by the rules of ``_param_rule``."""
+    import torch
+
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.training.checkpoint import map_with_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0 if job["share"] else rank)
+    shape = tuple(job["sizes"].values())
+    mesh = Mesh(shape, tuple(job["sizes"]), device=dev)
+    specs = SH.train_specs(job["cfg"], mesh)
+    slots = [] if job["slots"] else None
+    t0 = time.perf_counter()
+    params, opt, metrics, ms, coll, peak = _steps18(torch, job["cfg"], job["batches"],
+                                                    job["remat"], dev, mesh, specs, slots)
+    out = {"metrics": metrics, "ms": ms, "coll": coll, "peak": peak, "slots": slots,
+           "wall": time.perf_counter() - t0, "coords": dict(mesh.coords),
+           "param_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(params)),
+           "moment_bytes": sum(t.numel() * t.element_size() for t in tree_leaves((opt.mu, opt.nu))),
+           "fsdp_leaves": sum("data" in SH.spec_axes(s) for s in
+                              SH.specs_by_key(SH.placed_specs(job["cfg"], params, mesh)).values())}
+    if job["want"] is not None:
+        got = {}
+        map_with_path(lambda k, t: got.__setitem__(k, t), params)
+        out["params"] = _param_rule(torch, got, job["want"], specs, mesh, mesh.coords)
+        job["want"] = None            # release the parent's tensors (CUDA IPC) before exiting
+        gc.collect()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _spawn18(torch, cfg, sizes: dict, batches, want, *, remat: bool,
+             slots: bool = False, share: bool = True) -> list:
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+
+    world = math.prod(sizes.values())
+    job = dict(cfg=cfg, sizes=sizes, batches=batches, want=want, remat=remat, slots=slots,
+               share=share)
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn(_phase18_rank, world, (job, tmp), device="cuda", share_card=share,
+              timeout_s=TRAIN18["timeout_s"])
+        torch.cuda.ipc_collect()
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+
+def _one_device18(torch, cfg, batches, remat: bool, dev, slots=None) -> tuple:
+    """The yardstick: the same steps on one device, its moments freed.
+    Returns (metrics, ms a step, peak memory, {checkpoint key: param} of
+    the final params, on the card)."""
+    from repro_torch.training.checkpoint import map_with_path
+
+    params, opt, metrics, ms, _, peak = _steps18(torch, cfg, batches, remat, dev, slots=slots)
+    flat = {}
+    map_with_path(lambda k, t: flat.__setitem__(k, t), params)
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return metrics, ms, peak, flat
+
+
+def _rank_lines(label: str, ranks: list, plan: dict, base_ms: float) -> None:
+    """Each rank's bytes against the dry run's plan, peak memory, ms a step
+    after the first (median) and the collectives' share of it, and its
+    params against the one-device run's where they were held."""
+    smi = _smi()
+    for r, rk in enumerate(ranks):
+        first = 1 if len(rk["ms"]) > 1 else 0          # the steps after the first, where there are
+        later = rk["ms"][first:]
+        steady = sorted(later)[len(later) // 2]
+        share = sum(rk["coll"][first:]) / (sum(later) / 1e3)
+        pr = rk.get("params")
+        held = ("" if pr is None else f"; params after step {len(rk['ms'])}: {pr['past']} of "
+                f"{pr['n']} elements past 1e-5, largest difference {pr['worst']:.2e}")
+        print(f"[phase 18] {label} rank {r} {rk['coords']}: params {_gib(rk['param_bytes'])} "
+              f"(dry run {_gib(plan['params_bytes'])}), moments {_gib(rk['moment_bytes'])} "
+              f"(dry run {_gib(plan['moment_bytes'])}), {rk['fsdp_leaves']} leaves cut over data; "
+              f"peak memory {_gib(rk['peak'])}; {steady:.1f} ms a step{' after the first' * first} "
+              f"(one device {base_ms:.1f}), collectives {share:.3f} of it{held} | {smi}")
+        if rk["param_bytes"] != plan["params_bytes"] or rk["moment_bytes"] != plan["moment_bytes"]:
+            raise AssertionError(f"phase 18 {label} rank {r}: params / moments "
+                                 f"{rk['param_bytes']} / {rk['moment_bytes']} bytes, the dry run "
+                                 f"planned {plan['params_bytes']} / {plan['moment_bytes']}")
+        if pr is not None and not pr["ok"]:
+            raise AssertionError(f"phase 18 {label} rank {r}: params off the one-device run's: {pr}")
+
+
+def _train_one_rank_nccl(torch, results: dict, dev) -> None:
+    """(a): vicuna-7b at full width and 8 layers (phase 11's config), three
+    steps on a one-rank NCCL mesh against the same steps on one device:
+    ce, grad_norm and every param leaf bitwise (a one-rank all-reduce is
+    the identity)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.config import get_config
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import Mesh, init_distributed
+    from repro_torch.training.checkpoint import map_with_path
+
+    cfg = dataclasses.replace(get_config("vicuna-7b"), num_layers=TRAIN["layers"], dtype="float32")
+    batches = _batches18(cfg, TRAIN18["steps"])
+    one, opt, m1, ms1, _, _ = _steps18(torch, cfg, batches, False, dev)
+    del opt
+    gc.collect()
+    want = {}
+    map_with_path(lambda k, t: want.__setitem__(k, t), one)
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed("nccl", rank=0, world=1,
+                         init_method=f"file://{tmp}/store", device=dev, timeout_s=MESH_TIMEOUT_S)
+        try:
+            mesh = Mesh((1, 1), ("data", "model"), device=dev)
+            specs = SH.train_specs(cfg, mesh)
+            two, opt, m2, ms2, _, peak = _steps18(torch, cfg, batches, False, dev, mesh, specs)
+            del opt
+        finally:
+            dist.destroy_process_group()
+    got = {}
+    map_with_path(lambda k, t: got.__setitem__(k, t), two)
+    same = [k for k in want if not torch.equal(got[k], want[k])]
+    print(f"[phase 18] (a) vicuna-7b float32, {cfg.num_layers} layers, mesh data=1,model=1 over "
+          f"{mesh.backend}: {TRAIN18['steps']} steps, ce {[m['ce'] for m in m2]}, grad_norm "
+          f"{[m['grad_norm'] for m in m2]} (one device: {[m['ce'] for m in m1]}, "
+          f"{[m['grad_norm'] for m in m1]}); metrics bitwise {m1 == m2}, params bitwise in "
+          f"{len(want) - len(same)} of {len(want)} leaves; ms a step after the first "
+          f"{sorted(ms2[1:])[0]:.1f} on the mesh, {sorted(ms1[1:])[0]:.1f} on one device (phase 11 "
+          f"median {results.get('p11_step_ms', float('nan')):.1f}); peak {_gib(peak)} | {_smi()}")
+    if m1 != m2 or same:
+        raise AssertionError(f"phase 18 (a): the one-rank mesh's steps differ from one device's: "
+                             f"metrics equal {m1 == m2}, leaves differing {same}")
+    del one, two, want, got
+    gc.collect()
+
+
+def _train_two_ranks(torch, dev) -> None:
+    """(b) vicuna-7b at full width and 2 layers, two gloo ranks sharing the
+    card at data=2 (FSDP, 4 rows a rank), then at model=2 (policy kv),
+    two steps each; (e) the same over nccl where there are two cards."""
+    from repro_torch.config import get_config
+    from repro_torch.config.shapes import get_shape
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import init_params
+    from repro_torch.models.model import tree_leaves
+
+    cfg = dataclasses.replace(get_config("vicuna-7b"), num_layers=2, dtype="float32")
+    n_params = sum(t.numel() for t in tree_leaves(init_params(cfg, device="meta")))
+    batches = _batches18(cfg, TRAIN18["mesh_steps"])
+    want, ms, peak, final = _one_device18(torch, cfg, batches, True, dev)
+    base = sorted(ms[1:])[len(ms[1:]) // 2]
+    print(f"[phase 18] (b) vicuna-7b float32, 2 layers, {n_params / 1e9:.3f} B parameters "
+          f"({16 * n_params / 1e9:.1f} GB with gradients and moments): one device, "
+          f"{TRAIN18['mesh_steps']} steps with remat, {base:.1f} ms a step after the first, peak "
+          f"{_gib(peak)}")
+    runs = [("data=2 gloo", "data=2,model=1", True), ("model=2 gloo", "data=1,model=2", True)]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("(e) data=2 nccl", "data=2,model=1", False))
+    for label, spec, share in runs:
+        t0 = time.perf_counter()
+        sizes = {a: int(n) for a, n in (p.split("=") for p in spec.split(","))}
+        ranks = _spawn18(torch, cfg, sizes, batches, final, remat=True, share=share)
+        errs = [_close18(f"(b) {label}", rk["metrics"], want) for rk in ranks]
+        _rank_lines(f"(b) {label}", ranks, D.plan(cfg, get_shape("train_4k"), D.shape_mesh(spec)),
+                    base)
+        print(f"[phase 18] (b) {label}: ce {[m['ce'] for m in ranks[0]['metrics']]}, grad_norm "
+              f"{[m['grad_norm'] for m in ranks[0]['metrics']]} (one device "
+              f"{[m['ce'] for m in want]}, {[m['grad_norm'] for m in want]}); by rank: {errs}; "
+              f"{time.perf_counter() - t0:.1f} s")
+    if torch.cuda.device_count() < 2:
+        print(f"[phase 18] (e) (b) over NCCL, a card a rank, waits for a machine with two cards: "
+              f"this one has {torch.cuda.device_count()}")
+
+
+def _train_moe_two_ranks(torch, dev) -> None:
+    """(c) qwen2-moe-a2.7b at full width and 2 layers, exec_groups 1, two
+    gloo ranks sharing the card at data=2, two steps: the capacity slot
+    table of each MoE call of the first step, both ranks' rows gathered,
+    bitwise the unsharded table over the same ids; ce, moe_aux and
+    grad_norm at each step and the params after the second (the first
+    update: phase 11's warm-up gives step 0 a learning rate of 0) against
+    one device."""
+    import torch as _t
+
+    from repro_torch.config import get_config
+    from repro_torch.config.shapes import get_shape
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import moe as moe_lib
+
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=2, dtype="float32")
+    if cfg.moe.exec_groups != 1:
+        raise AssertionError("phase 18 (c): qwen2-moe-a2.7b's exec_groups is not 1")
+    batches = _batches18(cfg, TRAIN18["moe_steps"])
+    slots_one: list = []
+    want, ms, peak, final = _one_device18(torch, cfg, batches, False, dev, slots=slots_one)
+    base = sorted(ms[1:])[len(ms[1:]) // 2]
+    t0 = time.perf_counter()
+    ranks = _spawn18(torch, cfg, {"data": 2, "model": 1}, batches, final, remat=False, slots=True)
+    del final
+    plan = D.plan(cfg, get_shape("train_4k"), D.shape_mesh("data=2,model=1"))
+    for rk in ranks:
+        err = _close18("(c)", rk["metrics"], want)
+        aux = max(abs(g["moe_aux"] - w["moe_aux"]) / abs(w["moe_aux"])
+                  for g, w in zip(rk["metrics"], want))
+        if aux > TRAIN18["tol_ce"]:
+            raise AssertionError(f"phase 18 (c): moe_aux off by {aux:.2e} relative")
+    tables, same_ids = 0, 0
+    for j, (ids1, _, _) in enumerate(slots_one):
+        ids = _t.cat([rk["slots"][j][0] for rk in ranks])
+        slot, keep, _ = moe_lib.capacity_slots(ids, cfg.moe, cfg.moe.capacity_factor)
+        got_s = _t.cat([rk["slots"][j][1].reshape(-1) for rk in ranks])
+        got_k = _t.cat([rk["slots"][j][2].reshape(-1) for rk in ranks])
+        if not (_t.equal(got_s, slot.reshape(-1)) and _t.equal(got_k, keep.reshape(-1))):
+            raise AssertionError(f"phase 18 (c): MoE call {j}'s slot table on the data ranks is "
+                                 "not the unsharded table")
+        tables += 1
+        same_ids += int(_t.equal(ids, ids1))
+    dropped = [1 - float(s[2].float().mean()) for s in slots_one]
+    _rank_lines("(c) qwen2-moe-a2.7b float32, 2 layers, data=2", ranks, plan, base)
+    print(f"[phase 18] (c) {err}, moe_aux rel err {aux:.2e}; slot tables of {tables} MoE calls "
+          f"bitwise the unsharded table over the ranks' gathered ids (ids equal to one device's in "
+          f"{same_ids} of {tables}); dropped share one device {['%.4f' % d for d in dropped]}; one "
+          f"device {base:.1f} ms a step after the first, peak {_gib(peak)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def _train_dryrun_table() -> None:
+    """(d): the dry run at train_4k (B=256, S=4096) for four of the repo's
+    largest configs on a 1-, 2- and 4-card model axis (analytic)."""
+    from repro_torch.analysis.report import HBM_GIB
+    from repro_torch.launch import dryrun as D
+
+    print("[phase 18] (d) dry run, train_4k (B=256, S=4096), per device, by "
+          "repro_torch.launch.dryrun (analytic; FSDP at min_dim 512 over data, here 1):")
+    for a in TRAIN18_ARCHS:
+        for k in (1, 2, 4):
+            r = D.run_one(a, "train_4k", mesh=D.shape_mesh(f"model={k}"), verbose=False)
+            rf = r["roofline"]
+            state = r["params_bytes"] + r["grad_bytes"] + r["moment_bytes"]
+            print(f"[phase 18]   {a} model={k}: params {_gib(r['params_bytes'])} + grads "
+                  f"{_gib(r['grad_bytes'])} + moments {_gib(r['moment_bytes'])} = {_gib(state)}; "
+                  f"activations {_gib(r['act_bytes'])}; collectives "
+                  f"{sum(rf['coll_bytes'].values()) / 1e9:.3f} GB a step "
+                  f"({rf['t_collective'] * 1e3:.1f} ms at NVLink's rate); state fits one "
+                  f"card (analysis.report's {HBM_GIB:.2f} GiB): {state <= HBM_GIB * 2**30}")
+
+
+def phase_train_mesh(torch, results: dict) -> None:
+    """Sharded training on the card: (a) vicuna-7b at 8 layers on a
+    one-rank NCCL mesh, bitwise the one-device steps; (b) vicuna-7b at 2
+    layers as two gloo ranks sharing the card at data=2 (FSDP) and at
+    model=2; (c) qwen2-moe-a2.7b at 2 layers at data=2, its slot tables;
+    (d) the dry run's training rows; (e) (b) over NCCL on two cards."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    _train_one_rank_nccl(torch, results, dev)
+    print(f"[phase 18] (a) {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    _train_two_ranks(torch, dev)
+    print(f"[phase 18] (b) {time.perf_counter() - t1:.1f} s")
+    t2 = time.perf_counter()
+    _train_moe_two_ranks(torch, dev)
+    print(f"[phase 18] (c) {time.perf_counter() - t2:.1f} s")
+    _train_dryrun_table()
+    print(f"[phase 18] {time.perf_counter() - t0:.1f} s | {_smi()}")
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -4220,6 +4606,7 @@ def main() -> int:
     timed("phase 15", phase_media, torch, results)
     timed("phase 16", phase_analysis, torch, results)
     timed("phase 17", phase_mesh, torch, results)
+    timed("phase 18", phase_train_mesh, torch, results)
     print(f"[chip_smoke] all phases in {time.perf_counter() - t_all:.1f} s")
     kernels = []
     for name, src, replaces in (

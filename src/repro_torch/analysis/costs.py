@@ -418,6 +418,125 @@ def decode_collectives(cfg: ModelConfig, B: int, T: int, S: int, *, model: int =
     return {"all-reduce": sum(ring_bytes(p, n) for p in payloads)}
 
 
+def train_collective_terms(cfg: ModelConfig, B: int, S: int, *, data: int = 1, model: int = 1,
+                           pod: int = 1, min_dim: int = 512, remat: bool = True,
+                           loss_mask: bool = False) -> Dict[str, float]:
+    """Counted bytes one rank sends in one ``training.make_train_step`` of
+    a global batch of B rows of S tokens on a (pod, data, model) mesh, as
+    the port's sharded step runs it (``models/shard_utils``: every
+    collective an all-reduce, each counted as ``ring_bytes`` of its
+    payload over its group), by term:
+
+      fsdp      each layer-stack leaf cut over ``data`` (``sharding.
+                train_specs`` at ``min_dim``) gathered whole at its layer's
+                entry, again in the backward's recompute (``remat``), and
+                its gradient summed before the cut (a reduce-scatter);
+      tp        over ``model``: forward the embedding's and each row-parallel
+                sum, the ``q`` policy's query gather, a sharded Mamba-2
+                norm's sum of squares and the logits' gather (again in the
+                recompute, the logits and embedding aside); backward the
+                sum of each replicated input's gradient (``enter_shards``)
+                and the norm's;
+      grad      each leaf's gradient summed over the data axes it is
+                replicated on;
+      step      the MoE capacity table and aux means (again in the
+                recompute), the loss's target count (``loss_mask``) and
+                global ce;
+      norm      the gradient norm's sums, one a set of axes the leaves are
+                sharded on.
+
+    Activations and gradients in the model's type; the logits, the norm's
+    sums and the MoE means float32. Returns {term: bytes}."""
+    import math
+
+    from repro_torch.launch import sharding as SH   # it imports the model code
+    from repro_torch.launch.mesh import Mesh
+
+    axes = tuple(a for a, n in (("pod", pod), ("data", data), ("model", model)) if a != "pod" or n > 1)
+    sizes = {"pod": pod, "data": data, "model": model}
+    mesh = Mesh(tuple(sizes[a] for a in axes), axes, shape_only=True)
+    dp = pod * data
+    elt = itemsize(cfg.dtype)
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    Bl = B // dp
+    M = Bl * S
+    rec = 2 if remat else 1
+    tp = lambda p: ring_bytes(p, model)            # noqa: E731
+    over = lambda p, n: ring_bytes(p, n)           # noqa: E731
+    out = {"fsdp": 0.0, "tp": 0.0, "grad": 0.0, "step": 0.0, "norm": 0.0}
+
+    # the embedding's sum and the head (outside the recompute)
+    heads = max(cfg.num_codebooks, 1)
+    out["tp"] += tp(M * d * elt) + tp(M * heads * cfg.padded_vocab * 4) + tp(M * d * elt)
+    pol = SH.attention_policy(cfg, model)
+    for i in range(cfg.num_layers):
+        fwd = bwd = 0.0
+        if cfg.block_kind(i) is BlockKind.ATTENTION:
+            if pol in ("kv", "q"):
+                fwd += M * d * elt                  # wo's sum
+                bwd += M * d * elt                  # x's gradient
+            if pol == "q":
+                fwd += M * H * hd * elt             # the query gather
+                bwd += 2 * M * KV * hd * elt        # K's and V's gradients
+        else:
+            s = _ssm(cfg)
+            nh = s.num_heads(d)
+            if nh % model == 0:
+                gds = s.ngroups * s.d_state
+                fwd += M * 4 + M * d * elt          # the norm's sum of squares, out_proj's
+                bwd += (M * 4 + M * d * elt + M * nh * elt + 3 * nh * 4 + 2 * M * gds * elt)
+        if cfg.has_mlp(i):
+            fwd += M * d * elt
+            if cfg.is_moe_layer(i):
+                moe = cfg.moe
+                E, K = moe.num_experts, moe.top_k
+                G = moe.exec_groups
+                while (B * S) % G:
+                    G //= 2
+                G = max(G, 1)
+                C = max(1, int(moe.capacity_factor * (B * S // G) * K / E + 0.999))
+                G_l = max(G // dp, 1)
+                out["step"] += rec * over((2 * E + 1) * 4, dp)
+                if G < dp:
+                    out["step"] += rec * over(dp * E * 4, dp)
+                bwd += G_l * E * C * d * elt + M * K * elt     # dispatch rows, combine weights
+                if moe.num_shared_experts:
+                    bwd += M * d * elt + M * elt                # shared input, its gate
+            else:
+                bwd += M * d * elt
+        out["tp"] += rec * tp(fwd) + tp(bwd)
+
+    # the leaves: FSDP gathers and reduce-scatters, gradient sums, the norm
+    specs = SH.train_specs(cfg, mesh, min_dim=min_dim)
+    full = SH.full_shapes(cfg)
+    groups: Dict[Tuple[str, ...], int] = {}
+    leaves = 0
+
+    def leaf(spec, t):
+        nonlocal leaves
+        leaves += 1
+        local = math.prod(SH.local_shape(t.shape, spec, mesh)) * t.element_size()
+        # a cut over a data axis of one is no cut (``sharding.placed_specs``)
+        ax = tuple(a for a in SH.spec_axes(spec) if a != "data" or data > 1)
+        if "data" in ax:
+            out["fsdp"] += (rec + 1) * over(local * data, data)
+        rest = [a for a in ("pod", "data") if a in axes and a not in ax]
+        out["grad"] += over(local, math.prod(sizes[a] for a in rest))
+        if ax:
+            groups[ax] = math.prod(sizes[a] for a in ax)
+
+    SH.map_specs(leaf, specs, full)
+    out["norm"] = sum(over(leaves * 4, n) for n in groups.values())
+    out["step"] += over(4, dp) * (2 if loss_mask else 1)
+    return out
+
+
+def train_collectives(cfg: ModelConfig, B: int, S: int, **kw) -> Dict[str, float]:
+    """``train_collective_terms`` summed: {"all-reduce": bytes} (0 on one
+    device)."""
+    return {"all-reduce": sum(train_collective_terms(cfg, B, S, **kw).values())}
+
+
 def prefill(cfg: ModelConfig, B: int, S: int, *, dtype=None) -> RooflineReport:
     """One ``models/model.py::prefill`` of S tokens for each of B rows:
     every weight read once, the causal attention's S (S + 1) / 2 pairs a

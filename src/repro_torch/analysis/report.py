@@ -4,9 +4,10 @@
   PYTHONPATH=src python -m repro_torch.analysis.report [--dir results/dryrun_torch] [--mesh 16x16]
 
 A row (``launch/dryrun.py``) holds one (arch x shape x mesh)'s per-device
-bytes of params, cache and activations and its roofline terms. "Fits" holds
-the three against one card's memory (``HBM_GIB``, an H100's 80 GB): the
-port's analytic sizes, with no compiler's temporaries.
+bytes of params, cache and activations (a train row also its gradients and
+AdamW moments) and its roofline terms. "Fits" holds them against one
+card's memory (``HBM_GIB``, an H100's 80 GB): the port's analytic sizes,
+with no compiler's temporaries.
 """
 from __future__ import annotations
 
@@ -28,8 +29,10 @@ def load(dirname: str):
 
 
 def device_gib(row: dict) -> float:
-    """A row's per-device params + cache + activations, GiB."""
-    return (row["params_bytes"] + row["cache_bytes"] + row["act_bytes"]) / 2 ** 30
+    """A row's per-device params + gradients + moments (train rows) +
+    cache + activations, GiB."""
+    return (row["params_bytes"] + row.get("grad_bytes", 0.0) + row.get("moment_bytes", 0.0)
+            + row["cache_bytes"] + row["act_bytes"]) / 2 ** 30
 
 
 def render(rows, mesh: Optional[str] = None, hbm_gib: float = HBM_GIB) -> str:

@@ -38,16 +38,31 @@ def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 
 def params_from_jax(params, *, device="cuda", dtype: Optional[torch.dtype] = None, cfg=None,
-                    mesh=None) -> dict:
+                    mesh=None, specs=None) -> dict:
     """Reference params (nested numpy) -> port params on ``device``; float
     leaves become ``dtype`` (default: the leaf's own float type), except
     those the reference keeps in float32. ``mesh`` (with ``cfg``): this
-    rank's shards (``launch.sharding.param_specs``)."""
+    rank's shards, cut by ``specs`` (default ``launch.sharding.param_specs``;
+    training's tree is ``launch.sharding.train_specs``)."""
     dev = resolve_device(device)
     if mesh is not None:
-        params = _local(params, "param_specs", cfg, mesh)
+        params = _local(params, "param_specs", cfg, mesh, specs)
     return map_with_path(lambda key, a: _leaf(a, dev, None if keeps_float32(key) else dtype),
                          params)
+
+
+def opt_state_from_jax(state, *, device="cuda", cfg=None, mesh=None, specs=None):
+    """The reference's ``AdamWState`` (step, mu, nu; numpy leaves) -> the
+    port's on ``device``: the moments float32, cut on ``mesh`` by
+    ``launch.sharding.opt_specs`` of ``specs`` as ``params_from_jax`` cuts
+    their params."""
+    from repro_torch.training.optimizer import AdamWState
+
+    dev = resolve_device(device)
+    mu, nu = (params_from_jax(t, device=dev, cfg=cfg, mesh=mesh, specs=specs)
+              for t in (state.mu, state.nu))
+    return AdamWState(step=torch.as_tensor(np.asarray(state.step), dtype=torch.int32, device=dev),
+                      mu=mu, nu=nu)
 
 
 def cache_from_jax(cache, *, device="cuda", cfg=None, mesh=None) -> dict:
@@ -61,10 +76,13 @@ def cache_from_jax(cache, *, device="cuda", cfg=None, mesh=None) -> dict:
     return tree_map(lambda a: _leaf(a, dev, None), cache)
 
 
-def _local(tree, specs: str, cfg, mesh):
-    """The numpy tree cut to this rank's shards under spec tree ``specs``."""
+def _local(tree, specs: str, cfg, mesh, spec_tree=None):
+    """The numpy tree cut to this rank's shards under ``spec_tree``, or
+    the spec tree ``specs`` names."""
     from repro_torch.launch import sharding as SH
 
+    if spec_tree is not None:
+        return SH.local_shard(tree, spec_tree, mesh)
     if cfg is None:
         raise ValueError("bridge: a mesh needs the model's cfg for its spec trees")
     if specs == "param_specs":

@@ -10,7 +10,11 @@ formula (``_local_bytes``: a leaf's bytes over the product of its sharded
 axes) and its traffic model (``analysis.costs.analytic_traffic``), and no
 lowering. FLOPs per device are the reference's MODEL_FLOPS over the chips;
 the collective term is the counted all-reduce traffic of one decode step
-(``analysis.costs.decode_collectives``). Each row is one JSON object.
+(``analysis.costs.decode_collectives``) or of one train step
+(``analysis.costs.train_collectives``: FSDP gathers, TP sums, the
+gradients' sums over the data axes), and a train row also holds the
+per-device bytes of the gradients (the params' own) and the float32 AdamW
+moments. Each row is one JSON object.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch vicuna-7b --shape decode_32k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] --out results/dryrun_torch
@@ -34,14 +38,15 @@ from repro_torch.models import model as M
 DRAFT_T = 8          # tree bucket of the serve step (the paper's verify)
 
 
-def _local_bytes(shape_tree, spec_tree, mesh) -> float:
+def _local_bytes(shape_tree, spec_tree, mesh, itemsize: Optional[int] = None) -> float:
     """Per-device bytes of a sharded tree (leaf bytes / sharded mesh axes),
-    the reference's formula; ``shape_tree`` holds tensors (meta ones)."""
+    the reference's formula; ``shape_tree`` holds tensors (meta ones), at
+    ``itemsize`` bytes an element where given, else their own."""
     total = 0.0
 
     def add(spec, t):
         nonlocal total
-        n = float(t.numel()) * t.element_size()
+        n = float(t.numel()) * (itemsize or t.element_size())
         div = 1
         for ax in spec:
             if ax is None:
@@ -55,7 +60,7 @@ def _local_bytes(shape_tree, spec_tree, mesh) -> float:
 
 
 def params_shapes(cfg):
-    return M.init_params(cfg, device="meta")
+    return SH.full_shapes(cfg)
 
 
 def supports_long_context(cfg) -> bool:
@@ -104,10 +109,15 @@ def plan(cfg, shape, mesh) -> dict:
     B, S = shape.global_batch, shape.seq_len
     L, d = cfg.num_layers, cfg.d_model
     chips = mesh.size
-    cache_local = act_local = 0.0
+    cache_local = act_local = grad_local = moment_local = 0.0
     coll = {}
     if kind == "train":
         act_local = L * B * S * d * 2 * 6 / _dp_total(mesh)
+        grad_local = params_local
+        moment_local = _local_bytes(pshape, pspec, mesh, itemsize=8)   # float32 mu and nu
+        coll = costs.train_collectives(cfg, B, S, data=mesh.shape.get("data", 1),
+                                       model=mesh.shape.get("model", 1),
+                                       pod=mesh.shape.get("pod", 1))
     elif kind == "prefill":
         cshape = M.init_cache(cfg, B, S, device="meta")
         cache_local = _local_bytes(cshape, SH.cache_specs(cfg, mesh), mesh)
@@ -125,7 +135,8 @@ def plan(cfg, shape, mesh) -> dict:
     flops = costs.model_flops_per_step(cfg, kind, S, B, DRAFT_T) / chips
     rep = RooflineReport(f"{cfg.name}/{shape.name}/{_mesh_name(mesh)}", flops, traffic, coll,
                          bytes_analytic=traffic, dtype=cfg.dtype)
-    return {"params_bytes": params_local, "cache_bytes": cache_local, "act_bytes": act_local,
+    return {"params_bytes": params_local, "grad_bytes": grad_local,
+            "moment_bytes": moment_local, "cache_bytes": cache_local, "act_bytes": act_local,
             "traffic_bytes": traffic, "roofline": rep.to_dict()}
 
 
@@ -144,6 +155,7 @@ def run_one(arch: str, shape_name: str, *, mesh=None, multi_pod: bool = False,
         rf = row["roofline"]
         print(f"== {arch}/{shape_name}/{row['mesh']} kind={shape.kind}")
         print(f"   bytes/device: params={row['params_bytes'] / 2**30:.2f}GiB "
+              f"grads={row['grad_bytes'] / 2**30:.2f}GiB moments={row['moment_bytes'] / 2**30:.2f}GiB "
               f"cache={row['cache_bytes'] / 2**30:.2f}GiB act={row['act_bytes'] / 2**30:.2f}GiB")
         print(f"   flops/device={rf['flops']:.3e} traffic/device={rf['bytes_hbm']:.3e} "
               f"coll={sum(rf['coll_bytes'].values()):.3e}")

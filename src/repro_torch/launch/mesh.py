@@ -37,6 +37,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch import resolve_device
+
 AXES = ("pod", "data", "model")
 
 
@@ -244,15 +246,18 @@ def _spawned(rank: int, world: int, store: str, backend: str, device, share_card
         dist.destroy_process_group()
 
 
-def spawn(fn: Callable, world: int, args: tuple = (), *, device="cpu",
+def spawn(fn: Callable, world: int, args: tuple = (), *, device="cuda",
           share_card: bool = False, timeout_s: Optional[float] = None) -> None:
     """Run ``fn(rank, world, *args)`` in ``world`` fresh processes with the
     default group initialized over a ``FileStore`` in a temporary directory
     (no network), its backend by ``choose_backend``; each process runs one
-    CPU thread (a card's rank sets its card current). ``timeout_s`` bounds
-    each collective's wait. Raises if any process fails."""
+    CPU thread (a card's rank sets its card current). The ranks run on the
+    card unless ``device="cpu"``: the device is resolved before any process
+    starts, so a machine without a card raises at once. ``timeout_s``
+    bounds each collective's wait. Raises if any process fails."""
     import torch.multiprocessing as mp
 
+    device = resolve_device(device)
     backend = choose_backend(device, world, share_card=share_card)
     with tempfile.TemporaryDirectory() as tmp:
         mp.spawn(_spawned, args=(world, os.path.join(tmp, "store"), backend, str(device),

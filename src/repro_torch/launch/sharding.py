@@ -23,6 +23,7 @@ or a shape-only stand-in.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -322,6 +323,80 @@ def fsdp_upgrade(pspecs: Any, pshapes: Any, mesh, *, min_dim: int = 512) -> Any:
 
     out = dict(pspecs)
     out["segments"] = map_specs(upgrade, pspecs["segments"], pshapes["segments"])
+    return out
+
+
+def train_specs(cfg: ModelConfig, mesh, *, min_dim: int = 512) -> dict:
+    """The training placement of the reference's ``build_train``
+    (``launch/dryrun.py``): ``param_specs`` with ``fsdp_upgrade`` at
+    ``min_dim`` (the AdamW moments take the same tree, ``opt_specs``)."""
+    return fsdp_upgrade(param_specs(cfg, mesh), full_shapes(cfg), mesh, min_dim=min_dim)
+
+
+@functools.lru_cache(maxsize=32)
+def full_shapes(cfg: ModelConfig) -> dict:
+    """The unsharded leaves of ``cfg`` as meta tensors (no memory)."""
+    return M.init_params(cfg, device="meta")
+
+
+def placed_specs(cfg: ModelConfig, params, mesh) -> dict:
+    """The spec tree ``params``, this rank's shards, were cut by, read from
+    their shapes: ``param_specs``, with ``"data"`` on the dim of a
+    layer-stack leaf cut further over ``data`` (``fsdp_upgrade`` at any
+    ``min_dim``; ``train_specs``). Raises ValueError where a leaf fits
+    neither, or where a leaf outside the layer stacks is cut over ``data``."""
+    D = _axis_size(mesh, "data")
+
+    def place(spec, full, t, stacked):
+        want, got = local_shape(full.shape, spec, mesh), tuple(t.shape)
+        if got == want:
+            return spec
+        cut = [i for i, (a, b) in enumerate(zip(want, got)) if a != b]
+        dims = list(spec) + [None] * (len(got) - len(spec))
+        if (stacked and len(got) == len(want) and len(cut) == 1 and D > 1
+                and dims[cut[0]] is None and want[cut[0]] == got[cut[0]] * D):
+            dims[cut[0]] = "data"
+            return tuple(dims)
+        raise ValueError(f"a leaf of shape {got} fits neither its spec {spec} on mesh "
+                         f"{dict(mesh.shape)} (local shape {want}) nor that spec cut once more "
+                         "over 'data'")
+
+    tp, full = param_specs(cfg, mesh), full_shapes(cfg)
+    out = {k: place(tp[k], full[k], params[k], False) for k in tp if k != "segments"}
+    out["segments"] = map_specs(lambda sp, f, t: place(sp, f, t, True), tp["segments"],
+                                full["segments"], params["segments"])
+    return out
+
+
+def data_dims(cfg: ModelConfig, params, mesh) -> list:
+    """Per segment and unit, a tree of the dim each stacked leaf of
+    ``params`` is cut on over ``data`` (``placed_specs``), or None. The
+    repeats dim is never one (a layer's view would lack it)."""
+    def dim(spec):
+        d = next((i for i, e in enumerate(spec) if "data" in _entry_axes(e)), None)
+        if d == 0:
+            raise ValueError("a layer stack cut over 'data' on its repeats dim: "
+                             "raise fsdp_upgrade's min_dim above the layer count")
+        return d
+
+    return map_specs(dim, placed_specs(cfg, params, mesh)["segments"])
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """The mesh axes a leaf of ``spec`` is sharded on, in the mesh's axis
+    order ("pod", "data", "model")."""
+    named = {a for e in spec for a in _entry_axes(e)}
+    return tuple(a for a in ("pod", "data", "model") if a in named)
+
+
+def specs_by_key(specs) -> Dict[str, Spec]:
+    """{checkpoint key: spec} of a spec tree, with the key strings of
+    ``training.checkpoint.map_with_path`` (``['embed']``, ``[0]``,
+    ``.mu``), so that a tree in another key order finds its specs."""
+    from repro_torch.training.checkpoint import map_with_path
+
+    out: Dict[str, Spec] = {}
+    map_with_path(out.__setitem__, specs, is_leaf=is_spec)
     return out
 
 

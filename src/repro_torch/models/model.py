@@ -76,6 +76,10 @@ none of this runs: ``seq_axes`` is then a no-op, as in the reference.
 The active mesh is the one authority for the collectives: ``prefill``,
 ``decode_step`` and ``forward_train`` refuse params whose vocabulary rows
 were cut for another ``model`` axis (``_check_placement``).
+``forward_train`` on a mesh (sharded training) also takes layer-stack
+leaves cut further over ``data`` (FSDP, ``launch.sharding.train_specs``):
+each layer gathers its own at entry, inside its ``remat`` region, and the
+collectives carry gradients (``models.shard_utils``).
 """
 from __future__ import annotations
 
@@ -83,7 +87,7 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch import resolve_device
 from repro_torch.config.base import AttentionKind, BlockKind, ModelConfig
@@ -218,7 +222,8 @@ def _draw(t: torch.Tensor, init: Init, gen) -> None:
             part.copy_(torch.randn(part.shape, generator=gen, device=part.device).mul_(init.scale))
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda", mesh=None) -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda", mesh=None,
+                specs=None) -> dict:
     """Random params in the reference's layout, shapes and scales, drawn
     from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the
     numbers differ from the reference's ``jax.random`` draws; the bridge
@@ -228,17 +233,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda", mesh=None) ->
     ``DRAW_CHUNK`` temporary (none in float32). ``device="meta"`` gives the
     names and shapes alone, allocating nothing.
 
-    ``mesh``: this rank's shards (``launch.sharding.param_specs``) of the
-    very params an unsharded call draws: each layer's leaf is drawn whole
-    into a temporary, in the same order, and its local slice kept."""
+    ``mesh``: this rank's shards (``launch.sharding.param_specs``, or the
+    spec tree ``specs``: training's is ``launch.sharding.train_specs``) of
+    the very params an unsharded call draws: each layer's leaf is drawn
+    whole into a temporary, in the same order, and its local slice kept."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     d, V, nc = cfg.d_model, cfg.padded_vocab, cfg.num_codebooks
-    specs = None
-    if mesh is not None:
+    if mesh is None:
+        specs = None
+    else:
         from repro_torch.launch import sharding as SH
-        specs = SH.param_specs(cfg, mesh)
+        specs = SH.param_specs(cfg, mesh) if specs is None else specs
 
     def local(shape, spec):
         return shape if spec is None else SH.local_shape(shape, spec, mesh)
@@ -423,7 +430,10 @@ def _attn_layer(
     mesh the heads are this rank's (``attention_policy``): under ``q`` the
     queries are gathered to every head (K/V are replicated), attention runs
     over all of them and this rank keeps its own heads' output for ``wo``;
-    the row-parallel ``wo`` product is summed over ``model``."""
+    the row-parallel ``wo`` product is summed over ``model``. In a training
+    graph the replicated inputs of this rank's heads (``x``; under ``q``
+    also K and V) sum their gradients over ``model``
+    (``shard_utils.enter_shards``)."""
     B, T, d = h.shape
     hd = cfg.resolved_head_dim()
     a = p["attn"]
@@ -431,14 +441,18 @@ def _attn_layer(
     policy = (SU.attention_head_policy(cfg.num_heads, cfg.num_kv_heads)
               if SU.tensor_parallel() else None)
     x = rms_norm(h, p["norm1"], cfg.norm_eps)
-    q = (x @ a["wq"].reshape(d, H * hd)).reshape(B, T, H, hd)
-    k = (x @ a["wk"].reshape(d, KV * hd)).reshape(B, T, KV, hd)
-    v = (x @ a["wv"].reshape(d, KV * hd)).reshape(B, T, KV, hd)
+    xs = SU.enter_shards(x) if policy in ("kv", "q") else x
+    xkv = xs if policy == "kv" else x
+    q = (xs @ a["wq"].reshape(d, H * hd)).reshape(B, T, H, hd)
+    k = (xkv @ a["wk"].reshape(d, KV * hd)).reshape(B, T, KV, hd)
+    v = (xkv @ a["wv"].reshape(d, KV * hd)).reshape(B, T, KV, hd)
     rope_pos = q_pos[None, :] if q_pos.ndim == 1 else q_pos
     q = apply_rope(q, rope_pos, cfg.rope_theta)
     k = apply_rope(k, rope_pos, cfg.rope_theta)
     if policy == "q":
         q = SU.gather(q, 2)
+        # the replicated K/V feed this rank's heads alone
+        k, v = SU.enter_shards(k), SU.enter_shards(v)
 
     kind = {AttentionKind.FULL: "causal", AttentionKind.SLIDING: "window"}[spec.attn]
     window, sink = cfg.sliding_window, 0
@@ -515,6 +529,7 @@ def _run_stack(
     staged_mask: Optional[torch.Tensor] = None,
     remat: bool = False,
     seq_axes=None,
+    fsdp=None,
 ):
     """Returns (hidden, staged segments: [[{leaf: (R_run, B, T, ...)}]],
     moe_aux), the staged leaves ``"k"``, ``"v"`` (B, T, KV, hd) of an
@@ -524,7 +539,9 @@ def _run_stack(
     order). ``mode="train"`` takes no cache and stages nothing (the staged
     segments are empty); its ``moe_aux`` is the float32 sum of every MoE
     layer's load-balance and router-z losses (0 without MoE layers, and
-    in the other modes)."""
+    in the other modes). ``fsdp`` (training on a mesh): per segment and
+    unit, a tree of the dim each stacked leaf is cut on over ``data``, or
+    None (``launch.sharding.data_dims``)."""
     segs = layout(cfg)
     g_host = _host_gates(gates, cfg.num_layers)
     if layer_ids is not None and (len(segs) != 1 or len(segs[0].unit) != 1):
@@ -545,8 +562,17 @@ def _run_stack(
             for u, spec in enumerate(seg.unit):
                 gate = g_host[seg.start + r * U + u]
                 if train:
-                    body = _layer_fn(cfg, views[u][r], spec, gate, q_pos, "train")
-                    h, _, a = checkpoint(body, h, use_reentrant=False) if remat else body(h)
+                    body = _layer_fn(cfg, views[u][r], spec, gate, q_pos, "train",
+                                     fsdp=None if fsdp is None else fsdp[si][u])
+                    if not remat:
+                        h, _, a = body(h)
+                    elif fsdp is None:
+                        h, _, a = checkpoint(body, h, use_reentrant=False)
+                    else:
+                        # on a mesh the backward replays every collective of
+                        # the layer (none stops early), on every rank alike
+                        with set_checkpoint_early_stop(False):
+                            h, _, a = checkpoint(body, h, use_reentrant=False)
                     if a is not None:
                         aux = aux + a
                     continue
@@ -574,25 +600,29 @@ def _unstack(tree: dict, n: int) -> List[dict]:
 
 
 def _layer_fn(cfg, p_l, spec, gate, q_pos, mode, lc=None, tree_mask=None, attn_override=None,
-              buf=None, staged_pos=None, staged_mask=None, quantize=None, seq_axes=None):
+              buf=None, staged_pos=None, staged_mask=None, quantize=None, seq_axes=None,
+              fsdp=None):
     """One layer (attention or Mamba-2, then the MLP) as a function of the
     residual stream: returns (the new stream, the layer's staged K/V or
     per-step states, its MoE auxiliary loss: a float32 0-d tensor in
     ``mode="train"`` on an MoE layer, else None). On a mesh the MLP's (or
     the experts') d_ff is this rank's, and its output is summed over
-    ``model``."""
+    ``model``. ``fsdp``: the layer's leaves cut over ``data`` (a tree of
+    stacked dims or None) are gathered first, inside the function, so that
+    a recomputing backward gathers them again instead of keeping them."""
     def body(h):
+        p = p_l if fsdp is None else _gather_fsdp(p_l, fsdp)
         if spec.block is BlockKind.MAMBA:
-            x = rms_norm(h, p_l["norm1"], cfg.norm_eps)
-            delta, st = ssm_lib.mamba_forward(p_l["mamba"], x, cfg.d_model, cfg.ssm, lc,
+            x = rms_norm(h, p["norm1"], cfg.norm_eps)
+            delta, st = ssm_lib.mamba_forward(p["mamba"], x, cfg.d_model, cfg.ssm, lc,
                                               mode=mode)
         else:
-            delta, st = _attn_layer(cfg, p_l, spec, h, q_pos, mode, lc, tree_mask, attn_override,
+            delta, st = _attn_layer(cfg, p, spec, h, q_pos, mode, lc, tree_mask, attn_override,
                                     buf, staged_pos, staged_mask, seq_axes)
         h = h + _gated(delta, gate)
         aux = None
         if spec.has_mlp:
-            x = rms_norm(h, p_l["norm2"], cfg.norm_eps)
+            x = rms_norm(h, p["norm2"], cfg.norm_eps)
             if spec.is_moe:
                 # training: the grouped-capacity dispatch and its aux losses;
                 # serving: the dropless dispatch. The expert products stay in
@@ -605,15 +635,24 @@ def _layer_fn(cfg, p_l, spec, gate, q_pos, mode, lc=None, tree_mask=None, attn_o
                     moe_mode = "infer_grouped"
                 else:
                     moe_mode = "infer"
-                y, a = moe_lib.moe_apply(p_l["moe"], x, cfg.moe, cfg.act, cfg.mlp_gated,
+                y, a = moe_lib.moe_apply(p["moe"], x, cfg.moe, cfg.act, cfg.mlp_gated,
                                          mode=moe_mode, with_aux=train)
                 if train:
                     aux = a["load_balance"] + a["router_z"]
             else:
-                y = mlp_apply(p_l["mlp"], x, cfg.act, cfg.mlp_gated, quantize=quantize)
+                y = mlp_apply(p["mlp"], SU.enter_shards(x), cfg.act, cfg.mlp_gated,
+                              quantize=quantize)
             h = h + _gated(SU.model_sum(y), gate)
         return h, st, aux
     return body
+
+
+def _gather_fsdp(tree, dims):
+    """One layer's leaves with those cut over ``data`` gathered whole
+    (``dims``: the stacked dim of each cut, None where a leaf is not)."""
+    if isinstance(tree, dict):
+        return {k: _gather_fsdp(v, dims[k]) for k, v in tree.items()}
+    return tree if dims is None else SU.gather(tree, dims - 1, "data", grad_sum=True)
 
 
 def _check_placement(cfg: ModelConfig, embed: torch.Tensor) -> None:
@@ -675,8 +714,10 @@ def _embed(cfg: ModelConfig, params: dict, batch: Dict[str, Any]) -> torch.Tenso
 def _head(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     """Logits in float32: (..., V), or (..., nc, V) on a codebook stack, the
     padded vocabulary masked to -1e30. On a mesh each rank computes its
-    vocabulary columns, gathered over ``model``."""
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    vocabulary columns, gathered over ``model`` (in a training graph the
+    gather's backward keeps this rank's columns and ``h`` sums its
+    gradient over ``model``)."""
+    h = SU.enter_shards(rms_norm(h, params["final_norm"], cfg.norm_eps))
     if cfg.num_codebooks:
         heads = params["embed"].transpose(1, 2) if cfg.tie_embeddings else params["lm_head"]
         logits = torch.einsum("btd,cdv->btcv", h.float(), heads.float())
@@ -707,14 +748,29 @@ def forward_train(
     a stack without MoE layers). MoE layers dispatch through the grouped
     capacity (``moe_apply(mode="train")``), Mamba-2 blocks run the chunked
     scan over a fresh zero state. ``remat=True`` recomputes each layer's
-    activations in the backward pass. Sharded training is not ported: on a
-    mesh this raises."""
-    if SU.active_mesh() is not None:
-        raise NotImplementedError("forward_train: sharded training (a mesh) is not ported")
+    activations in the backward pass.
+
+    On a mesh (sharded training) ``batch`` holds this rank's rows of the
+    data axes and ``params`` this rank's shards: ``launch.sharding``'s
+    ``param_specs``, optionally cut further over ``data``
+    (``fsdp_upgrade``), which the leaves' shapes tell
+    (``launch.sharding.placed_specs``). A layer's leaves cut over ``data``
+    are gathered at its entry, inside the ``remat`` region; the
+    collectives carry gradients (``models.shard_utils``), and the MoE
+    capacity and auxiliary losses are those of the global batch. A leaf
+    cut over ``data`` gets its slice of the global gradient (the gather's
+    backward sums the ranks' gradients and cuts it); a leaf replicated over
+    ``data`` gets this rank's part (``training.train_step.loss_and_grads``
+    sums those)."""
+    fsdp = None
+    mesh = SU.active_mesh()
+    if mesh is not None:
+        from repro_torch.launch import sharding as SH
+        fsdp = SH.data_dims(cfg, params, mesh)
     h = _embed(cfg, params, batch)
     q_pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     h, _, aux = _run_stack(cfg, params, h, mode="train", cache=None, gates=gates, q_pos=q_pos,
-                           tree_mask=None, remat=remat)
+                           tree_mask=None, remat=remat, fsdp=fsdp)
     return _head(cfg, params, h), aux
 
 

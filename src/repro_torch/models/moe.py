@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.config.base import MoEConfig
 from repro_torch.kernels.moe_grouped import moe_grouped
+from repro_torch.models import shard_utils as SU
 from repro_torch.models.layers import Init, _gelu_tanh, mlp_apply, mlp_init
 from repro_torch.models.ssm import FLOAT32_LEAVES as SSM_FLOAT32_LEAVES
 
@@ -73,10 +74,15 @@ def keeps_float32(key: str) -> bool:
     return any(key.endswith(f"['{name}']") for name in FLOAT32_LEAVES + SSM_FLOAT32_LEAVES)
 
 
-def _router(params: dict, xf: torch.Tensor, moe: MoEConfig, with_aux: bool):
+def _router(params: dict, xf: torch.Tensor, moe: MoEConfig, with_aux: bool,
+            over_data: bool = False):
     """float32 routing: softmax over the router logits, top-k, the weights
     renormalised (floor 1e-9). Returns (top_w (N, K) float32, top_ids (N, K)
-    int64, aux or None)."""
+    int64, aux or None). ``over_data``: the rows are this rank's share of a
+    batch split over the data axes, and the aux losses' means are the
+    global batch's (each rank's means weighted by its share and summed over
+    the data axes in one all-reduce, whose backward is the identity: the
+    data sum of the ranks' gradients is then the global loss's)."""
     logits = xf.float() @ params["w_router"].float()
     probs = torch.softmax(logits, dim=-1)
     top_w, top_ids = torch.topk(probs, moe.top_k, dim=-1)
@@ -86,10 +92,15 @@ def _router(params: dict, xf: torch.Tensor, moe: MoEConfig, with_aux: bool):
     E = moe.num_experts
     # the top-k ids of a row are distinct: the one-hot sum over k is a 0/1 scatter
     hit = torch.zeros_like(probs).scatter_(1, top_ids, 1.0)
-    density = hit.mean(dim=0) / moe.top_k
+    density, mean_prob = hit.mean(dim=0), probs.mean(dim=0)
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    if over_data:
+        share = 1.0 / SU.data_size()          # every rank holds as many rows
+        means = SU.all_sum(torch.cat([density, mean_prob, z[None]]) * share, SU.DATA_AXES)
+        density, mean_prob, z = means[:E], means[E:2 * E], means[2 * E]
     aux = {
-        "load_balance": E * torch.sum(density * probs.mean(dim=0)) * moe.load_balance_loss,
-        "router_z": torch.mean(torch.logsumexp(logits, dim=-1) ** 2) * moe.router_z_loss,
+        "load_balance": E * torch.sum(density / moe.top_k * mean_prob) * moe.load_balance_loss,
+        "router_z": z * moe.router_z_loss,
     }
     return top_w, top_ids, aux
 
@@ -138,7 +149,8 @@ def _expert_ffn(params: dict, x: torch.Tensor, act: str, gated: bool) -> torch.T
     return torch.einsum(eq_dn, h, params["w_down"])
 
 
-def capacity_slots(top_ids: torch.Tensor, moe: MoEConfig, cf: float):
+def capacity_slots(top_ids: torch.Tensor, moe: MoEConfig, cf: float, *,
+                   over_data: bool = False):
     """Where each (token, k) pair of ``top_ids`` (N, K) lands in the grouped
     dispatch, as the reference computes it (l.93-112): the groups G
     (``exec_groups`` halved until it divides N), each expert's capacity C a
@@ -146,32 +158,55 @@ def capacity_slots(top_ids: torch.Tensor, moe: MoEConfig, cf: float):
     ``expert * C + rank`` (its rank among the group's earlier pairs of that
     expert: a cumsum over the one-hot ids), or ``E * C`` where the rank
     reaches C (dropped). Returns (slot (G, N/G * K), keep (G, N/G * K)
-    bool, C)."""
+    bool, C).
+
+    ``over_data``: the N rows are this rank's share, in order, of a batch
+    of N x data rows split over the data axes, and the slots are that
+    batch's: G and C come from the global N. Where the data size divides G,
+    the rank holds G / data whole groups; where G divides the data size,
+    each group spans data / G ranks, and a pair's rank counts the group's
+    pairs on the lower ranks too (one all-reduce of the (data, E) table of
+    each rank's pairs an expert). Returns this rank's rows of the table."""
     N, K = top_ids.shape
     E = moe.num_experts
+    D = SU.data_size() if over_data else 1
     G = moe.exec_groups
-    while N % G:
+    while (N * D) % G:
         G //= 2
     G = max(G, 1)
-    C = max(1, int(cf * (N // G) * K / E + 0.999))
-    ids_g = top_ids.reshape(G, N // G * K)
+    C = max(1, int(cf * (N * D // G) * K / E + 0.999))
+    if G % D and D % G:
+        raise ValueError(f"capacity_slots: {G} expert groups neither divide nor are divided "
+                         f"by the {D} data ranks")
+    G_l = max(G // D, 1)
+    ids_g = top_ids.reshape(G_l, N // G_l * K)
     onehot = F.one_hot(ids_g, E)                                # (G, Ng*K, E)
     pos_in_e = torch.cumsum(onehot, dim=1) - onehot
+    if G < D:
+        # the group's pairs an expert on the lower ranks that share it
+        span, i = D // G, SU.data_index()
+        table = torch.zeros((D, E), dtype=torch.int32, device=top_ids.device)
+        table[i] = onehot[0].sum(dim=0)
+        table = SU.all_sum(table, SU.DATA_AXES)
+        pos_in_e = pos_in_e + table[i - i % span:i].sum(dim=0)
     pos = pos_in_e.gather(2, ids_g[..., None])[..., 0]
     keep = pos < C
     return torch.where(keep, ids_g * C + pos, torch.full_like(pos, E * C)), keep, C
 
 
 def _grouped_capacity(params: dict, xf: torch.Tensor, top_w, top_ids, moe: MoEConfig, act: str,
-                      gated: bool, cf: float) -> torch.Tensor:
+                      gated: bool, cf: float, over_data: bool = False) -> torch.Tensor:
     """The reference's ``_grouped_capacity`` (l.93-140): the slots of
     ``capacity_slots``; a slot table (slot -> token; an empty slot reads a
     zero row) gathers the (G, E, C, d) dispatch buffer, and each token
     gathers its K expert rows back (a dropped pair reads the zero row,
-    weight 0) and adds them, weighted."""
+    weight 0) and adds them, weighted. On a ``model`` axis the expert
+    products are this rank's part of d_ff; in a training graph the
+    replicated dispatch rows and combine weights that feed them sum their
+    gradients over ``model`` (``shard_utils.enter_shards``)."""
     N, d = xf.shape
     E, K = moe.num_experts, moe.top_k
-    slot, keep, C = capacity_slots(top_ids, moe, cf)
+    slot, keep, C = capacity_slots(top_ids, moe, cf, over_data=over_data)
     G, Ng = slot.shape[0], N // slot.shape[0]
     w_g = top_w.reshape(G, Ng * K)
     tok_g = torch.arange(Ng, device=xf.device).repeat_interleave(K)[None].expand(G, Ng * K)
@@ -181,10 +216,10 @@ def _grouped_capacity(params: dict, xf: torch.Tensor, top_w, top_ids, moe: MoECo
     idx_tab.scatter_(1, slot, tok_g)
     xg_pad = torch.cat([xf.reshape(G, Ng, d), xf.new_zeros((G, 1, d))], dim=1)
     eb = xg_pad.gather(1, idx_tab[:, :E * C, None].expand(G, E * C, d)).reshape(G, E, C, d)
-    eo = _expert_ffn(params, eb, act, gated).reshape(G, E * C, d)
+    eo = _expert_ffn(params, SU.enter_shards(eb), act, gated).reshape(G, E * C, d)
     eo = torch.cat([eo, eo.new_zeros((G, 1, d))], dim=1)
     gathered = eo.gather(1, slot[..., None].expand(G, Ng * K, d)).reshape(G, Ng, K, d)
-    w_nk = (w_g * keep).to(xf.dtype).reshape(G, Ng, K)
+    w_nk = SU.enter_shards((w_g * keep).to(xf.dtype).reshape(G, Ng, K))
     return (gathered * w_nk[..., None]).sum(dim=2).reshape(N, d)
 
 
@@ -201,18 +236,22 @@ def moe_apply(
     """Returns (output (B, S, d), aux losses, or None without ``with_aux``).
     ``mode``: ``"infer"`` the dropless dispatch; ``"train"`` and
     ``"infer_grouped"`` the grouped capacity at ``capacity_factor`` and
-    ``infer_capacity_factor``."""
+    ``infer_capacity_factor``. ``"train"`` on a mesh with data axes takes
+    ``x`` as this rank's rows of the global batch: its capacity slots and
+    aux losses are the global batch's (``capacity_slots(over_data=True)``),
+    as the reference's GSPMD computes the unsharded function."""
     if mode not in MODES:
         raise ValueError(f"moe_apply: unknown mode {mode!r}; pick one of {MODES}")
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
-    top_w, top_ids, aux = _router(params, xf, moe, with_aux)
+    over_data = mode == "train" and SU.data_axis() is not None
+    top_w, top_ids, aux = _router(params, xf, moe, with_aux, over_data)
     if mode == "infer":
         y = _dropless(params, xf, top_w, top_ids, moe, act, gated)
     else:
         cf = moe.capacity_factor if mode == "train" else moe.infer_capacity_factor
-        y = _grouped_capacity(params, xf, top_w, top_ids, moe, act, gated, cf)
+        y = _grouped_capacity(params, xf, top_w, top_ids, moe, act, gated, cf, over_data)
     if "shared" in params:
         gate = torch.sigmoid(xf.float() @ params["w_shared_gate"].float()).to(x.dtype)
-        y = y + mlp_apply(params["shared"], xf, act, gated) * gate
+        y = y + mlp_apply(params["shared"], SU.enter_shards(xf), act, gated) * SU.enter_shards(gate)
     return y.reshape(B, S, d), aux

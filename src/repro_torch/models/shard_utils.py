@@ -15,9 +15,22 @@ over the groups of the mesh that ``use_mesh`` makes active:
     partials (acc, m, l).
 
 They use ``all_reduce`` alone, which ``gloo`` runs on CUDA tensors and
-``nccl`` captures in a CUDA graph. Without an active mesh every helper
-returns its input, so ``mesh=None`` runs exactly the single-device code.
-With a mesh they always run, on an axis of size 1 too.
+``nccl`` captures in a CUDA graph; ``COUNTER`` adds up the bytes each
+rank sends through it (a ring's share of every payload, on the host).
+Without an active mesh every helper returns its input, so ``mesh=None``
+runs exactly the single-device code. With a mesh they always run, on an
+axis of size 1 too.
+
+In a training graph (an input that requires grad) the collectives carry
+gradients, Megatron's conjugate pairs: ``all_sum``'s backward is the
+identity where every rank computes the same consumer of the sum (a
+row-parallel output), or the SUM again with ``grad_sum`` (the consumers
+are this rank's shards); ``enter_shards`` is the identity on a tensor
+replicated over an axis where it feeds this rank's shards, its backward
+the SUM of the ranks' gradients; ``gather``'s backward is this rank's
+slice of the gradient, of the ranks' gradients summed with ``grad_sum``
+(FSDP's weights: a reduce-scatter as an all-reduce). Outside one they
+launch exactly what they launch without autograd.
 
 ``use_mesh(mesh, batch_sharded=...)`` also records whether the per-slot
 tensors of the caller are sharded over the data axes: ``host`` then
@@ -112,22 +125,109 @@ def seq_shard(seq_axes) -> Tuple[int, int]:
 
 
 # ---------------------------------------------------------------- collectives
+# bytes one rank sends through ``all_reduce`` (a ring's 2 (n - 1) / n of each
+# payload on a group of n) and the calls, counted on the host
+COUNTER = {"bytes": 0.0, "calls": 0}
+
+
+def reset_counter() -> None:
+    COUNTER.update(bytes=0.0, calls=0)
+
+
+def _all_reduce(y: torch.Tensor, op, axes) -> None:
+    """``dist.all_reduce`` of the contiguous ``y`` in place over the group of
+    ``axes``, its bytes added to ``COUNTER`` (host arithmetic, no launch)."""
+    n = _MESH.axis_size(axes)
+    COUNTER["calls"] += 1
+    COUNTER["bytes"] += 2.0 * (n - 1) / n * y.numel() * y.element_size()
+    dist.all_reduce(y, op=op, group=_MESH.group(axes))
+
+
 def _reduce(x: torch.Tensor, op, axes) -> torch.Tensor:
     if _MESH is None:
         return x
-    group = _MESH.group(axes)
     if x.dtype == torch.bool:
         y = x.to(torch.uint8).contiguous()
-        dist.all_reduce(y, op=op, group=group)
+        _all_reduce(y, op, axes)
         return y.bool()
     y = x.contiguous()
-    dist.all_reduce(y, op=op, group=group)
+    _all_reduce(y, op, axes)
     return y
 
 
-def all_sum(x: torch.Tensor, axes: Axis = "model") -> torch.Tensor:
-    """SUM of ``x`` over the group of ``axes``; ``x`` off-mesh. Returns a
-    tensor that may be ``x`` itself, summed in place."""
+def _grad(x: torch.Tensor) -> bool:
+    """Whether ``x`` is part of a graph autograd will differentiate (a
+    training step); serving tensors never are."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Sum(torch.autograd.Function):
+    """SUM over ``axes`` forward. Backward: the identity where every rank
+    computes the same consumer of the sum (Megatron's row-parallel
+    output), or the SUM again where each rank's consumer is its own shard
+    (``grad_sum``: the rank's gradient is a part)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, grad_sum):
+        ctx.axes, ctx.grad_sum = axes, grad_sum
+        y = x.clone(memory_format=torch.contiguous_format)
+        _all_reduce(y, dist.ReduceOp.SUM, axes)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad_sum:
+            g = g.clone(memory_format=torch.contiguous_format)
+            _all_reduce(g, dist.ReduceOp.SUM, ctx.axes)
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """The identity forward on a tensor replicated over ``axes`` that feeds
+    this rank's shards; backward sums the ranks' gradients, each a part."""
+
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes = axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        _all_reduce(g, dist.ReduceOp.SUM, ctx.axes)
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """``gather``'s concatenation forward. Backward: this rank's slice of
+    the gradient where every rank computes the same consumers of the
+    gathered tensor but only its own rows' gradient is whole on it; with
+    ``grad_sum`` (each rank's consumers are its own: FSDP's weights over
+    its rows of the batch) the ranks' gradients summed first, then cut
+    (a reduce-scatter, as an all-reduce)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axes, grad_sum):
+        ctx.dim, ctx.w, ctx.axes, ctx.grad_sum = dim, x.shape[dim], axes, grad_sum
+        ctx.lo = _MESH.index(axes) * ctx.w
+        return _gather(x, dim, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad_sum:
+            g = g.clone(memory_format=torch.contiguous_format)
+            _all_reduce(g, dist.ReduceOp.SUM, ctx.axes)
+        return g.narrow(ctx.dim, ctx.lo, ctx.w), None, None, None
+
+
+def all_sum(x: torch.Tensor, axes: Axis = "model", *, grad_sum: bool = False) -> torch.Tensor:
+    """SUM of ``x`` over the group of ``axes``; ``x`` off-mesh. Outside a
+    training graph it returns a tensor that may be ``x`` itself, summed in
+    place. In one (``x`` requires grad) the sum is a fresh tensor and its
+    backward is the identity, or the SUM of the ranks' gradients with
+    ``grad_sum`` (a sum whose consumers are this rank's shards)."""
+    if _MESH is not None and _grad(x):
+        return _Sum.apply(x, axes, grad_sum)
     return _reduce(x, dist.ReduceOp.SUM, axes)
 
 
@@ -141,22 +241,46 @@ def model_sum(x: torch.Tensor) -> torch.Tensor:
     return all_sum(x, "model") if tensor_parallel() else x
 
 
-def gather(x: torch.Tensor, dim: int, axes: Axis = "model") -> torch.Tensor:
-    """The shards of ``x`` along ``dim`` over the group of ``axes``,
-    concatenated in the group's order: a SUM into a zeroed buffer, where
-    each rank wrote its own slice (x + 0 = x, so it is exact)."""
-    if _MESH is None:
+def enter_shards(x: torch.Tensor, axes: Axis = "model") -> torch.Tensor:
+    """``x``, replicated over ``axes``, where it feeds this rank's shards
+    (a column-parallel product, a slice of heads): the identity, whose
+    backward in a training graph sums the ranks' gradients over ``axes``
+    (Megatron's pair of the row-parallel sum). ``x`` itself outside a
+    training graph, off-mesh and on a mesh without those axes."""
+    if _MESH is None or not _grad(x) or not any(a in _MESH.shape for a in _axes_of(axes)):
         return x
+    return _Enter.apply(x, axes)
+
+
+def _axes_of(axes: Axis) -> Tuple[str, ...]:
+    return () if axes is None else (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _gather(x: torch.Tensor, dim: int, axes: Axis) -> torch.Tensor:
     n, i = _MESH.axis_size(axes), _MESH.index(axes)
-    dim = dim % x.ndim
     shape = list(x.shape)
     w = shape[dim]
     shape[dim] = w * n
     dtype = torch.uint8 if x.dtype == torch.bool else x.dtype
     buf = torch.zeros(shape, dtype=dtype, device=x.device)
     buf.narrow(dim, i * w, w).copy_(x)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=_MESH.group(axes))
+    _all_reduce(buf, dist.ReduceOp.SUM, axes)
     return buf.bool() if x.dtype == torch.bool else buf
+
+
+def gather(x: torch.Tensor, dim: int, axes: Axis = "model", *,
+           grad_sum: bool = False) -> torch.Tensor:
+    """The shards of ``x`` along ``dim`` over the group of ``axes``,
+    concatenated in the group's order: a SUM into a zeroed buffer, where
+    each rank wrote its own slice (x + 0 = x, so it is exact). In a
+    training graph its backward is this rank's slice of the gradient, of
+    the ranks' gradients summed with ``grad_sum``."""
+    if _MESH is None:
+        return x
+    dim = dim % x.ndim
+    if _grad(x):
+        return _Gather.apply(x, dim, axes, grad_sum)
+    return _gather(x, dim, axes)
 
 
 def lse_combine(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor, axes: Axis):

@@ -204,7 +204,10 @@ def mamba_forward(
     heads of d_inner: the replicated per-head leaves (``w_dt``, ``A_log``,
     ``D``, ``dt_bias``) and B/C groups are cut to them, the gated norm's
     mean over d_inner is summed over ``model``, and so is the
-    ``out_proj`` product."""
+    ``out_proj`` product. In a training graph the replicated tensors cut
+    to this rank's heads sum their gradients over ``model``
+    (``shard_utils.enter_shards``), and so does the norm's sum of
+    squares, whose consumers are this rank's heads."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mamba_forward: unknown mode {mode!r}")
     B, S, _ = h.shape
@@ -213,8 +216,9 @@ def mamba_forward(
     nh, hd, din = s.num_heads(d_model), s.head_dim, s.d_inner(d_model)
     g, ds, K = s.ngroups, s.d_state, s.d_conv
     tp = SU.mamba_sharded(nh)
-    z = h @ params["w_z"]
-    raw = [h @ params[n] for n in ("w_x", "w_B", "w_C")]
+    hs = SU.enter_shards(h) if tp else h
+    z = hs @ params["w_z"]
+    raw = [hs @ params["w_x"]] + [h @ params[n] for n in ("w_B", "w_C")]
     dt_raw = h @ params["w_dt"]
     A_log, D, dt_bias = params["A_log"], params["D"], params["dt_bias"]
     if tp:
@@ -226,7 +230,12 @@ def mamba_forward(
         heads = slice(h0, h0 + nh)
         groups = slice(h0 // rep, (h0 + nh - 1) // rep + 1)
         din, g = nh * hd, groups.stop - groups.start
-        dt_raw, A_log, D, dt_bias = dt_raw[..., heads], A_log[heads], D[heads], dt_bias[heads]
+        dt_raw, A_log, D, dt_bias = (SU.enter_shards(t)[..., heads]
+                                     for t in (dt_raw, A_log, D, dt_bias))
+        if mode == "train":         # the fresh state of this rank's heads
+            layer_cache = {"ssm": layer_cache["ssm"][:, heads],
+                           "conv_x": layer_cache["conv_x"][..., :din],
+                           "conv_B": layer_cache["conv_B"], "conv_C": layer_cache["conv_C"]}
     A = -torch.exp(A_log.float())                         # (nh,)
     dt = F.softplus(dt_raw.float() + dt_bias.float())
     D = D.float()
@@ -239,8 +248,8 @@ def mamba_forward(
     xc, Bc, Cc = out.split(widths, dim=-1)
     x = xc.reshape(B, S, nh, hd).float()
     if tp:
-        B_h = Bc.reshape(B, S, s.ngroups, ds)[:, :, groups]
-        C_h = Cc.reshape(B, S, s.ngroups, ds)[:, :, groups]
+        B_h = SU.enter_shards(Bc).reshape(B, S, s.ngroups, ds)[:, :, groups]
+        C_h = SU.enter_shards(Cc).reshape(B, S, s.ngroups, ds)[:, :, groups]
     else:
         B_h, C_h = Bc.reshape(B, S, g, ds), Cc.reshape(B, S, g, ds)
 
@@ -271,7 +280,7 @@ def _sharded_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, width: int)
     ``model``: the sum of squares is summed over the ranks, the mean taken
     over the full ``width``."""
     x32 = x.float()
-    ms = SU.all_sum(x32.square().sum(dim=-1, keepdim=True)) / width
+    ms = SU.all_sum(x32.square().sum(dim=-1, keepdim=True), grad_sum=True) / width
     return (x32 * torch.rsqrt(ms + eps) * (1.0 + weight.float())).to(x.dtype)
 
 

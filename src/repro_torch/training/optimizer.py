@@ -16,10 +16,11 @@ not fit a full-width model on one card) and returns the same trees.
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple, Sequence, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.models import shard_utils as SU
 from repro_torch.models.model import tree_leaves, tree_map
 
 
@@ -48,9 +49,20 @@ def cosine_lr(step, *, peak: float = 3e-4, warmup: int = 100, total: int = 10_00
     return torch.where(s < warmup, warm, cos)
 
 
-def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every gradient's squares, float32."""
-    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+def global_norm(grads: Sequence[torch.Tensor], axes: Optional[Sequence[tuple]] = None) -> torch.Tensor:
+    """sqrt of the sum of every gradient's squares, float32. ``axes`` (on a
+    mesh): per gradient, the mesh axes its leaf is sharded on
+    (``launch.sharding.spec_axes``). A leaf's sum of squares is then summed
+    over those axes (one all-reduce of the leaves' sums for each set of
+    axes) and counted once over the axes it is replicated on; the leaves'
+    totals are added in leaf order, as the one-device sum adds them."""
+    if axes is None:
+        return torch.sqrt(sum(g.float().square().sum() for g in grads))
+    sq = torch.stack([g.float().square().sum() for g in grads])
+    for key in dict.fromkeys(a for a in axes if a):
+        mask = torch.tensor([a == key for a in axes], device=sq.device)
+        sq = torch.where(mask, SU.all_sum(torch.where(mask, sq, 0.0), key), sq)
+    return torch.sqrt(sum(sq.unbind()))
 
 
 @torch.no_grad()
@@ -65,11 +77,17 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     grad_clip: float = 1.0,
+    grad_norm: Optional[torch.Tensor] = None,
 ) -> Tuple[Any, AdamWState]:
     """One AdamW update of ``params`` by ``grads`` (trees of one structure),
-    in place. Returns (params, the state at ``step + 1``)."""
+    in place. Returns (params, the state at ``step + 1``). ``grad_norm``:
+    the gradients' global norm where the caller has it (on a mesh, over
+    the shards: ``global_norm(axes=)``); the update is elementwise, so on
+    a mesh it runs on each rank's shards as they are."""
     p_l, g_l, m_l, v_l = (tree_leaves(t) for t in (params, grads, state.mu, state.nu))
-    scale = torch.clamp(grad_clip / torch.clamp(global_norm(g_l), min=1e-9), max=1.0)
+    if grad_norm is None:
+        grad_norm = global_norm(g_l)
+    scale = torch.clamp(grad_clip / torch.clamp(grad_norm, min=1e-9), max=1.0)
     step = state.step + 1
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()

@@ -31,7 +31,9 @@ sync, and a sampled build's segments launch the greedy build's kernels,
 leaving a greedy build's segments as they were. Round telemetry: the
 buffer a captured round adds to equals the eager rounds' bitwise, and
 telemetry on or off launches and syncs alike. Training: two train steps
-on the card within 1e-4 of the same steps on the CPU. The grouped expert
+on the card within 1e-4 of the same steps on the CPU; two data=2 train
+steps by two gloo ranks sharing the card (FSDP) equal to the one-device
+steps. The grouped expert
 GEMM of the MoE dispatch: within 1e-4 of its plain version in float32 and
 within one bfloat16 ulp of the output (2^-7 of the value, plus 1e-4: the
 float32 sums' order) in bfloat16, at qwen2-moe's shape and at ragged
@@ -1106,3 +1108,47 @@ def test_nccl_all_reduce_captured_in_a_graph(tmp_path):
     spawn(W.nccl_capture_rank, 1, (str(tmp_path),), device="cuda")
     got = torch.load(tmp_path / "replayed.pt")
     assert torch.equal(got, (torch.arange(8, dtype=torch.float32) + 1) * 2)
+
+
+def test_data_parallel_train_steps_share_the_card(tmp_path):
+    """Two data=2 train steps of vicuna (reduced, 4 layers, FSDP) by two
+    gloo ranks sharing the card equal the one-device steps: ce within 1e-5
+    relative and grad_norm within 1e-4 relative at each step; after the
+    second (the first update: the warm-up gives step 0 a learning rate of
+    0) every param within 1e-5 but for at most one element in 10^4 of a
+    leaf (within 3e-3: AdamW's update of a gradient that is rounding
+    noise), and both AdamW moments within 1e-6 (the AdamW rule of
+    ``test_torch_training.py``)."""
+    dev = _card()
+    import torch_mesh_workers as W
+    from repro_torch import training as T
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import Mesh, spawn
+    from repro_torch.models import model as M
+
+    spawn(W.card_train_rank, 2, ("data=2,model=1", str(tmp_path)), device="cuda", share_card=True,
+          timeout_s=300)
+    p = M.init_params(W.VICUNA, 0, device=dev)
+    opt = T.adamw_init(p)
+    step = T.make_train_step(W.VICUNA, **W.TRAIN_STEP_KW)
+    metrics = []
+    for b in W.step_batches(W.VICUNA, 2):
+        p, opt, m = step(p, opt, {k: torch.as_tensor(v, device=dev) for k, v in b.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+    assert metrics[1]["lr"] > 0
+    want = {k: v.cpu().numpy() for k, v in W.flat({"p": p, "mu": opt.mu, "nu": opt.nu}).items()}
+    mesh = Mesh((2, 1), ("data", "model"), shape_only=True)
+    for r in range(2):
+        rec = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+        for got, ref in zip(rec["metrics"], metrics, strict=True):
+            assert got["lr"] == ref["lr"]
+            for k, tol in (("ce", 1e-5), ("grad_norm", 1e-4)):
+                assert abs(got[k] - ref[k]) <= tol * abs(ref[k]), k
+        by_key = SH.specs_by_key({"p": rec["specs"], "mu": rec["specs"], "nu": rec["specs"]})
+        for k, a in rec["leaves"].items():
+            w = want[k][SH.local_slices(want[k].shape, by_key[k], mesh, {"data": r, "model": 0})]
+            d = np.abs(a.numpy() - w)
+            if k.startswith("['p']"):
+                assert (d > 1e-5).sum() <= max(1, d.size // 10_000) and d.max() <= 3e-3, k
+            else:
+                assert d.max() <= 1e-6, k

@@ -218,3 +218,57 @@ def test_entry_points_refuse_params_cut_for_another_mesh(case, entry):
     # the same params in their own placement run
     with SU.use_mesh(None):
         M.decode_step(cfg, whole, cache, toks)
+
+
+def test_train_collective_bytes_of_one_layer_match_a_hand_count():
+    """``analysis.costs.train_collective_terms`` for one vicuna-7b layer
+    (bfloat16) at data=2, model=2 (policy kv), remat on, by hand: every
+    group has two ranks (ring factor 1) but the norm's (data, model) sum
+    over four (3/2). The CPU ranks of ``test_torch_train_mesh.py`` hold the
+    function to the bytes they pass to ``all_reduce``."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("vicuna-7b"), num_layers=1)
+    B, S, d, V, F, elt = 8, 16, 4096, 32000, 11008, 2
+    M = B // 2 * S
+    terms = costs.train_collective_terms(cfg, B, S, data=2, model=2)
+    # the embedding's sum, the logits' gather (float32), the head input's
+    # gradient; the layer's wo and w_down sums twice (the recompute), its
+    # two replicated inputs' gradients once
+    assert terms["tp"] == M * d * elt + M * V * 4 + M * d * elt + 2 * 2 * M * d * elt \
+        + 2 * M * d * elt
+    # every layer leaf is cut over data at min_dim 512: gathered whole over
+    # data (its model shard) twice forward and once as the gradient's sum
+    layer = (4 * d * 16 * 128 + 3 * d * F // 2 + 2 * d) * elt
+    assert terms["fsdp"] == 3 * layer
+    # embed and lm_head (vocab 16000 a rank) and final_norm summed over data
+    assert terms["grad"] == (2 * V // 2 * d + d) * elt
+    # the global ce; the norm's 12-leaf sums over model, data and both
+    assert terms["step"] == 4
+    assert terms["norm"] == 12 * 4 * (1 + 1 + 1.5)
+    assert costs.train_collectives(cfg, B, S, data=2, model=2) == {"all-reduce": sum(terms.values())}
+    assert costs.train_collectives(cfg, B, S) == {"all-reduce": 0.0}
+
+
+@pytest.mark.parametrize("mesh_spec", ["data=1,model=1", "data=2,model=2"])
+def test_train_plan_counts_the_moments_float32_leaf_by_leaf(mesh_spec):
+    """The dry run's train row for jamba-v0.1-52b (bfloat16, with a float32
+    router and float32 Mamba-2 ``A_log``, ``D`` and ``dt_bias``): the
+    per-device params and AdamW moments are the bytes ``init_params`` and
+    ``adamw_init`` give this rank's shards (``train_specs``), the moments
+    at 8 bytes an element whatever type their params take."""
+    from repro_torch.config import get_shape
+    from repro_torch.models import model as M
+    from repro_torch.training import adamw_init
+
+    cfg = get_config("jamba-v0.1-52b")
+    mesh = D.shape_mesh(mesh_spec)
+    row = D.plan(cfg, get_shape("train_4k"), mesh)
+    params = M.init_params(cfg, device="meta", mesh=mesh, specs=SH.train_specs(cfg, mesh))
+    opt = adamw_init(params)
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in M.tree_leaves(tree))  # noqa: E731
+    assert row["params_bytes"] == nbytes(params)
+    assert row["grad_bytes"] == row["params_bytes"]
+    assert row["moment_bytes"] == nbytes((opt.mu, opt.nu))
+    # the float32 leaves take 8 bytes of moments an element, not 4 x 2
+    assert row["moment_bytes"] < 4 * row["params_bytes"]

@@ -222,3 +222,129 @@ def nccl_capture_rank(rank, world, out_dir):
     graph.replay()
     torch.cuda.synchronize()
     torch.save(b.cpu(), os.path.join(out_dir, "replayed.pt"))
+
+
+# ---------------------------------------------------------------- training
+TRAIN_MIN_DIM = 128      # fsdp_upgrade's min_dim at the reduced widths (d 256)
+TRAIN_STEP_KW = dict(peak_lr=1e-3, warmup=2, total_steps=10, remat=False)
+
+
+def train_cfgs():
+    """The training variants of the mesh tests: name -> port config."""
+    moe2 = dataclasses.replace(MOE, moe=dataclasses.replace(MOE.moe, exec_groups=2))
+    return {"vicuna-7b": VICUNA, "gemma3-1b": GEMMA, "qwen2-moe-a2.7b": MOE,
+            "qwen2-moe-a2.7b groups 2": moe2, "mamba2-130m": MAMBA}
+
+
+def train_batch(cfg, B=4, S=24, seed=3):
+    """The loss and gradient checks' batch: tokens and a loss mask."""
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32),
+            "loss_mask": (rng.random((B, S - 1)) < 0.6).astype(np.int32)}
+
+
+def step_batches(cfg, n=3):
+    from repro_torch.data import lm_batches, synthetic_corpus
+
+    it = lm_batches(synthetic_corpus(cfg.vocab_size, 5_000), 4, 32)
+    return [next(it) for _ in range(n)]
+
+
+def rows_of(batch, mesh):
+    """This rank's rows of a global batch (the data axes' share)."""
+    D, i = mesh.axis_size(SU.DATA_AXES), mesh.index(SU.DATA_AXES)
+    return {k: v[i * len(v) // D:(i + 1) * len(v) // D] for k, v in batch.items()}
+
+
+def flat(tree) -> dict:
+    """{checkpoint key: leaf} of a tree."""
+    from repro_torch.training.checkpoint import map_with_path
+
+    out = {}
+    map_with_path(lambda k, t: out.__setitem__(k, t), tree)
+    return out
+
+
+def capacity_case(moe, N=24, seed=5):
+    """Top-k expert ids (N, K) for the slot-table check, skewed to the
+    first expert so that its pairs overflow the capacity."""
+    rng = np.random.default_rng(seed)
+    p = np.full(moe.num_experts, 1.0)
+    p[0] = 3.0 * moe.num_experts
+    return np.stack([rng.choice(moe.num_experts, moe.top_k, replace=False, p=p / p.sum())
+                     for _ in range(N)])
+
+
+def train_rank(rank, world, spec, inputs, out_dir):
+    """Every training check of one rank of ``spec`` (CPU, gloo): per
+    variant the loss, the gradients (remat on) and three train steps on
+    this rank's rows and shards (``train_specs`` at ``TRAIN_MIN_DIM``),
+    the bytes the step passed to ``all_reduce``; the capacity slot table
+    on the data axes; at data=2,model=2 a checkpoint of the trained
+    vicuna."""
+    from repro_torch import training as T
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.training.train_step import loss_and_grads
+
+    os.nice(10)          # yield the cores to the suite's timing-sensitive tests
+    mesh = mesh_of(spec, "cpu")
+    res = {}
+    for name, cfg in train_cfgs().items():
+        specs = SH.train_specs(cfg, mesh, min_dim=TRAIN_MIN_DIM)
+        jp = inputs["params"][name]
+        r = {"fsdp_leaves": sum("data" in SH.spec_axes(s)
+                                for s in SH.specs_by_key(specs).values())}
+        with SU.use_mesh(mesh):
+            p = bridge.params_from_jax(jp, device="cpu", cfg=cfg, mesh=mesh, specs=specs)
+            SU.reset_counter()
+            _, met, grads = loss_and_grads(cfg, p, rows_of(train_batch(cfg), mesh), remat=True)
+            r["grad_bytes"] = SU.COUNTER["bytes"]
+            r["loss"] = {k: float(v) for k, v in met.items()}
+            r["grads"] = dict(zip(flat(p), grads))
+            step = T.make_train_step(cfg, **TRAIN_STEP_KW)
+            opt = T.adamw_init(p)
+            r["steps"] = []
+            for i, b in enumerate(step_batches(cfg)):
+                SU.reset_counter()
+                p, opt, m = step(p, opt, rows_of(b, mesh))
+                if i == 0:
+                    r["step_bytes"] = SU.COUNTER["bytes"]
+                r["steps"].append({k: float(v) for k, v in m.items()})
+            r["params"] = flat(p)
+            if name == "vicuna-7b" and spec == "data=2,model=2":
+                T.save_checkpoint(os.path.join(out_dir, "ckpt"), p, opt, step=3, mesh=mesh,
+                                  cfg=cfg)
+        res[name] = r
+    ids = capacity_case(MOE.moe)
+    res["slots"] = {}
+    for groups in (1, 2):
+        moe = dataclasses.replace(MOE.moe, exec_groups=groups)
+        with SU.use_mesh(mesh):
+            local = torch.as_tensor(rows_of({"ids": ids}, mesh)["ids"])
+            slot, keep, C = moe_lib.capacity_slots(local, moe, moe.capacity_factor, over_data=True)
+        res["slots"][groups] = (slot.reshape(-1), keep.reshape(-1), C)
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def card_train_rank(rank, world, spec, out_dir):
+    """Two ranks sharing the card over gloo: two train steps of vicuna
+    (reduced, 4 layers, FSDP at ``TRAIN_MIN_DIM``) on this rank's rows (the
+    second applies an update: the warm-up gives step 0 a learning rate of
+    0); the metrics of each step, the params and the moments."""
+    from repro_torch import training as T
+
+    dev = torch.device("cuda", 0)
+    mesh = mesh_of(spec, dev)
+    specs = SH.train_specs(VICUNA, mesh, min_dim=TRAIN_MIN_DIM)
+    metrics = []
+    with SU.use_mesh(mesh):
+        p = M.init_params(VICUNA, 0, device=dev, mesh=mesh, specs=specs)
+        opt = T.adamw_init(p)
+        step = T.make_train_step(VICUNA, **TRAIN_STEP_KW)
+        for b in step_batches(VICUNA, 2):
+            b = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+            p, opt, m = step(p, opt, rows_of(b, mesh))
+            metrics.append({k: float(v) for k, v in m.items()})
+    torch.save({"metrics": metrics, "specs": specs,
+                "leaves": {k: v.cpu() for k, v in flat({"p": p, "mu": opt.mu, "nu": opt.nu}).items()}},
+               os.path.join(out_dir, f"rank{rank}.pt"))
