@@ -60,8 +60,11 @@ qwen2-moe-a2.7b at all 24 layers in float32 (AR, DyTC, ``tree_fused``
 single dense and paged, ``chain_fused`` split; every stream equal to AR)
 and in bfloat16, and mixtral-8x22b cut to 4 layers (AR, DyTC,
 ``tree_fused`` single); phase 2 holds that kernel against its plain
-version at both models' expert shapes (bitwise batch-invariant too) and
-times it beside three yardsticks. Phase 14 serves the Mamba-2 stacks at
+version at both models' expert shapes, with experts of 1 to 130 rows about
+its bfloat16 tiles (bitwise batch-invariant too), and times it beside
+three yardsticks (in bfloat16 ``torch._grouped_mm``, the kernel's time
+over its printed); phase 1 requires tensor-core (HGMMA) and TMA (UTMALDG)
+instructions in its bfloat16 kernels. Phase 14 serves the Mamba-2 stacks at
 full width, mamba2-130m at all 24 layers and jamba-v0.1-52b cut to one
 8-layer unit, float32 then bfloat16: AR, PLD and SD single stream (with an
 1100-token prompt whose SSD prefill spans five chunks), ``chain_fused``
@@ -119,7 +122,8 @@ seconds and the memory left allocated after it. The last line is the
 JSON device record; the line before it lists the kernels, with the
 launches of phases 3, 5-15 and 17 (graph launches counted by the server,
 a gated segment's only in the rounds that ran it; phase 17's of every
-rank).
+rank); the grouped expert GEMM has a row for each of its two kernels
+(``moe_grouped`` float32, ``moe_grouped_bf16`` bfloat16).
 Exits non-zero,
 with no result, when any phase fails or when no CUDA device (or no
 repro_torch beside this script) is present.
@@ -281,8 +285,11 @@ def phase_env(torch) -> dict:
                     info.get("spill_stores", 0) or info.get("spill_loads", 0)
                     or info.get("IMMA", 1) == 0 or info.get("LDGSTS", 1) == 0):
                 raise AssertionError(f"{func}: spills, or no IMMA / LDGSTS in its SASS: {info}")
-            if name == "moe_grouped" and "grouped_kernel" in func and info.get("LDGSTS", 1) == 0:
+            if name == "moe_grouped" and "grouped_kernel<float" in func and info.get("LDGSTS", 1) == 0:
                 raise AssertionError(f"{func}: no LDGSTS (cp.async) in its SASS: {info}")
+            if name == "moe_grouped" and "grouped_wgmma_kernel" in func and (
+                    info.get("HGMMA", 1) == 0 or info.get("UTMALDG", 1) == 0):
+                raise AssertionError(f"{func}: no HGMMA (wgmma) or UTMALDG (TMA) in its SASS: {info}")
     return {"smi": smi}
 
 
@@ -863,7 +870,7 @@ def phase_kernels(torch, results: dict) -> None:
     results["int8_matmul"] = _w8a8_kernel(torch, gen, flush_buf)
 
     # --- the grouped expert GEMM of the MoE dispatch (not a TPU kernel)
-    results["moe_grouped"] = _moe_kernel(torch, gen, flush)
+    results.update(_moe_kernel(torch, gen, flush))
     del flush_buf
 
 
@@ -994,6 +1001,8 @@ def _set_cond_kernel(torch, flush) -> dict:
 MOE_SHAPES = (("qwen2-moe-a2.7b", 2048, 1408, 60, 4), ("mixtral-8x22b", 6144, 16384, 8, 2))
 MOE_TOKENS = (1, 4, 16, 64, 128)
 MOE_TIMED = (4, 16, 64)            # the single stream's verifies, the server's B=4 verify
+MOE_TIMED_BF16 = MOE_TIMED + (128,)
+MOE_EDGE_ROWS = (1, 63, 65, 130)   # rows an expert about the 64-row tiles of the bfloat16 kernel
 
 
 def _moe_route(torch, gen, N, K, E, d, dtype, pool=None):
@@ -1027,13 +1036,24 @@ def _moe_kernel(torch, gen, flush) -> dict:
     version and three yardsticks: a loop of one matmul per expert that reads
     the group sizes on the host, the fixed-shape product of every expert
     over every token (einsum, E / K times the operations) and, in bfloat16,
-    ``torch._grouped_mm`` where the card's torch has it."""
+    ``torch._grouped_mm`` where the card's torch has it, with the kernel's
+    graph-replay time over its. Routed cases give each of K experts 1, 63,
+    64, 65 or 130 rows, about the bfloat16 kernel's 64-row tiles; the
+    bitwise check also puts the last tokens' rows in a later tile of each
+    expert. bfloat16 is also timed at N = 128. Returns the kernels line's
+    two rows, each with its type's worst error: ``moe_grouped`` (the
+    float32 SIMT kernel) at qwen2-moe N=64 and ``moe_grouped_bf16`` (the
+    bfloat16 tensor-core kernel) at qwen2-moe N=16 (~phase 13's B=4 round),
+    with ``torch._grouped_mm``'s time."""
     from repro_torch.analysis import costs as C
     from repro_torch.kernels import moe_grouped as mg
     from repro_torch.kernels import ref
 
     F_ = torch.nn.functional
-    worst, out = 0.0, None
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    rows_of = {("qwen2-moe-a2.7b", "float32", 64): "moe_grouped",
+               ("qwen2-moe-a2.7b", "bfloat16", 16): "moe_grouped_bf16"}
+    out = {}
     for model, d, F, E, K in MOE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype)[6:]
@@ -1049,8 +1069,10 @@ def _moe_kernel(torch, gen, flush) -> dict:
                 h = ref.ref_moe_grouped(x_s, w_gate, offs, act="silu", w_mul=w_up)
                 return ref.ref_moe_grouped(h, w_down, offs)
 
-            # and 64 tokens routed to K experts only: most experts get no row
-            cases = [(N, None) for N in MOE_TOKENS] + [(64, tuple(range(0, E, E // K))[:K])]
+            # and tokens routed to K experts only: most experts get no row, each
+            # of the K gets every token's row
+            k_pool = tuple(range(0, E, E // K))[:K]
+            cases = [(N, None) for N in MOE_TOKENS] + [(N, k_pool) for N in (64, *MOE_EDGE_ROWS)]
             errs = []
             for N, pool in cases:
                 x_s, offs, _ = _moe_sort(torch, *_moe_route(torch, gen, N, K, E, d, dtype, pool), E)
@@ -1069,8 +1091,7 @@ def _moe_kernel(torch, gen, flush) -> dict:
                 print(f"[phase 2] moe_grouped {model} {name} N={N:3d} (P={N * K}, {hit} of {E} "
                       f"experts hit{', routed to ' + str(len(pool)) if pool else ''}): err abs "
                       f"h {errs[-2]:.3e}, out {errs[-1]:.3e}")
-            if dtype == torch.float32:
-                worst = max(worst, *errs)
+            worst[dtype] = max(worst[dtype], *errs)
             # batch invariance: the rows of the first 4 tokens, alone and among 64
             x, ids = _moe_route(torch, gen, 64, K, E, d, dtype)
             rows = []
@@ -1081,9 +1102,21 @@ def _moe_kernel(torch, gen, flush) -> dict:
             if not torch.equal(rows[0], rows[1]):
                 raise AssertionError(f"moe_grouped {model} {name}: the first 4 tokens' rows differ "
                                      f"when 60 more tokens are batched with them")
+            # and the last 4 of 100 tokens routed to K experts: rows 96-99 of
+            # each expert's 100, in its second 64-row tile
+            x, ids = _moe_route(torch, gen, 100, K, E, d, dtype, k_pool)
+            for lo in (96, 0):
+                x_s, offs, order = _moe_sort(torch, x[lo:], ids[lo:], E)
+                rows.append(kernel(x_s, offs)[torch.argsort(order)][-4 * K:])
+            torch.cuda.synchronize()
+            if not torch.equal(rows[2], rows[3]):
+                raise AssertionError(f"moe_grouped {model} {name}: the last 4 tokens' rows differ "
+                                     f"when 96 tokens of the same experts come before them")
             print(f"[phase 2] moe_grouped {model} {name}: the first 4 tokens' {4 * K} rows bitwise "
-                  f"equal alone and among 64 tokens' {64 * K}")
-            for N in MOE_TIMED:
+                  f"equal alone and among 64 tokens' {64 * K}; the last 4 tokens' alone and after "
+                  f"96 tokens of the same {K} experts (their rows in each expert's second 64-row "
+                  f"tile)")
+            for N in (MOE_TIMED_BF16 if dtype == torch.bfloat16 else MOE_TIMED):
                 x, ids = _moe_route(torch, gen, N, K, E, d, dtype)
                 x_s, offs, order = _moe_sort(torch, x, ids, E)
                 sorted_e = torch.searchsorted(offs[1:].long(), torch.arange(N * K, device="cuda"),
@@ -1111,7 +1144,7 @@ def _moe_kernel(torch, gen, flush) -> dict:
                           plain_ms=_time_ms(lambda: plain(x_s, offs), flush),
                           loop_ms=_time_ms(loop, flush), every_ms=_time_ms(every, flush),
                           every_graph_ms=_graph_ms(every, flush), bound_ms=bound, bound_by=by)
-                grouped = "absent"
+                grouped, tm["library_graph_ms"] = "absent", None
                 if dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
                     ends = offs[1:].contiguous()
 
@@ -1122,8 +1155,12 @@ def _moe_kernel(torch, gen, flush) -> dict:
 
                     try:
                         e = _err(lib(), kernel(x_s, offs))
-                        grouped = (f"{_time_ms(lib, flush):.4f} ms (graph replay "
-                                   f"{_graph_ms(lib, flush):.4f} ms, err abs {e:.3e})")
+                        tm["library_ms"] = _time_ms(lib, flush)
+                        tm["library_graph_ms"] = _graph_ms(lib, flush)
+                        grouped = (f"{tm['library_ms']:.4f} ms (graph replay "
+                                   f"{tm['library_graph_ms']:.4f} ms, err abs {e:.3e}); kernel "
+                                   f"graph / library graph "
+                                   f"{tm['graph_ms'] / tm['library_graph_ms']:.2f}")
                     except RuntimeError as exc:
                         grouped = f"absent ({str(exc).splitlines()[0][:80]})"
                 print(f"[phase 2] moe_grouped {model} {name} N={N} (P={N * K}, {hit} experts hit): "
@@ -1133,12 +1170,15 @@ def _moe_kernel(torch, gen, flush) -> dict:
                       f"(host read) {tm['loop_ms']:.4f} ms; every expert over every token "
                       f"{tm['every_ms']:.4f} ms (graph replay {tm['every_graph_ms']:.4f} ms); "
                       f"torch._grouped_mm {grouped}")
-                if (model, name, N) == ("qwen2-moe-a2.7b", "float32", 64):
-                    out = tm
+                if (model, name, N) in rows_of:
+                    out[rows_of[model, name, N]] = dict(
+                        dtype=dtype, ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=bound,
+                        bound_by=by, library_ms=tm.get("library_ms"), launches=0)
             del w_gate, w_up, w_down
             torch.cuda.empty_cache()
-    return dict(max_abs_err=worst, ms=out["ms"], plain_ms=out["plain_ms"], bound_ms=out["bound_ms"],
-                bound_by=out["bound_by"], library_ms=None, launches=0)
+    for row in out.values():
+        row["max_abs_err"] = worst[row.pop("dtype")]
+    return out
 
 
 # ------------------------------------------------------------------ phases 3-5
@@ -1164,7 +1204,8 @@ def _counters():
             "tree_attention": (tree_attention, "launches"),
             "int8_matmul": (int8_matmul, "launches"),
             "set_cond": (graph_cond, "launches"),
-            "moe_grouped": (moe_grouped, "launches")}
+            "moe_grouped": (moe_grouped, "launches"),
+            "moe_grouped_bf16": (moe_grouped, "bf16_launches")}
 
 
 def _reset_counts() -> None:
@@ -3009,7 +3050,8 @@ def phase_moe(torch, results: dict) -> None:
         gc.collect()
         torch.cuda.empty_cache()
     print(f"[phase 13] kernel launches: {launches}")
-    for name in ("flash_decode", "tree_attention", "flash_decode_paged", "set_cond", "moe_grouped"):
+    for name in ("flash_decode", "tree_attention", "flash_decode_paged", "set_cond", "moe_grouped",
+                 "moe_grouped_bf16"):
         if launches[name] <= 0:
             raise AssertionError(f"phase 13: {name} was not launched")
     for k, v in launches.items():
@@ -3263,8 +3305,10 @@ def phase_ssm(torch, results: dict) -> None:
     jamba = {k: launches[k] - mamba_launches[k] for k in launches}
     print(f"[phase 14] jamba's kernel launches: flash_decode {jamba['flash_decode']}, tree_attention "
           f"{jamba['tree_attention']}, flash_decode_paged {jamba['flash_decode_paged']}, moe_grouped "
-          f"{jamba['moe_grouped']}, set_cond {jamba['set_cond']}")
-    for k in ("flash_decode", "tree_attention", "flash_decode_paged", "moe_grouped", "set_cond"):
+          f"{jamba['moe_grouped']}, moe_grouped_bf16 {jamba['moe_grouped_bf16']}, set_cond "
+          f"{jamba['set_cond']}")
+    for k in ("flash_decode", "tree_attention", "flash_decode_paged", "moe_grouped",
+              "moe_grouped_bf16", "set_cond"):
         if jamba[k] <= 0:
             raise AssertionError(f"phase 14: jamba launched no {k}")
     for k, v in launches.items():
@@ -4087,7 +4131,10 @@ def _shard_shape_kernels(torch) -> None:
     as the main path's): the W8A8 kernel on vicuna-7b's model=2 shards (the
     row-parallel down projection, K = 5504, and the column-parallel gate,
     N = 5504), bitwise; the grouped expert GEMM at qwen2-moe's local
-    expert d_ff (1408 / 2 = 704), float32, within TOL["moe"]."""
+    expert d_ff (1408 / 2 = 704), float32, within TOL["moe"], and in
+    bfloat16 at 704 and at model=4's 352 (n and k ending inside a 64-wide
+    tile of the tensor-core kernel), within one bfloat16 ulp plus
+    TOL["moe"]."""
     from repro_torch.kernels import int8_matmul as i8
     from repro_torch.kernels import moe_grouped as mg
     from repro_torch.kernels import ref
@@ -4099,20 +4146,27 @@ def _shard_shape_kernels(torch) -> None:
         if not torch.equal(got, want):
             raise AssertionError(f"phase 17: int8_matmul at the shard shape {M}x{K}x{N} differs "
                                  f"by {_err(got, want)}")
-    E, d, F = 60, 2048, 704
-    x, ids = _moe_route(torch, gen, 64, 4, E, d, torch.float32)
-    x_s, offs, _ = _moe_sort(torch, x, ids, E)
-    w_g, w_u = (torch.randn(E, d, F, generator=gen, device="cuda") * d ** -0.5 for _ in range(2))
-    w_d = torch.randn(E, F, d, generator=gen, device="cuda") * F ** -0.5
-    h = mg.moe_grouped(x_s, w_g, offs, act="silu", w_mul=w_u)
-    err = [_err(h, ref.ref_moe_grouped(x_s, w_g, offs, act="silu", w_mul=w_u))]
-    err.append(_err(mg.moe_grouped(h, w_d, offs), ref.ref_moe_grouped(h, w_d, offs)))
+    E, d = 60, 2048
+    text = []
+    for dtype, F in ((torch.float32, 704), (torch.bfloat16, 704), (torch.bfloat16, 352)):
+        x, ids = _moe_route(torch, gen, 64, 4, E, d, dtype)
+        x_s, offs, _ = _moe_sort(torch, x, ids, E)
+        w_g, w_u = (torch.randn(E, d, F, generator=gen, device="cuda").mul_(d ** -0.5).to(dtype)
+                    for _ in range(2))
+        w_d = torch.randn(E, F, d, generator=gen, device="cuda").mul_(F ** -0.5).to(dtype)
+        h = mg.moe_grouped(x_s, w_g, offs, act="silu", w_mul=w_u)
+        pairs = ((h, ref.ref_moe_grouped(x_s, w_g, offs, act="silu", w_mul=w_u)),
+                 (mg.moe_grouped(h, w_d, offs), ref.ref_moe_grouped(h, w_d, offs)))
+        for a, b in pairs:
+            ulp = 0.0 if dtype == torch.float32 else 2 ** -7 * b.float().abs()
+            if bool(((a.float() - b.float()).abs() > TOL["moe"] + ulp).any()):
+                raise AssertionError(f"phase 17: moe_grouped at the shard shape d_ff {F} "
+                                     f"{str(dtype)[6:]} off by {_err(a, b)}")
+        text.append(f"{str(dtype)[6:]} d_ff {F} max abs err {max(_err(a, b) for a, b in pairs):.2e}")
     print(f"[phase 17] shard shapes: int8_matmul at 16x5504x4096, 16x4096x5504 and 128x5504x4096 "
-          f"bitwise equal to its plain version; moe_grouped at qwen2-moe's local d_ff {F} "
-          f"(64 tokens, top-4 of {E}), gated up and down, max abs err {max(err):.2e} "
-          f"(tolerance {TOL['moe']})")
-    if max(err) > TOL["moe"]:
-        raise AssertionError(f"phase 17: moe_grouped at the shard shape off by {max(err)}")
+          f"bitwise equal to its plain version; moe_grouped at qwen2-moe's local d_ff (64 tokens, "
+          f"top-4 of {E}), gated up and down: {'; '.join(text)} (tolerance {TOL['moe']}, plus one "
+          f"ulp in bfloat16)")
 
 
 def phase_mesh(torch, results: dict) -> None:
@@ -4618,6 +4672,7 @@ def main() -> int:
         ("set_cond", "src/repro_torch/csrc/graph_cond.cu", "src/repro/core/engine.py:1083"),
         # the counterpart of the reference's lax.ragged_dot dispatch, not of a Pallas kernel
         ("moe_grouped", "src/repro_torch/csrc/moe_grouped.cu", "src/repro/models/moe.py:143"),
+        ("moe_grouped_bf16", "src/repro_torch/csrc/moe_grouped.cu", "src/repro/models/moe.py:143"),
     ):
         r = results[name]
         kernels.append({

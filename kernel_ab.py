@@ -10,7 +10,11 @@ Each run builds that tree's kernels and prints one line per case: the
 verify merge of the dense flash decode (B=1, 32 heads, T=32, S=160 and
 2048), tree attention (T=32) and the paged merge (B=4, T=16 over 4 pages
 of 64 and T=32 over 32 pages), in float32 and bfloat16; the W8A8 product
-at M = 4, 32, 64 rows in both MLP shapes (4096 -> 11008, 11008 -> 4096).
+at M = 4, 32, 64 rows in both MLP shapes (4096 -> 11008, 11008 -> 4096);
+one MoE layer's grouped expert GEMM (the gated up projection and the down
+projection, two launches) at qwen2-moe-a2.7b's and mixtral-8x22b's expert
+shapes, N = 4, 16, 64 tokens in float32 and 4, 16, 64, 128 in bfloat16,
+beside its bound and, in bfloat16, ``torch._grouped_mm``'s time.
 Every case is timed by CUDA-graph replay with the L2 flushed before every
 replay (``chip_smoke._graph_ms``), with the max abs error against the plain
 version and, for the paged kernel, whether it is bitwise equal to the dense
@@ -86,9 +90,51 @@ def main(root: str, tag: str) -> int:
             ms = cs._graph_ms(lambda: i8.int8_matmul(x_q, w_q, xs, ws), flush)
             rows.append((f"int8_matmul ({M},{K})x({K},{N})", ms, cs._err(got, want),
                          f" bitwise={torch.equal(got, want)}"))
+    rows += _moe_rows(torch, cs, gen, flush)
     for name, ms, err, extra in rows:
         print(f"[{tag}] {name:40s} graph replay {ms:.4f} ms  err {err:.2e}{extra}")
     return 0
+
+
+def _moe_rows(torch, cs, gen, flush) -> list:
+    from repro_torch.analysis import costs as C
+    from repro_torch.kernels import moe_grouped as mg
+    from repro_torch.kernels import ref
+
+    silu = torch.nn.functional.silu
+    rows = []
+    for model, d, F, E, K in cs.MOE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype)[6:]
+            w_gate, w_up = (torch.randn(E, d, F, generator=gen, device="cuda").mul_(d ** -0.5)
+                            .to(dtype) for _ in range(2))
+            w_down = torch.randn(E, F, d, generator=gen, device="cuda").mul_(F ** -0.5).to(dtype)
+            for N in cs.MOE_TIMED_BF16 if dtype == torch.bfloat16 else cs.MOE_TIMED:
+                x_s, offs, _ = cs._moe_sort(torch, *cs._moe_route(torch, gen, N, K, E, d, dtype), E)
+                ends = offs[1:].contiguous()
+
+                def layer():
+                    h = mg.moe_grouped(x_s, w_gate, offs, act="silu", w_mul=w_up)
+                    return mg.moe_grouped(h, w_down, offs)
+
+                def lib():
+                    h = silu(torch._grouped_mm(x_s, w_gate, offs=ends)) * torch._grouped_mm(
+                        x_s, w_up, offs=ends)
+                    return torch._grouped_mm(h, w_down, offs=ends)
+
+                h = ref.ref_moe_grouped(x_s, w_gate, offs, act="silu", w_mul=w_up)
+                err = cs._err(layer(), ref.ref_moe_grouped(h, w_down, offs))
+                hit = int((offs[1:] > offs[:-1]).sum())
+                bound, _ = C.moe_grouped(N, K, d, F, E, hit, dtype).bound_ms()
+                ms = cs._graph_ms(layer, flush)
+                extra = f" bound {bound:.4f}"
+                if dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
+                    lib_ms = cs._graph_ms(lib, flush)
+                    extra += f" _grouped_mm {lib_ms:.4f} (kernel / library {ms / lib_ms:.2f})"
+                rows.append((f"moe_grouped {model} {dn} N={N}", ms, err, extra))
+            del w_gate, w_up, w_down
+            torch.cuda.empty_cache()
+    return rows
 
 
 if __name__ == "__main__":

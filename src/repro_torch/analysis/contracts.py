@@ -60,6 +60,7 @@ HAND_KERNELS = {
     "tree2_kernel": "tree_attention",
     "int8_mm_kernel": "int8_matmul",
     "grouped_kernel": "moe_grouped",
+    "grouped_wgmma_kernel": "moe_grouped_bf16",
     "set_cond": "set_cond",
 }
 COMBINE = "combine_kernel"

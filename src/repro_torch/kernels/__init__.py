@@ -16,4 +16,5 @@ def launch_counts() -> Dict[str, int]:
             "tree_attention": tree_attention.launches,
             "int8_matmul": int8_matmul.launches,
             "set_cond": graph_cond.launches,
-            "moe_grouped": moe_grouped.launches}
+            "moe_grouped": moe_grouped.launches,
+            "moe_grouped_bf16": moe_grouped.bf16_launches}

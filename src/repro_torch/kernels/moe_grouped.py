@@ -11,6 +11,13 @@ covers every expert; the offsets stay on the device, so a captured round
 holds it, and each output element is reduced in one fixed order whatever
 the row count: the product is batch-invariant.
 
+A launch is cut by ``_plan(K, N, E, dtype)``, a pure function of the
+shapes and the type, never of the row count or the offsets: bfloat16 runs
+the tensor-core kernel (``wgmma`` over TMA-fed tiles, 128 output columns a
+CTA) with a ring of ``STAGES``; float32 the SIMT kernel, whose tiles and
+ring are fixed in its source. Each kernel keeps its own launch count:
+``launches`` the float32 kernel's, ``bf16_launches`` the bfloat16 one's.
+
 On CPU tensors it computes the plain version (``kernels/ref.py::
 ref_moe_grouped``, one matmul per expert, the offsets read on the host); on
 CUDA tensors it launches the kernel or raises.
@@ -24,12 +31,27 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-launches = 0
+launches = 0            # the float32 SIMT kernel's
+bf16_launches = 0       # the bfloat16 tensor-core kernel's
 
 ACTS = {"none": 0, "silu": 1, "gelu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"moe_grouped": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]}
+_SIGNATURES = {"moe_grouped": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]}
+
+STAGES = 4              # the tensor-core kernel's ring: 64 k a stage
+
+
+def _plan(K: int, N: int, E: int, dtype: torch.dtype) -> int:
+    """The ring depth of a (K, N) expert product over E experts: ``STAGES``
+    in bfloat16, 0 in float32 (the SIMT kernel takes none). It reads the
+    shapes and the type alone, so every output element is reduced the same
+    way whatever rows are batched."""
+    if dtype == torch.float32:
+        return 0
+    if dtype != torch.bfloat16:
+        raise TypeError(f"moe_grouped: no plan for {dtype}")
+    return STAGES
 
 
 def moe_grouped(x_s: torch.Tensor, w: torch.Tensor, offs: torch.Tensor, *, act: str = "none",
@@ -44,17 +66,24 @@ def moe_grouped(x_s: torch.Tensor, w: torch.Tensor, offs: torch.Tensor, *, act: 
 
 
 def _launch(x_s, w, offs, act: str, w_mul) -> torch.Tensor:
-    global launches
+    global launches, bf16_launches
     P, K = x_s.shape
     E, _, N = w.shape
     out = torch.empty((P, N), dtype=x_s.dtype, device=x_s.device)
+    if P == 0:
+        return out
+    stages = _plan(K, N, E, x_s.dtype)
     lib = _build.load("moe_grouped", _SIGNATURES)
     mul = None if w_mul is None else _build.ptr(w_mul)
     _build.check(lib.moe_grouped(_build.ptr(x_s), _build.ptr(w), mul, _build.ptr(offs),
                                  _build.ptr(out), P, K, N, E, _DTYPES[x_s.dtype],
-                                 int(w_mul is not None), ACTS[act], _build.stream_ptr(x_s.device)),
+                                 int(w_mul is not None), ACTS[act], stages,
+                                 _build.stream_ptr(x_s.device)),
                  "moe_grouped")
-    launches += 1
+    if x_s.dtype == torch.bfloat16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return out
 
 

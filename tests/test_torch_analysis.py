@@ -387,6 +387,20 @@ def test_telemetry_transparency():
         K.assert_telemetry_transparent(on, off)
 
 
+def test_each_grouped_kernel_has_its_launch_count():
+    """The float32 SIMT kernel of ``csrc/moe_grouped.cu`` is a
+    ``moe_grouped`` node of a round and the bfloat16 tensor-core kernel a
+    ``moe_grouped_bf16`` one, the keys their wrapper counts them under."""
+    from repro_torch.kernels import launch_counts
+
+    names = ("void (anonymous namespace)::grouped_kernel<float, 2, 1>(float const*)",
+             "void (anonymous namespace)::grouped_wgmma_kernel<2, 1>(CUtensorMap_st)",
+             "_ZN12_GLOBAL__N_120grouped_wgmma_kernelILi2ELi1EEEv14CUtensorMap_st")
+    keys = [K.HAND_KERNELS[K.hand_kernel(n)] for n in names]
+    assert keys == ["moe_grouped", "moe_grouped_bf16", "moe_grouped_bf16"]
+    assert set(keys) <= set(launch_counts())
+
+
 def test_kernel_names_and_walk_records():
     assert K.kernel_base(SPLIT) == "(anonymous namespace)::split_kernel"
     assert [K.hand_kernel(x) for x in (SPLIT, COMBINE, TREE, SET_COND, ELEM, GEMM)] == [

@@ -195,6 +195,63 @@ def test_moe_grouped_refuses_what_the_kernel_does_not_take():
             pytest.fail(name)
 
 
+def _expert_shapes():
+    """Every (K, N, E) expert product of the registered configs, unsharded
+    and at the model = 2 and 4 shard widths (the expert d_ff split over
+    the model axis, ``launch/sharding.py``): the up projection (d, F / m)
+    and the down projection (F / m, d)."""
+    shapes = set()
+    for arch in config.list_configs():
+        cfg = config.get_config(arch)
+        if cfg.moe is None:
+            continue
+        d, F, E = cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.num_experts
+        for m in (1, 2, 4):
+            shapes |= {(d, F // m, E), (F // m, d, E)}
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("K,N,E", _expert_shapes())
+def test_grouped_plan_covers_every_config_shape(K, N, E):
+    """Each expert shape of the eleven configs at model = 1, 2 and 4 meets
+    the wrapper's contract and has a plan: the tensor-core kernel's ring of
+    ``STAGES`` in bfloat16, none in float32 (the SIMT kernel's is fixed)."""
+    assert K % 8 == 0 and N % 8 == 0
+    assert moe_grouped._plan(K, N, E, torch.bfloat16) == moe_grouped.STAGES == 4
+    assert moe_grouped._plan(K, N, E, torch.float32) == 0
+
+
+def test_grouped_plan_reads_the_shapes_alone(monkeypatch):
+    """``_plan`` takes (K, N, E, dtype) and nothing else, and the launch
+    passes the C entry point the same plan whatever the row count and the
+    offsets: every output element is reduced one way. Each type's kernel
+    has its own launch count."""
+    import inspect
+
+    assert list(inspect.signature(moe_grouped._plan).parameters) == ["K", "N", "E", "dtype"]
+    calls = []
+
+    class Lib:
+        def moe_grouped(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(moe_grouped._build, "load", lambda name, signatures: Lib())
+    monkeypatch.setattr(moe_grouped._build, "stream_ptr", lambda device: None)
+    monkeypatch.setattr(moe_grouped, "launches", 0)
+    monkeypatch.setattr(moe_grouped, "bf16_launches", 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        w = torch.zeros(4, 64, 136, dtype=dtype)
+        for offs in ((0, 1, 1, 3, 3), (0, 70, 140, 141, 200)):
+            x = torch.zeros(offs[-1], 64, dtype=dtype)
+            moe_grouped._launch(x, w, torch.tensor(offs, dtype=torch.int32), "none", None)
+        assert [c[12] for c in calls[-2:]] == [moe_grouped._plan(64, 136, 4, dtype)] * 2
+    assert moe_grouped._launch(torch.zeros(0, 64), torch.zeros(4, 64, 136),
+                               torch.zeros(5, dtype=torch.int32), "none", None).shape == (0, 136)
+    assert len(calls) == 4                                      # no rows: no launch
+    assert moe_grouped.launches == moe_grouped.bf16_launches == 2
+
+
 # ------------------------------------------------------------------ configs
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_moe_configs_equal_reference(arch):

@@ -36,10 +36,16 @@ steps by two gloo ranks sharing the card (FSDP) equal to the one-device
 steps. The grouped expert
 GEMM of the MoE dispatch: within 1e-4 of its plain version in float32 and
 within one bfloat16 ulp of the output (2^-7 of the value, plus 1e-4: the
-float32 sums' order) in bfloat16, at qwen2-moe's shape and at ragged
-shapes, with most experts empty; the rows of N1 tokens bitwise equal
-when more tokens are batched with them; a captured single round of
-qwen2-moe at full width equal to eager rounds bitwise. The Mamba-2 stacks
+float32 sums' order) in bfloat16, at qwen2-moe's shape and its model = 2
+and 4 shard widths, at ragged shapes, with most experts empty, and with
+one expert of 1, 63, 64, 65 and 130 rows about the bfloat16 kernel's
+64-row tiles; the rows of N1 tokens bitwise equal when more tokens are
+batched with them, before them in the same experts too (a later tile);
+an expert starting inside its neighbour's tile leaves the neighbour's
+rows, and a launch the rows in no segment, as they were; a captured
+bfloat16 launch replayed over new rows and offsets equal to an eager one;
+a captured single round of qwen2-moe at full width equal to eager rounds
+bitwise. The Mamba-2 stacks
 (mamba2-130m and jamba-v0.1-52b, reduced, 4 layers, float32): a captured
 ``chain_fused`` single round, dense and paged, equals eager rounds bitwise,
 one graph launch a round, and its streams equal AR's on the card. The
@@ -881,12 +887,19 @@ def _moe_close(got, want, dtype):
     (64, 4, 60, 2048, 1408, (3, 17, 41, 58)),  # most experts get no row
     (5, 2, 8, 264, 136, None),                 # k and n past the 32 x 64 tiles
     (40, 2, 8, 96, 40, (1, 2)),                # several row tiles for one expert
+    # one expert with 1, 63, 64, 65 and 130 rows: the 64-row tiles' edges
+    (1, 1, 8, 256, 192, (5,)), (63, 1, 8, 256, 192, (5,)), (64, 1, 8, 256, 192, (5,)),
+    (65, 1, 8, 256, 192, (5,)), (130, 1, 8, 256, 192, (5,)),
+    # qwen2-moe's expert d_ff over model = 2 and 4: n (up) and k (down) end
+    # inside a 64-wide tile at 352
+    (16, 4, 60, 2048, 704, None), (16, 4, 60, 2048, 352, None),
 ])
 def test_moe_grouped_matches_plain_on_card(dtype, N, K, E, d, F, experts):
     from repro_torch.kernels import moe_grouped as mg
 
     x_s, offs, _, (w_gate, w_up, w_down) = _moe_case(N, K, E, d, F, dtype, experts)
-    before = mg.launches
+    counter = "launches" if dtype == "float32" else "bf16_launches"      # each kernel's own
+    before = getattr(mg, counter)
     h = mg.moe_grouped(x_s, w_gate, offs, act="silu", w_mul=w_up)
     out = mg.moe_grouped(h, w_down, offs)
     h_plain = ref.ref_moe_grouped(x_s, w_gate, offs, act="silu", w_mul=w_up)
@@ -895,7 +908,7 @@ def test_moe_grouped_matches_plain_on_card(dtype, N, K, E, d, F, experts):
     two = mg.moe_grouped(x_s, w_up, offs, act="gelu")              # a 2-matrix expert
     _moe_close(two, ref.ref_moe_grouped(x_s, w_up, offs, act="gelu"), dtype)
     torch.cuda.synchronize()
-    assert mg.launches == before + 3
+    assert getattr(mg, counter) == before + 3
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -918,6 +931,87 @@ def test_moe_grouped_is_batch_invariant_on_card(dtype):
         inv = np.argsort(order)
         rows.append(out[torch.from_numpy(inv[:N1 * K]).to(dev)])
     assert torch.equal(rows[0], rows[1])
+    # the last N1 tokens alone and after N2 tokens routed to the same K
+    # experts: their rows then sit at 75-79 of each expert's 80, in its
+    # second 64-row tile
+    x, ids = moe_routing(N1 + N2, K, E, d, seed=4, experts=(3, 17, 41, 58))
+    rows = []
+    for lo in (N2, 0):
+        x_s, offs, order = moe_sorted(x[lo:], ids[lo:], E)
+        x_s, offs = (t.to(dev) for t in tensors(x_s, offs))
+        h = mg.moe_grouped(x_s.to(w_up.dtype), w_gate, offs, act="silu", w_mul=w_up)
+        out = mg.moe_grouped(h, w_down, offs)
+        inv = np.argsort(order)
+        rows.append(out[torch.from_numpy(inv[-N1 * K:]).to(dev)])
+    assert torch.equal(rows[0], rows[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_grouped_keeps_to_its_rows_on_card(dtype):
+    """Expert 1's rows start at row 70, inside expert 0's second 64-row
+    tile, and expert 2's at 100: every row holds its own expert's product.
+    Rows past offs[E] are in no segment, and a launch leaves them as they
+    were, though the last expert's tile covers them."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import moe_grouped as mg
+
+    dev, torch_dtype = _card(), getattr(torch, dtype)
+    sizes, P, K, N = (70, 30, 17), 128, 256, 192
+    offs = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]), dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((P, K)).astype(np.float32)).to(dev, torch_dtype)
+    w_gate, w_up, _ = moe_weights(len(sizes), K, N, torch_dtype, dev, 5)
+    got = mg.moe_grouped(x, w_gate, offs, act="silu", w_mul=w_up)
+    want = ref.ref_moe_grouped(x, w_gate, offs, act="silu", w_mul=w_up)
+    _moe_close(got[:sum(sizes)], want[:sum(sizes)], dtype)
+    out = torch.full((P, N), 7.0, dtype=torch_dtype, device=dev)
+    lib = _build.load("moe_grouped", mg._SIGNATURES)
+    _build.check(lib.moe_grouped(_build.ptr(x), _build.ptr(w_gate), _build.ptr(w_up),
+                                 _build.ptr(offs), _build.ptr(out), P, K, N, len(sizes),
+                                 mg._DTYPES[torch_dtype], 1, mg.ACTS["silu"],
+                                 mg._plan(K, N, len(sizes), torch_dtype),
+                                 _build.stream_ptr(x.device)), "moe_grouped")
+    torch.cuda.synchronize()
+    assert torch.equal(out[:sum(sizes)], got[:sum(sizes)])
+    assert bool((out[sum(sizes):] == 7.0).all())
+
+
+def test_moe_grouped_replay_reads_its_buffers_on_card():
+    """bfloat16, qwen2-moe's expert shape: the tensor maps a captured
+    launch bakes in point at the captured buffers, so a replay after new
+    rows and offsets are copied into them equals an eager launch on
+    those."""
+    from repro_torch.kernels import moe_grouped as mg
+
+    N, K, E, d, F = 16, 4, 60, 2048, 1408
+    dev = _card()
+    w_gate, w_up, w_down = moe_weights(E, d, F, torch.bfloat16, dev, 6)
+    cases = []
+    for seed in (6, 7):
+        x, ids = moe_routing(N, K, E, d, seed=seed)
+        x_s, offs, _ = moe_sorted(x, ids, E)
+        cases.append([t.to(dev) for t in tensors(x_s, offs)])
+    x_s, offs = (t.clone() for t in cases[0])
+    x_s = x_s.to(torch.bfloat16)
+
+    def layer():
+        return mg.moe_grouped(mg.moe_grouped(x_s, w_gate, offs, act="silu", w_mul=w_up),
+                              w_down, offs)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        layer()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = layer()
+    for new_x, new_offs in cases[::-1]:
+        x_s.copy_(new_x.to(torch.bfloat16))
+        offs.copy_(new_offs)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, layer())
 
 
 def test_moe_single_round_replay_equals_eager_on_card():
